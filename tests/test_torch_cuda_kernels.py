@@ -1,0 +1,139 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Skipped without a CUDA device (the kernels have no CPU mode); on a
+machine with one, run
+``python -m pytest --noconftest tests/test_torch_cuda_kernels.py`` (the
+conftest sets up JAX, which such a machine need not have).
+Same checks as phases 3 and 4 of ``chip_smoke.py``, at smaller shapes:
+kernels A and B within fp32 max |d| <= 1e-4 (TF32 off) and the bf16 rule
+|k16 - p32| <= max(2 |p16 - p32|, 0.02); kernel C byte-identical to the
+scan, with whole chunks and TileStream pieces.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+# evaluated when each test runs, not at import
+pytestmark = pytest.mark.skipif("not torch.cuda.is_available()",
+                                reason="needs a CUDA device")
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _inputs(bw, c, nh, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).cuda()
+
+    params = {
+        "n1_scale": t(rng.normal(1, 0.1, c)), "n1_bias": t(rng.normal(0, 0.1, c)),
+        "qkv_kernel": t(rng.normal(0, 0.05, (c, 3 * c))),
+        "qkv_bias": t(rng.normal(0, 0.05, 3 * c)),
+        "proj_kernel": t(rng.normal(0, 0.05, (c, c))),
+        "proj_bias": t(rng.normal(0, 0.05, c)),
+        "n2_scale": t(rng.normal(1, 0.1, c)), "n2_bias": t(rng.normal(0, 0.1, c)),
+        "fc1_kernel": t(rng.normal(0, 0.05, (c, 2 * c))),
+        "fc1_bias": t(rng.normal(0, 0.05, 2 * c)),
+        "fc2_kernel": t(rng.normal(0, 0.05, (2 * c, c))),
+        "fc2_bias": t(rng.normal(0, 0.05, c)),
+    }
+    bias = t(rng.normal(0, 0.2, (nh, 64, 64)))
+    flags = torch.from_numpy(rng.integers(0, 4, bw).astype(np.int32)).cuda()
+    return (t(rng.normal(0, 1, (bw, 64, c))),
+            t(rng.normal(0, 1, (bw, 64, 3 * c))), params, bias, flags)
+
+
+def _check(kern, plain, args, kw):
+    before = kern.launches
+    k32 = kern(*args, **kw).float()
+    p32 = plain(*args, **kw).float()
+    assert kern.launches == before + 1
+    assert (k32 - p32).abs().max().item() <= 1e-4
+    a16 = (args[0].bfloat16(),) + tuple(args[1:])
+    k16 = kern(*a16, **kw).float()
+    p16 = plain(*a16, **kw).float()
+    e_k = (k16 - p32).abs().max().item()
+    e_p = (p16 - p32).abs().max().item()
+    assert e_k <= max(2 * e_p, 0.02), (e_k, e_p)
+
+
+@pytest.mark.parametrize("bw,c,nh", [(256, 96, 3), (64, 192, 6), (37, 64, 2)])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_kernel_a_matches_plain(bw, c, nh, shift):
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    _x, qkv, _p, bias, flags = _inputs(bw, c, nh, bw + shift)
+    _check(wa.fused_window_attention_qkv, wa.window_attention_qkv_plain,
+           (qkv, bias, flags), {"num_heads": nh, "shift": shift})
+
+
+@pytest.mark.parametrize("bw,c,nh", [(256, 96, 3), (64, 192, 6), (37, 64, 2)])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_kernel_b_matches_plain(bw, c, nh, shift):
+    from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
+
+    x, _q, params, bias, flags = _inputs(bw, c, nh, bw + shift + 1)
+    _check(sb.fused_swin_block, sb.swin_block_plain,
+           (x, params, bias, flags), {"num_heads": nh, "shift": shift})
+
+
+@pytest.mark.parametrize("frame_hw,scale,batch,dtype", [
+    ((100, 110), 2, 3, torch.float32),
+    ((150, 260), 2, 5, torch.bfloat16),
+    ((180, 330), 4, 16, torch.bfloat16),
+])
+def test_kernel_c_byte_identical_to_scan(frame_hw, scale, batch, dtype):
+    from waifu2x_tensorrt_tpu_torch.engine.config import (
+        Precision,
+        RenderConfig,
+    )
+    from waifu2x_tensorrt_tpu_torch.engine.renderer import make_chunked_fns
+    from waifu2x_tensorrt_tpu_torch.models.registry import get_spec
+    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
+        finalize_gather,
+        finalize_scan,
+    )
+
+    cfg = RenderConfig(precision=Precision.FP16, batch_size=batch,
+                       height=64, width=64, scaling=scale,
+                       overlap=(1 / 16, 1 / 16))
+    _p, fin, plan, sizes = make_chunked_fns(
+        get_spec("swin_unet/art", scale, -1), cfg, frame_hw, "cuda")
+    oh, ow = plan.output_tile
+    rng = np.random.default_rng(0)
+    outs = [torch.from_numpy(rng.random((n, oh, ow, 3), np.float32))
+            .to("cuda", dtype) for n in sizes]
+    want = finalize_scan(outs, plan)
+    before = finalize_gather.launches
+    assert torch.equal(fin(*outs), want)
+    assert finalize_gather.launches == before + 1
+    whole = torch.cat(outs, 0)
+    padded = torch.cat([whole[:3], whole, whole[:2]], 0)
+    cut = plan.tile_count // 2
+    pieces = (padded[3:3 + cut], padded[3 + cut:3 + plan.tile_count])
+    assert torch.equal(fin(*pieces), want)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    _x, qkv, _p, bias, flags = _inputs(8, 96, 3, 0)
+    with pytest.raises(TypeError):
+        wa.fused_window_attention_qkv(qkv.half(), bias, flags, num_heads=3)
+    with pytest.raises(ValueError):
+        wa.fused_window_attention_qkv(qkv[:, :, :96 * 3 - 3], bias, flags,
+                                      num_heads=3)
+    with pytest.raises(ValueError):
+        wa.fused_window_attention_qkv(qkv.transpose(0, 1), bias, flags,
+                                      num_heads=3)

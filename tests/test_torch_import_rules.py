@@ -1,0 +1,97 @@
+"""Import rules of the PyTorch port (``waifu2x_tensorrt_tpu_torch``).
+
+An AST scan, because the test process has jax loaded already (the conftest
+imports it), so ``sys.modules`` cannot tell who imported it:
+- no module of the port, and not ``chip_smoke.py``, imports jax, flax or
+  the JAX package;
+- ``triton`` is imported only inside functions;
+- importing every module of the port builds nothing.
+"""
+
+import ast
+import importlib
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "waifu2x_tensorrt_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "waifu2x_tensorrt_tpu")
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(tree):
+    """(module name, is_top_level) for every import statement."""
+    top = set(id(n) for n in tree.body)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module, id(node) in top
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [name for name, _ in _imports(tree) if _forbidden(name)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_triton_only_inside_functions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    # top-level statements, plus those of class bodies (run at import)
+    eager = list(tree.body)
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef):
+            eager.extend(node.body)
+    for node in eager:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert not any(n.split(".")[0] == "triton" for n in names), \
+                f"{path.name} imports triton at import time"
+
+
+def test_forbidden_name_check_is_exact():
+    assert _forbidden("jax.numpy") and _forbidden("waifu2x_tensorrt_tpu.ops")
+    assert not _forbidden("waifu2x_tensorrt_tpu_torch.ops")
+    assert not _forbidden("jaxtyping")
+
+
+def _module_names():
+    for path in sorted(PKG.rglob("*.py")):
+        name = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+        yield name[: -len(".__init__")] if name.endswith(".__init__") \
+            else name
+
+
+def test_every_module_imports():
+    for name in _module_names():
+        importlib.import_module(name)
+
+
+def test_importing_builds_nothing():
+    """In a fresh interpreter: importing every module of the port loads no
+    kernel library and writes nothing under build/kernels/."""
+    from waifu2x_tensorrt_tpu_torch.ops import build
+
+    before = (sorted(build.BUILD_DIR.glob("*"))
+              if build.BUILD_DIR.exists() else [])
+    code = "\n".join(
+        [f"import {n}" for n in _module_names()]
+        + ["from waifu2x_tensorrt_tpu_torch.ops import build",
+           "assert build._lib is None"])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    after = (sorted(build.BUILD_DIR.glob("*"))
+             if build.BUILD_DIR.exists() else [])
+    assert after == before

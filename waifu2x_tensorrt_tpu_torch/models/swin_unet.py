@@ -1,0 +1,301 @@
+"""SwinUNet: shifted-window-attention U-Net for 1x/2x/4x upscaling.
+
+The port of ``waifu2x_tensorrt_tpu.models.swin_unet`` as torch
+``nn.Module``s: conv stem at full resolution, Swin stages at 1/2 and 1/4
+resolution (window 8, head dim 32, shifted windows on odd blocks, relative
+position bias), a pixel-shuffle decoder with skips and a sub-pixel head.
+Output size is exactly ``input * scale``: the model edge-pads to a
+multiple of 32 and crops after decoding.
+
+Layout: NHWC at every public boundary, as in the JAX package — tile
+batches (B, H, W, 3), window tokens (BW, 64, C). Convolutions run on
+``channels_last`` views of the same memory. Parameters are float32 (as
+loaded); GEMM and conv weights are cast to the compute dtype per call,
+LayerNorm parameters, biases of the kernels and the bias tables stay fp32.
+
+``fused_block=True`` runs each Swin block through kernel B
+(``ops/swin_block.py``); otherwise the block is the dense math with
+window attention through kernel A (``ops/window_attention.py``). On CPU
+tensors both kernels' wrappers run their plain twins.
+
+Parameter names are the left column of ``models/convert.swin_mapping``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
+from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
+    fused_window_attention_qkv,
+)
+
+_NEG_SLOPE = 0.1
+WINDOW = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _relative_position_index(ws: int) -> np.ndarray:
+    """(ws*ws, ws*ws) index into the (2*ws-1)^2 relative-bias table."""
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws),
+                                  indexing="ij"))
+    coords = coords.reshape(2, -1)
+    rel = coords[:, :, None] - coords[:, None, :]
+    rel = rel.transpose(1, 2, 0) + (ws - 1)
+    return (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).astype(np.int64)
+
+
+def _window_split(x, ws: int):
+    """(B, H, W, C) -> (B, nH*nW, ws*ws, C)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // ws) * (w // ws), ws * ws, c)
+
+
+def _window_merge(x, h: int, w: int, ws: int):
+    """Inverse of _window_split."""
+    b, c = x.shape[0], x.shape[-1]
+    x = x.reshape(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c)
+
+
+def _shift_flags(n_wy: int, n_wx: int) -> np.ndarray:
+    """Per-window boundary flags for the analytic shift mask: bit0 = window
+    is in the last (rolled) row, bit1 = last column."""
+    flags = np.zeros((n_wy, n_wx), dtype=np.int32)
+    flags[-1, :] |= 1
+    flags[:, -1] |= 2
+    return flags.reshape(-1)
+
+
+@functools.lru_cache(maxsize=64)
+def _flags_tensor(b: int, n_wy: int, n_wx: int, device: torch.device):
+    return torch.from_numpy(np.tile(_shift_flags(n_wy, n_wx), b)).to(device)
+
+
+def _pixel_shuffle(x, r: int):
+    """Depth-to-space (B, H, W, C*r*r) -> (B, H*r, W*r, C), channel order
+    (C, r, r) as torch.nn.PixelShuffle (CRD)."""
+    b, h, w, crr = x.shape
+    c = crr // (r * r)
+    x = x.reshape(b, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(b, h * r, w * r, c)
+
+
+def _linear(x, layer: nn.Linear, dtype):
+    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _conv(x, layer: nn.Conv2d, dtype):
+    """NHWC conv through a channels_last NCHW view (no copy either way)."""
+    w = layer.weight.to(dtype).contiguous(memory_format=torch.channels_last)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, layer.bias.to(dtype),
+                 stride=layer.stride, padding=layer.padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def _bias_from_table(table, nh: int, ws: int = WINDOW):
+    """(nh, N, N) fp32 relative-position bias gathered from the table."""
+    n = ws * ws
+    idx = torch.from_numpy(_relative_position_index(ws).reshape(-1))
+    bias = table[idx.to(table.device)].reshape(n, n, nh)
+    return bias.permute(2, 0, 1).float().contiguous()
+
+
+class WindowAttention(nn.Module):
+    """Multi-head self-attention within (shifted) windows + relative bias;
+    the attention core is kernel A."""
+
+    def __init__(self, dim: int, num_heads: int, shift: int = 0,
+                 window: int = WINDOW, *, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.shift = shift
+        self.window = window
+        self.qkv = nn.Linear(dim, 3 * dim, device=device)
+        self.proj = nn.Linear(dim, dim, device=device)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window - 1) ** 2, num_heads, device=device))
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        ws = self.window
+        if self.shift:
+            x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
+        xw = _window_split(x, ws)
+        nw, n = xw.shape[1], xw.shape[2]
+        qkv = _linear(xw, self.qkv, x.dtype)
+        out = fused_window_attention_qkv(
+            qkv.reshape(b * nw, n, 3 * c).contiguous(),
+            _bias_from_table(self.relative_position_bias_table,
+                             self.num_heads, ws),
+            _flags_tensor(b, h // ws, w // ws, x.device),
+            num_heads=self.num_heads, shift=self.shift, ws=ws,
+        ).reshape(b, nw, n, c)
+        out = _window_merge(_linear(out, self.proj, x.dtype), h, w, ws)
+        if self.shift:
+            out = torch.roll(out, (self.shift, self.shift), dims=(1, 2))
+        return out
+
+
+class SwinBlock(nn.Module):
+    """Pre-norm transformer block: W-MSA/SW-MSA + 2x-expansion GELU MLP.
+
+    With ``fused_block`` the whole block is kernel B on window tokens; the
+    cyclic roll and the window partition/merge stay outside it (the roll
+    commutes with the pointwise LayerNorms, so rolling the raw input first
+    equals the dense path's LN-then-roll)."""
+
+    def __init__(self, dim: int, num_heads: int, shift: int = 0,
+                 mlp_ratio: int = 2, fused_block: bool = False, *,
+                 device=None):
+        super().__init__()
+        self.dim = dim
+        self.num_heads = num_heads
+        self.shift = shift
+        self.fused_block = fused_block
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5, device=device)
+        self.attn = WindowAttention(dim, num_heads, shift=shift,
+                                    device=device)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
+        self.mlp_fc1 = nn.Linear(dim, dim * mlp_ratio, device=device)
+        self.mlp_fc2 = nn.Linear(dim * mlp_ratio, dim, device=device)
+
+    def kernel_params(self) -> dict:
+        """The block's parameters in kernel B's layout (GEMM kernels as
+        (in, out), fp32)."""
+        return {
+            "n1_scale": self.norm1.weight, "n1_bias": self.norm1.bias,
+            "qkv_kernel": self.attn.qkv.weight.t(),
+            "qkv_bias": self.attn.qkv.bias,
+            "proj_kernel": self.attn.proj.weight.t(),
+            "proj_bias": self.attn.proj.bias,
+            "n2_scale": self.norm2.weight, "n2_bias": self.norm2.bias,
+            "fc1_kernel": self.mlp_fc1.weight.t(),
+            "fc1_bias": self.mlp_fc1.bias,
+            "fc2_kernel": self.mlp_fc2.weight.t(),
+            "fc2_bias": self.mlp_fc2.bias,
+        }
+
+    def forward(self, x):
+        if self.fused_block:
+            return self._fused(x)
+        dt = x.dtype
+        y = F.layer_norm(x.float(), (self.dim,), self.norm1.weight,
+                         self.norm1.bias, 1e-5).to(dt)
+        x = x + self.attn(y)
+        y = F.layer_norm(x.float(), (self.dim,), self.norm2.weight,
+                         self.norm2.bias, 1e-5).to(dt)
+        y = F.gelu(_linear(y, self.mlp_fc1, dt))
+        return x + _linear(y, self.mlp_fc2, dt)
+
+    def _fused(self, x):
+        b, h, w, c = x.shape
+        ws = WINDOW
+        if self.shift:
+            x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
+        xw = _window_split(x, ws)
+        nw = xw.shape[1]
+        out = fused_swin_block(
+            xw.reshape(b * nw, ws * ws, c).contiguous(),
+            self.kernel_params(),
+            _bias_from_table(self.attn.relative_position_bias_table,
+                             self.num_heads, ws),
+            _flags_tensor(b, h // ws, w // ws, x.device),
+            num_heads=self.num_heads, shift=self.shift, ws=ws,
+        ).reshape(b, nw, ws * ws, c)
+        out = _window_merge(out, h, w, ws)
+        if self.shift:
+            out = torch.roll(out, (self.shift, self.shift), dims=(1, 2))
+        return out
+
+
+class SwinStage(nn.Module):
+    """``depth`` blocks alternating no-shift / shift-by-window//2; blocks
+    are named block0, block1, ... (the swin_mapping names)."""
+
+    def __init__(self, dim: int, num_heads: int, depth: int,
+                 fused_block: bool = False, *, device=None):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"block{i}", SwinBlock(
+                dim, num_heads, shift=0 if i % 2 == 0 else WINDOW // 2,
+                fused_block=fused_block, device=device))
+
+    def forward(self, x):
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x)
+        return x
+
+
+class SwinUNet(nn.Module):
+    """U-Net over Swin stages; output is input*scale exactly (offset 0).
+
+    ``dtype`` is the compute dtype (bfloat16 for the CLI's fp16, float32
+    for tf32); inputs are cast to it."""
+
+    def __init__(self, scale: int = 4, out_channels: int = 3,
+                 base_dim: int = 96, depths: tuple = (2, 2, 6, 2, 2),
+                 clamp: bool = True, fused_block: bool = False,
+                 dtype: torch.dtype = torch.float32, *, device=None):
+        super().__init__()
+        if scale not in (1, 2, 4):
+            raise ValueError(f"unsupported scale {scale}")
+        c = base_dim
+        half = c // 2
+        self.scale = scale
+        self.out_channels = out_channels
+        self.base_dim = base_dim
+        self.depths = tuple(depths)
+        self.clamp = clamp
+        self.dtype = dtype
+        kw = {"device": device}
+        self.patch_conv1 = nn.Conv2d(3, half, 3, padding=1, **kw)
+        self.patch_conv2 = nn.Conv2d(half, half, 3, padding=1, **kw)
+        self.down1 = nn.Conv2d(half, c, 2, stride=2, **kw)
+        self.swin1 = SwinStage(c, c // 32, depths[0], fused_block, **kw)
+        self.down2 = nn.Conv2d(c, 2 * c, 2, stride=2, **kw)
+        self.swin2 = SwinStage(2 * c, (2 * c) // 32, depths[2], fused_block,
+                               **kw)
+        self.up2 = nn.Linear(2 * c, 4 * c, **kw)
+        self.swin3 = SwinStage(c, c // 32, depths[3], fused_block, **kw)
+        self.up1 = nn.Linear(c, 4 * half, **kw)
+        self.to_image = nn.Conv2d(half, out_channels * scale * scale, 3,
+                                  padding=1, **kw)
+
+    def forward(self, x):
+        dt = self.dtype
+        x = x.to(dt)
+        b, h, w, _ = x.shape
+        # internal edge pad to a multiple of 32 (two stride-2 stages x
+        # window 8), cropped after decoding
+        ph, pw = (-h) % 32, (-w) % 32
+        if ph or pw:
+            rows = torch.arange(h + ph, device=x.device).clamp_(max=h - 1)
+            cols = torch.arange(w + pw, device=x.device).clamp_(max=w - 1)
+            x = x[:, rows][:, :, cols]
+
+        s = F.leaky_relu(_conv(x, self.patch_conv1, dt), _NEG_SLOPE)
+        s = F.leaky_relu(_conv(s, self.patch_conv2, dt), _NEG_SLOPE)
+        e1 = self.swin1(_conv(s, self.down1, dt))
+        e2 = self.swin2(_conv(e1, self.down2, dt))
+
+        d2 = _pixel_shuffle(_linear(e2, self.up2, dt), 2) + e1
+        d2 = self.swin3(d2)
+        d1 = _pixel_shuffle(_linear(d2, self.up1, dt), 2) + s
+
+        # clamp before the depth-to-space (it commutes with the shuffle)
+        z = _conv(d1, self.to_image, dt)
+        if self.clamp:
+            z = torch.clamp(z, 0.0, 1.0)
+        if self.scale > 1:
+            z = _pixel_shuffle(z, self.scale)
+        if ph or pw:
+            z = z[:, :h * self.scale, :w * self.scale]
+        return z

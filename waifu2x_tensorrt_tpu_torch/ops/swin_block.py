@@ -1,0 +1,125 @@
+"""Kernel B: one whole pre-norm Swin block over window tokens.
+
+``fused_swin_block`` is the wrapper of the CUDA kernel
+``csrc/swin_block.cu`` (the port of the TPU kernel
+``waifu2x_tensorrt_tpu.ops.swin_block.fused_swin_block``);
+``swin_block_plain`` is its plain PyTorch twin: LN1 -> qkv -> window
+attention -> proj -> residual -> LN2 -> fc1 -> erf GELU -> fc2 -> residual,
+with the kernel's rounding points.
+
+Inputs (as the JAX package's): x (BW, 64, C) window tokens, already
+partitioned (and cyclically rolled) by the caller; ``params`` with
+n1_scale, n1_bias, qkv_kernel (C, 3C), qkv_bias, proj_kernel (C, C),
+proj_bias, n2_scale, n2_bias, fc1_kernel (C, 2C), fc1_bias, fc2_kernel
+(2C, C), fc2_bias — GEMM kernels in (in, out) layout; bias (nh, 64, 64)
+fp32 relative-position bias; flags (BW,) int32 shift-boundary bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from waifu2x_tensorrt_tpu_torch.ops import build
+from waifu2x_tensorrt_tpu_torch.ops.kernel_math import gelu, layernorm
+from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
+    HEAD_DIM,
+    MAX_DIM,
+    window_attention_qkv_plain,
+)
+
+PARAM_NAMES = ("n1_scale", "n1_bias", "qkv_kernel", "qkv_bias",
+               "proj_kernel", "proj_bias", "n2_scale", "n2_bias",
+               "fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias")
+_GEMM = ("qkv_kernel", "proj_kernel", "fc1_kernel", "fc2_kernel")
+
+
+def _dense(a, kernel, bias, dt):
+    """fp32-accumulated GEMM of compute-dtype operands, fp32 bias, fp32
+    result (the caller rounds)."""
+    return a.float() @ kernel.to(dt).float() + bias.float()
+
+
+def swin_block_plain(x, params, bias, flags, *, num_heads: int,
+                     shift: int = 0, ws: int = 8):
+    """Eager PyTorch Swin block with the kernel's rounding points."""
+    dt = x.dtype
+    p = params
+    h = layernorm(x, p["n1_scale"], p["n1_bias"]).to(dt)
+    qkv = _dense(h, p["qkv_kernel"], p["qkv_bias"], dt).to(dt)
+    a = window_attention_qkv_plain(qkv, bias, flags, num_heads=num_heads,
+                                   shift=shift, ws=ws)
+    x1 = x + _dense(a, p["proj_kernel"], p["proj_bias"], dt).to(dt)
+    m = layernorm(x1, p["n2_scale"], p["n2_bias"]).to(dt)
+    g = gelu(_dense(m, p["fc1_kernel"], p["fc1_bias"], dt)).to(dt)
+    return x1 + _dense(g, p["fc2_kernel"], p["fc2_bias"], dt).to(dt)
+
+
+def _check(x, params, bias, flags, num_heads, shift, ws):
+    if x.dim() != 3 or x.shape[1] != ws * ws:
+        raise ValueError(f"x must be (BW, {ws * ws}, C), got "
+                         f"{tuple(x.shape)}")
+    c = x.shape[2]
+    if c != num_heads * HEAD_DIM or c > MAX_DIM:
+        raise ValueError(f"C={c} with {num_heads} heads: the kernel takes "
+                         f"head dim {HEAD_DIM} and C <= {MAX_DIM}")
+    if ws != 8 or shift not in (0, ws // 2):
+        raise ValueError(f"window {ws} / shift {shift} not supported "
+                         "(window 8, shift 0 or 4)")
+    shapes = {
+        "n1_scale": (c,), "n1_bias": (c,), "qkv_kernel": (c, 3 * c),
+        "qkv_bias": (3 * c,), "proj_kernel": (c, c), "proj_bias": (c,),
+        "n2_scale": (c,), "n2_bias": (c,), "fc1_kernel": (c, 2 * c),
+        "fc1_bias": (2 * c,), "fc2_kernel": (2 * c, c), "fc2_bias": (c,),
+    }
+    for name, shape in shapes.items():
+        if tuple(params[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(params[name].shape)}")
+    if tuple(bias.shape) != (num_heads, ws * ws, ws * ws):
+        raise ValueError(f"bias must be ({num_heads}, 64, 64), got "
+                         f"{tuple(bias.shape)}")
+    if tuple(flags.shape) != (x.shape[0],):
+        raise ValueError(f"flags must be ({x.shape[0]},), got "
+                         f"{tuple(flags.shape)}")
+
+
+def fused_swin_block(x, params, bias, flags, *, num_heads: int,
+                     shift: int = 0, ws: int = 8):
+    """One Swin block: the CUDA kernel for CUDA tensors, the plain twin for
+    CPU tensors. GEMM weights are handed to the kernel in x's dtype, biases
+    and LayerNorm parameters in fp32. Counts kernel launches in
+    ``fused_swin_block.launches``."""
+    _check(x, params, bias, flags, num_heads, shift, ws)
+    if x.device.type == "cpu":
+        return swin_block_plain(x, params, bias, flags, num_heads=num_heads,
+                                shift=shift, ws=ws)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x dtype {x.dtype}: float32 or bfloat16 only")
+    if bias.dtype != torch.float32 or flags.dtype != torch.int32:
+        raise TypeError("bias must be float32 and flags int32")
+    for name, t in (("x", x), ("bias", bias), ("flags", flags)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+    args = []
+    for name in PARAM_NAMES:
+        t = params[name]
+        if t.device != x.device:
+            raise ValueError(f"{name} must lie on {x.device}")
+        t = t.to(x.dtype if name in _GEMM else torch.float32).contiguous()
+        args.append(t)
+    out = torch.empty_like(x)
+    if x.shape[0] == 0:
+        return out
+    lib = build.load_library()
+    code = lib.w2x_swin_block(
+        x.data_ptr(), *[t.data_ptr() for t in args], bias.data_ptr(),
+        flags.data_ptr(), out.data_ptr(), x.shape[0], x.shape[2], num_heads,
+        shift, int(x.dtype == torch.bfloat16), build.stream_handle(x.device))
+    build.check(code, "swin block kernel")
+    fused_swin_block.launches += 1
+    return out
+
+
+fused_swin_block.launches = 0

@@ -29,13 +29,25 @@ the port through its library entry points (``Upscaler.load`` / ``render``
         max |plain|, so that the check can see them
   7. one 720p frame at the phase-5 config with fused_block=False (the
      configuration that runs kernel A)
+  8. kernels D (packed-x head) and E (window attention on unpacked heads)
+     against their plain PyTorch twins: D at r=4 (16, 256, 256, 48) and
+     r=2 (16, 256, 256, 12), bf16 and fp32, equal to the twin and, byte
+     for byte, to clamp + pixel shuffle; E at (BW 4096, nh 3),
+     (BW 1024, nh 6) and BW 37, shifts 0 and 4, by phase 3's rules;
+     median times; then one call of E through the ``ops`` package API
+  9. the packed-x main path: phase 5's config with WAIFU2X_PACK_X=1 (set
+     for this phase only): the 720p geometry must route through the
+     packed twin, one 720p frame must be byte-identical to phase 5's
+     render of it (the same math; only the head layout differs), then 10
+     streamed frames, one of them held against its render as in phase 5
 
-Launch counters are set to 0 just before phase 5 and read just after it
-(kernels B and C), and again around phase 7 (kernel A); each kernel must
-have launched in its run. Any failed check raises, so the script exits
-non-zero; the last line is the JSON device record, printed only when every
-phase passed. Without a CUDA device it exits non-zero before printing any
-result.
+Phase 5 runs with WAIFU2X_PACK_X unset (the default path). Launch counters
+are set to 0 just before phases 5, 7, 9 and E's API call of phase 8 and
+read just after each (phase 5: kernels B and C; phase 7: A; phase 8: E;
+phase 9: D, B and C); each kernel must have launched in its run. Any
+failed check raises, so the script exits non-zero; the last line is the
+JSON device record, printed only when every phase passed. Without a CUDA
+device it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -198,13 +211,16 @@ def _counters():
     from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
         finalize_gather,
     )
+    from waifu2x_tensorrt_tpu_torch.ops.head_pack import pack_head_x16
     from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
     from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
+        fused_window_attention,
         fused_window_attention_qkv,
     )
 
     return {"A": fused_window_attention_qkv, "B": fused_swin_block,
-            "C": finalize_gather}
+            "C": finalize_gather, "D": pack_head_x16,
+            "E": fused_window_attention}
 
 
 def _load(torch, precision, fused_block=None, batch=16):
@@ -242,8 +258,7 @@ def phase_main_path(torch, smi, report):
 
     counters = _zero_counters()
     up = _load(torch, Precision.FP16)
-    rng = np.random.default_rng(5)
-    frame = rng.integers(0, 256, (720, 1280, 3), np.uint8)
+    frame, frames = _phase5_frames()
     t0 = time.perf_counter()
     out = up.render(frame)
     first_s = time.perf_counter() - t0
@@ -252,8 +267,6 @@ def phase_main_path(torch, smi, report):
     print(f"  phase 5 render 720p -> {out.shape} {out.dtype} in "
           f"{first_s:.2f} s (first call), mean {out.mean():.3f}", flush=True)
 
-    frames = [rng.integers(0, 256, (720, 1280, 3), np.uint8)
-              for _ in range(10)]
     stream = up.open_stream((720, 1280))
     stream.warm()
     torch.cuda.synchronize()
@@ -274,8 +287,9 @@ def phase_main_path(torch, smi, report):
           f"{mps:.2f} output MP/s on {smi}", flush=True)
     print(f"  phase 5 launch counts (main path, fused_block=True): {n5}",
           flush=True)
-    if n5["B"] <= 0 or n5["C"] <= 0:
-        raise AssertionError(f"phase 5 did not launch kernels B and C: {n5}")
+    if n5["B"] <= 0 or n5["C"] <= 0 or n5["D"] != 0:
+        raise AssertionError(f"phase 5 did not launch kernels B and C "
+                             f"alone: {n5}")
     # frame 3's 18 tiles straddle two stream chunks (3 * 18 = 54 = 3 * 16
     # + 6): its streamed output against its single-frame render. The
     # render runs tiles 16-17 as a 2-tile chunk, for which cuBLAS and
@@ -291,7 +305,17 @@ def phase_main_path(torch, smi, report):
         raise AssertionError("streamed frame differs from its render")
     report["stream"] = {"frames_per_s": fps, "output_mp_per_s": mps,
                         "seconds_10_frames": dt}
-    return n5
+    return n5, out
+
+
+def _phase5_frames():
+    """The first 720p frame of phase 5 and its 10 streamed frames."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    frame = rng.integers(0, 256, (720, 1280, 3), np.uint8)
+    return frame, [rng.integers(0, 256, (720, 1280, 3), np.uint8)
+                   for _ in range(10)]
 
 
 def phase_fused_block_false(torch):
@@ -428,9 +452,170 @@ def phase_network_gate(torch):
                                  "path disagrees with its plain path")
 
 
+def phase_kernels_de(torch, report):
+    """Phase 8: kernels D and E against their plain twins; returns the
+    launch counts of E's one call through the ops package API."""
+    from waifu2x_tensorrt_tpu_torch import ops
+    from waifu2x_tensorrt_tpu_torch.models.swin_unet import _pixel_shuffle
+    from waifu2x_tensorrt_tpu_torch.ops import head_pack as hp
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst_d = 0.0
+    for r in (4, 2):
+        z32 = torch.rand((16, 256, 256, 3 * r * r), generator=gen,
+                         device="cuda") * 1.6 - 0.3
+        for z in (z32.bfloat16(), z32):
+            k = hp.pack_head_x16(z, r=r)
+            p = hp.pack_head_plain(z, r)
+            pix = _pixel_shuffle(torch.clamp(z, 0.0, 1.0), r).contiguous()
+            torch.cuda.synchronize()
+            same = torch.equal(k, p) and torch.equal(
+                k.reshape(-1).view(torch.uint8),
+                pix.reshape(-1).view(torch.uint8))
+            err = (k.float() - p.float()).abs().max().item()
+            worst_d = max(worst_d, err)
+            print(f"  kernel D r={r} {tuple(z.shape)} {z.dtype} -> "
+                  f"{tuple(k.shape)}: equal to plain and bytes equal to "
+                  f"clamp + pixel shuffle: {same} (max|d| {err:.1e})",
+                  flush=True)
+            if not same:
+                raise AssertionError("kernel D differs from its plain twin")
+            if r == 4 and z.dtype == torch.bfloat16:
+                km = _median_ms(lambda: hp.pack_head_x16(z, r=4))
+                pm = _median_ms(lambda: hp.pack_head_plain(z, 4))
+                print(f"  kernel D bf16 r=4: kernel {km:.3f} ms, plain "
+                      f"{pm:.3f} ms (median, CUDA events)", flush=True)
+                report["D"] = {"max_abs_err": 0.0, "ms": km, "plain_ms": pm}
+        del z32, z, k, p, pix
+    report["D"]["max_abs_err"] = worst_d
+
+    worst_e = 0.0
+    for bw, nh in ((4096, 3), (1024, 6), (37, 3)):
+        q, k, v = (torch.randn((bw, nh, 64, 32), generator=gen,
+                               device="cuda") for _ in range(3))
+        bias = torch.randn((nh, 64, 64), generator=gen, device="cuda") * 0.2
+        flags = torch.randint(0, 4, (bw,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        for shift in (0, 4):
+            args = (q, k, v, bias, flags)
+            k32 = wa.fused_window_attention(*args, shift=shift).float()
+            p32 = wa.window_attention_plain(*args, shift=shift).float()
+            a16 = (q.bfloat16(), k.bfloat16(), v.bfloat16(), bias, flags)
+            k16 = wa.fused_window_attention(*a16, shift=shift).float()
+            p16 = wa.window_attention_plain(*a16, shift=shift).float()
+            torch.cuda.synchronize()
+            err32 = (k32 - p32).abs().max().item()
+            e_k = (k16 - p32).abs().max().item()
+            e_p = (p16 - p32).abs().max().item()
+            ok = err32 <= 1e-4 and e_k <= max(2 * e_p, 0.02)
+            print(f"  kernel E BW={bw} nh={nh} shift={shift}: fp32 "
+                  f"max|d|={err32:.3e} (tol 1e-4); bf16 |k16-p32|={e_k:.3e} "
+                  f"<= max(2*{e_p:.3e}, 0.02): {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise AssertionError("kernel E disagrees with its plain "
+                                     "version")
+            worst_e = max(worst_e, err32)
+            if shift == 4 and bw == 4096:
+                km = _median_ms(lambda: wa.fused_window_attention(
+                    *a16, shift=4))
+                pm = _median_ms(lambda: wa.window_attention_plain(
+                    *a16, shift=4))
+                print(f"  kernel E bf16 BW={bw} nh={nh}: kernel {km:.3f} "
+                      f"ms, plain {pm:.3f} ms (median, CUDA events)",
+                      flush=True)
+                report["E"] = {"ms": km, "plain_ms": pm}
+                api_args = a16
+    report["E"]["max_abs_err"] = worst_e
+    # E's run: one call through the ops package's public API
+    counters = _zero_counters()
+    out = ops.fused_window_attention(*api_args, shift=4)
+    torch.cuda.synchronize()
+    n8 = {name: f.launches for name, f in counters.items()}
+    print(f"  phase 8 ops.fused_window_attention {tuple(out.shape)}: launch "
+          f"counts of this call {n8}", flush=True)
+    if n8["E"] != 1:
+        raise AssertionError(f"the ops API call did not launch kernel E: "
+                             f"{n8}")
+    return n8
+
+
+def phase_packed_x(torch, smi, report, pixel_out):
+    """Phase 9: the packed-x main path (WAIFU2X_PACK_X=1 for this phase
+    only); returns its launch counts."""
+    import numpy as np
+
+    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
+
+    saved = os.environ.get("WAIFU2X_PACK_X")
+    os.environ["WAIFU2X_PACK_X"] = "1"
+    try:
+        counters = _zero_counters()
+        up = _load(torch, Precision.FP16)
+        if not up._pipeline.get((720, 1280))[0].use_pack_x:
+            raise AssertionError("the 720p geometry did not route through "
+                                 "the packed-x twin")
+        frame, frames = _phase5_frames()
+        out = up.render(frame)
+        same = np.array_equal(out, pixel_out)
+        ok, dmax, frac = _golden_gate(out, pixel_out)
+        print(f"  phase 9 packed-x render 720p -> {out.shape} {out.dtype}: "
+              f"byte-identical to phase 5's pixel-head render: {same} "
+              f"(max {dmax}, changed fraction {frac:.2e})", flush=True)
+        if not same:
+            if not ok:
+                raise AssertionError("packed-x frame fails the golden gate "
+                                     "against the pixel path")
+            print("  phase 9 NOTE: not byte-identical, inside the golden "
+                  "gate (max <= 2 LSB, <= 1e-4 changed)", flush=True)
+        stream = up.open_stream((720, 1280))
+        stream.warm()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = []
+        for f in frames:
+            outs.extend(stream.submit(f))
+        outs.extend(stream.flush())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n9 = {k: f.launches for k, f in counters.items()}
+        if len(outs) != 10 or any(tuple(o.shape) != (2880, 5120, 3)
+                                  for o in outs):
+            raise AssertionError("packed-x stream returned wrong outputs")
+        fps = 10 / dt
+        mps = fps * 2880 * 5120 / 1e6
+        print(f"  phase 9 packed-x stream: 10 frames in {dt:.3f} s = "
+              f"{fps:.3f} frames/s, {mps:.2f} output MP/s; pixel head "
+              f"(phase 5, same call) {report['stream']['output_mp_per_s']:.2f}"
+              f" output MP/s, on {smi}", flush=True)
+        print(f"  phase 9 launch counts (packed-x main path): {n9}",
+              flush=True)
+        if n9["D"] <= 0 or n9["B"] <= 0 or n9["C"] <= 0:
+            raise AssertionError(f"phase 9 did not launch D, B and C: {n9}")
+        ok, dmax, frac = _golden_gate(outs[3].cpu().numpy(),
+                                      up.render(frames[3]), max_frac=1e-3)
+        print(f"  phase 9 streamed frame 3 vs its single-frame render: max "
+              f"{dmax} (tol 2), changed fraction {frac:.2e} (tol 1e-03): "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("packed-x streamed frame differs from its "
+                                 "render")
+        report["stream_packed_x"] = {"frames_per_s": fps,
+                                     "output_mp_per_s": mps,
+                                     "seconds_10_frames": dt}
+        return n9
+    finally:
+        if saved is None:
+            os.environ.pop("WAIFU2X_PACK_X", None)
+        else:
+            os.environ["WAIFU2X_PACK_X"] = saved
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     torch = _require_cuda()
+    os.environ.pop("WAIFU2X_PACK_X", None)  # phase 5 is the default path
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -456,17 +641,25 @@ def main() -> int:
     print("phase 4 kernel C vs plain scan:", flush=True)
     phase_kernel_c(torch, report)
     print("phase 5 main path:", flush=True)
-    n5 = phase_main_path(torch, smi, report)
+    n5, out5 = phase_main_path(torch, smi, report)
     print("phase 6 network, kernel path vs plain path:", flush=True)
     phase_network_gate(torch)
     print("phase 7 fused_block=False:", flush=True)
     n7 = phase_fused_block_false(torch)
+    print("phase 8 kernels D and E vs plain:", flush=True)
+    n8 = phase_kernels_de(torch, report)
+    print("phase 9 packed-x main path:", flush=True)
+    n9 = phase_packed_x(torch, smi, report, out5)
 
     src = "waifu2x_tensorrt_tpu_torch/ops/csrc/"
     main_run = ("phase 5: main path, fused_block=True, bf16, tile 256, "
                 "batch 16, 720p render + 10 streamed frames")
     a_run = ("phase 7: fused_block=False, bf16, tile 256, batch 16, one "
              "720p render")
+    e_run = ("phase 8: one call of ops.fused_window_attention (the ops "
+             "package API), BW 4096, nh 3, bf16, shift 4")
+    px_run = ("phase 9: WAIFU2X_PACK_X=1, otherwise as phase 5: 720p "
+              "render + 10 streamed frames")
     meta = {
         "A": ("window_attention_qkv", src + "window_attention.cu",
               "waifu2x_tensorrt_tpu/ops/window_attention.py:212",
@@ -477,13 +670,18 @@ def main() -> int:
         "C": ("finalize_gather", src + "finalize_epilogue.cu",
               "waifu2x_tensorrt_tpu/ops/finalize_epilogue.py:201", n5["C"],
               main_run),
+        "D": ("head_pack", src + "head_pack.cu",
+              "waifu2x_tensorrt_tpu/ops/head_pack.py:120", n9["D"], px_run),
+        "E": ("window_attention_heads", src + "window_attention.cu",
+              "waifu2x_tensorrt_tpu/ops/window_attention.py:267", n8["E"],
+              e_run),
     }
     kernels = [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                 "replaces": meta[k][2], "launches": meta[k][3],
                 "launches_counted_in": meta[k][4],
                 "max_abs_err": report[k]["max_abs_err"],
                 "ms": report[k]["ms"], "plain_ms": report[k]["plain_ms"]}
-               for k in ("A", "B", "C")]
+               for k in ("A", "B", "C", "D", "E")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,11 @@ Skipped without a CUDA device (the kernels have no CPU mode); on a
 machine with one, run
 ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py`` (the
 conftest sets up JAX, which such a machine need not have).
-Same checks as phases 3 and 4 of ``chip_smoke.py``, at smaller shapes:
-kernels A and B within fp32 max |d| <= 1e-4 (TF32 off) and the bf16 rule
-|k16 - p32| <= max(2 |p16 - p32|, 0.02); kernel C byte-identical to the
-scan, with whole chunks and TileStream pieces.
+Same checks as phases 3, 4 and 8 of ``chip_smoke.py``, at smaller
+shapes: kernels A, B and E within fp32 max |d| <= 1e-4 (TF32 off) and the
+bf16 rule |k16 - p32| <= max(2 |p16 - p32|, 0.02); kernel C byte-identical
+to the scan, with whole chunks and TileStream pieces; kernel D equal to
+its plain twin and to the clamped pixel shuffle, byte for byte.
 """
 
 import numpy as np
@@ -54,13 +55,15 @@ def _inputs(bw, c, nh, seed):
             t(rng.normal(0, 1, (bw, 64, 3 * c))), params, bias, flags)
 
 
-def _check(kern, plain, args, kw):
+def _check(kern, plain, args, kw, n_act=1):
+    """The first ``n_act`` arguments are the activations (cast to bf16
+    for the bf16 rule)."""
     before = kern.launches
     k32 = kern(*args, **kw).float()
     p32 = plain(*args, **kw).float()
     assert kern.launches == before + 1
     assert (k32 - p32).abs().max().item() <= 1e-4
-    a16 = (args[0].bfloat16(),) + tuple(args[1:])
+    a16 = tuple(a.bfloat16() for a in args[:n_act]) + tuple(args[n_act:])
     k16 = kern(*a16, **kw).float()
     p16 = plain(*a16, **kw).float()
     e_k = (k16 - p32).abs().max().item()
@@ -86,6 +89,42 @@ def test_kernel_b_matches_plain(bw, c, nh, shift):
     x, _q, params, bias, flags = _inputs(bw, c, nh, bw + shift + 1)
     _check(sb.fused_swin_block, sb.swin_block_plain,
            (x, params, bias, flags), {"num_heads": nh, "shift": shift})
+
+
+@pytest.mark.parametrize("bw,nh", [(256, 3), (64, 6), (37, 2)])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_kernel_e_matches_plain(bw, nh, shift):
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    _x, qkv, _p, bias, flags = _inputs(bw, nh * 32, nh, bw + shift + 2)
+    q, k, v = (t.reshape(bw, 64, nh, 32).permute(0, 2, 1, 3).contiguous()
+               for t in qkv.chunk(3, dim=-1))
+    _check(wa.fused_window_attention, wa.window_attention_plain,
+           (q, k, v, bias, flags), {"shift": shift}, n_act=3)
+
+
+@pytest.mark.parametrize("r,w,dtype", [
+    (4, 40, torch.float32), (2, 72, torch.bfloat16), (4, 256, torch.bfloat16),
+])
+def test_kernel_d_equals_plain(r, w, dtype):
+    from waifu2x_tensorrt_tpu_torch.models.swin_unet import _pixel_shuffle
+    from waifu2x_tensorrt_tpu_torch.ops import head_pack as hp
+
+    rng = np.random.default_rng(r + w)
+    z = torch.from_numpy(rng.uniform(-0.3, 1.3, (3, 24, w, 3 * r * r))
+                         .astype(np.float32)).to("cuda", dtype)
+    before = hp.pack_head_x16.launches
+    got = hp.pack_head_x16(z, r=r)
+    assert hp.pack_head_x16.launches == before + 1
+    assert torch.equal(got, hp.pack_head_plain(z, r))
+    pix = _pixel_shuffle(torch.clamp(z, 0.0, 1.0), r).contiguous()
+    assert torch.equal(got.reshape(-1).view(torch.uint8),
+                       pix.reshape(-1).view(torch.uint8))
+    # an input that is not 16-byte aligned takes the one-value read path
+    shifted = torch.empty(z.numel() + 1, dtype=dtype, device="cuda")
+    shifted = shifted[1:].view(z.shape)
+    shifted.copy_(z)
+    assert torch.equal(hp.pack_head_x16(shifted, r=r), got)
 
 
 @pytest.mark.parametrize("frame_hw,scale,batch,dtype", [
@@ -137,3 +176,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         wa.fused_window_attention_qkv(qkv.transpose(0, 1), bias, flags,
                                       num_heads=3)
+    q = qkv[:, :, :96].reshape(8, 64, 3, 32).permute(0, 2, 1, 3)
+    with pytest.raises(ValueError):  # not contiguous
+        wa.fused_window_attention(q, q, q, bias, flags)
+    qc = q.contiguous()
+    with pytest.raises(TypeError):
+        wa.fused_window_attention(qc, qc.bfloat16(), qc, bias, flags)
+
+    from waifu2x_tensorrt_tpu_torch.ops import head_pack as hp
+
+    z = torch.rand(2, 8, 8, 48, device="cuda")
+    with pytest.raises(TypeError):
+        hp.pack_head_x16(z.half(), r=4)
+    with pytest.raises(ValueError):
+        hp.pack_head_x16(z.transpose(1, 2), r=4)

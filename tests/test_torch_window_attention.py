@@ -1,7 +1,12 @@
-"""Kernel A's plain twin (``window_attention_qkv_plain``) against the JAX
-package: the Pallas kernel ``fused_window_attention_qkv`` in interpret
-mode and the jnp ``window_attention_reference``, fp32, at C=96 on a ragged
-window count; and the shift-mask law, exactly.
+"""Kernel A's plain twin (``window_attention_qkv_plain``) and kernel E's
+(``window_attention_plain``) against the JAX package: the Pallas kernels
+``fused_window_attention_qkv`` and ``fused_window_attention`` in interpret
+mode and the jnp ``window_attention_reference``, fp32, at C=96 (nh 3),
+including ragged window counts; and the shift-mask law, exactly.
+
+The fp32 tolerance is the bound ``_fp32_atol`` derives from the inputs:
+twice the worst-case rounding error of one implementation, so that any
+two summation orders stay inside it.
 
 Each framework gets its own copy of every array (``jnp.array``,
 ``torch.tensor``, ``np.array``): on the CPU ``jnp.asarray`` and
@@ -26,12 +31,16 @@ from waifu2x_tensorrt_tpu.models.swin_unet import (
 from waifu2x_tensorrt_tpu.ops import kernel_math as jkm
 from waifu2x_tensorrt_tpu.ops.window_attention import (
     _mask_from_flags,
+    fused_window_attention as jax_fused,
     fused_window_attention_qkv as jax_fused_qkv,
     window_attention_reference,
 )
+from waifu2x_tensorrt_tpu_torch import ops as tops
 from waifu2x_tensorrt_tpu_torch.ops import kernel_math as tkm
 from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
+    fused_window_attention,
     fused_window_attention_qkv,
+    window_attention_plain,
     window_attention_qkv_plain,
 )
 
@@ -55,6 +64,52 @@ def _inputs(seed):
     return qkv, bias, flags
 
 
+def _heads(qkv, i):
+    """Part i (0 q, 1 k, 2 v) of packed qkv as (BW, nh, N, hd)."""
+    bw = qkv.shape[0]
+    x = qkv[:, :, i * C:(i + 1) * C].reshape(bw, N, NH, HD)
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+
+
+def _fp32_atol(q, k, v, bias):
+    """How far two fp32 implementations of the attention may lie apart
+    when they sum in different orders: twice the first-order worst-case
+    rounding error of one, evaluated on the inputs (q, k, v as (BW, nh,
+    N, hd)) and maximised over the outputs.
+
+    With u = 2^-24 and gamma_n = n u / (1 - n u), an n-term fp32 sum in any
+    order errs by at most gamma_n * sum |terms|. So the score s_ij =
+    scale q_i.k_j + b_ij (32 terms) errs by at most
+    D_i = max_j (gamma_32 S_ij + u |s_ij|), S_ij = scale sum_d |q_id k_jd|.
+    Through the softmax a score error e_j moves o = sum_j p_j v_j by
+    sum_j p_j e_j (v_j - o), at most D_i sum_j p_j |v_j - o|. The 64-term
+    product p.v adds gamma_64 sum_j p_j |v_j|, and the exp, the
+    normalising sum's division and the final rounding 3 u of the same.
+    On the standard-normal inputs here S_ij <= ~9 and the bound comes to
+    about 5e-5 to 6e-5, while the two sides agree to ~6e-7 in most runs:
+    the point of the bound is that no summation order can break it."""
+    u = 2.0 ** -24
+
+    def gamma(n):
+        return n * u / (1 - n * u)
+
+    q, k, v = (a.astype(np.float64) for a in (q, k, v))
+    scale = q.shape[-1] ** -0.5
+    s = np.einsum("whnd,whmd->whnm", q, k) * scale + bias[None]
+    mag = np.einsum("whnd,whmd->whnm", np.abs(q), np.abs(k)) * scale
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    o = p @ v
+    d = (gamma(q.shape[-1]) * mag + u * np.abs(s)).max(-1)[..., None]
+    spread = np.einsum("whnm,whnmd->whnd", p,
+                       np.abs(v[:, :, None] - o[:, :, :, None]))
+    one = d * spread + (gamma(s.shape[-1]) + 3 * u) * (p @ np.abs(v))
+    atol = 2 * float(one.max())
+    # no looser than the fp32 Swin-stage tolerance of the JAX tests
+    assert atol <= 1e-4, atol
+    return atol
+
+
 @pytest.mark.parametrize("shift", [0, 4])
 def test_plain_matches_pallas_interpret(shift):
     qkv, bias, flags = _inputs(7 + shift)
@@ -65,7 +120,8 @@ def test_plain_matches_pallas_interpret(shift):
         torch.tensor(qkv), torch.tensor(bias),
         torch.tensor(flags), num_heads=NH, shift=shift).numpy()
     assert got.shape == want.shape == (BW, N, C)
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    atol = _fp32_atol(_heads(qkv, 0), _heads(qkv, 1), _heads(qkv, 2), bias)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("shift", [0, 4])
@@ -84,6 +140,58 @@ def test_plain_matches_jnp_reference(shift):
         torch.tensor(qkv), torch.tensor(bias),
         torch.tensor(flags), num_heads=NH, shift=shift).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def _unpacked(seed, bw):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((bw, NH, N, HD)).astype(np.float32)
+               for _ in range(3))
+    bias = (rng.standard_normal((NH, N, N)) * 0.1).astype(np.float32)
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("shift,bw,flags", [
+    (0, BW, "grid"), (4, BW, "grid"), (0, 10, "zero"), (4, 10, "all")],
+    ids=["shift0", "shift4", "ragged-shift0", "ragged-shift4"])
+def test_unpacked_plain_matches_pallas_interpret(shift, bw, flags):
+    """Kernel E's twin against the JAX kernel (interpret) and the jnp
+    reference; BW 10 is ragged for the JAX kernel's 4-window blocks."""
+    q, k, v, bias = _unpacked(5 + shift + bw, bw)
+    fl = {"grid": np.tile(_shift_flags(2, 2), 3),
+          "zero": np.zeros(bw),
+          "all": np.arange(bw) % 4}[flags].astype(np.int32)
+    want = np.array(jax_fused(
+        jnp.array(q), jnp.array(k), jnp.array(v), jnp.array(bias),
+        jnp.array(fl), shift=shift, block_windows=4, interpret=True))
+    ref = np.array(window_attention_reference(
+        jnp.array(q), jnp.array(k), jnp.array(v), jnp.array(bias),
+        jnp.array(fl), shift))
+    got = window_attention_plain(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v),
+        torch.tensor(bias), torch.tensor(fl), shift=shift).numpy()
+    assert got.shape == want.shape == (bw, NH, N, HD)
+    atol = _fp32_atol(q, k, v, bias)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+    np.testing.assert_allclose(got, ref, atol=atol, rtol=0)
+
+
+def test_unpacked_wrapper_runs_plain_twin_on_cpu():
+    q, k, v, bias = _unpacked(2, 6)
+    fl = torch.tensor(np.arange(6) % 4, dtype=torch.int32)
+    args = tuple(torch.tensor(a) for a in (q, k, v, bias)) + (fl,)
+    before = fused_window_attention.launches
+    got = fused_window_attention(*args, shift=4)
+    assert torch.equal(got, window_attention_plain(*args, shift=4))
+    assert fused_window_attention.launches == before  # no kernel here
+    # the ops package exports kernel E and its twin under the JAX names
+    assert tops.fused_window_attention is fused_window_attention
+    assert tops.window_attention_reference is window_attention_plain
+    with pytest.raises(ValueError):  # head dim 16
+        fused_window_attention(args[0][..., :16], *args[1:])
+    with pytest.raises(ValueError):  # k of another shape
+        fused_window_attention(args[0], args[1][:3], *args[2:])
+    with pytest.raises(ValueError):  # shift 2
+        fused_window_attention(*args, shift=2)
 
 
 def test_wrapper_runs_plain_twin_on_cpu():

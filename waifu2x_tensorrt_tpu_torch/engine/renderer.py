@@ -13,6 +13,12 @@ head):
 - ``TileStream`` carries each frame's leftover tiles into the next frame's
   first chunk, so every model call in steady state is a full batch.
 
+With a packed-x twin of the model (``WAIFU2X_PACK_X=1``, kernel D), every
+geometry whose output x-origins are 16-aligned renders through it; its
+(n, oh, ow/16, 48) chunk outputs hold the bytes of (n, oh, ow, 3), so
+finalize views them as pixel tiles without a copy and runs kernel C as the
+pixel path does.
+
 Everything runs eagerly on the pipeline's device: prepare is one gather,
 the model one ``nn.Module`` call per chunk, finalize one kernel-C launch
 per frame (its plain scan twin on CPU). TTA, whole-frame tiles, the
@@ -34,6 +40,7 @@ from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
     make_finalize_epilogue,
 )
 from waifu2x_tensorrt_tpu_torch.tiling import plan_tiles
+from waifu2x_tensorrt_tpu_torch.utils.logging import Logger, Severity
 
 
 def resolve_tile_plan(spec: ModelSpec, config: RenderConfig,
@@ -56,7 +63,8 @@ def make_chunked_fns(spec: ModelSpec, config: RenderConfig,
     geometry: ``prepare(frame_u8) -> chunks`` (with ``prepare.flat``, the
     unsplit (T, th, tw, 3) tiles), ``finalize(*outs) -> (H*s, W*s, 3) u8``,
     the plan and the chunk sizes. ``finalize`` runs kernel C on CUDA
-    tensors and the plain scan on CPU tensors."""
+    tensors and the plain scan on CPU tensors. With ``spec.pack_x > 1``
+    it takes packed-x (n, oh, ow/pack_x, 3*pack_x) chunk outputs."""
     if config.tta:
         raise NotImplementedError("TTA: not yet ported")
     device = torch.device(device)
@@ -88,7 +96,27 @@ def make_chunked_fns(spec: ModelSpec, config: RenderConfig,
 
     prepare.flat = prepare_flat
     finalize = make_finalize_epilogue(plan, device)
+    if spec.pack_x > 1:
+        if not pack_x_applicable(plan, spec.pack_x):
+            raise ValueError("output x-origins are not pack_x-aligned "
+                             "(gate with pack_x_applicable)")
+        oh, ow = plan.output_tile
+        finalize_pixels = finalize
+
+        def finalize(*outs):
+            # the packed-x layout's bytes are the pixel layout's: a view
+            return finalize_pixels(*(o.view(o.shape[0], oh, ow, 3)
+                                     for o in outs))
     return prepare, finalize, plan, chunk_sizes
+
+
+def pack_x_applicable(plan, px: int) -> bool:
+    """True when the geometry lets the packed-x model layout scatter
+    exactly: output tile width and every output x-origin pack_x-aligned
+    (at blend 1/16 tiles 128, 256 and 640 are, at either scale; 400 is
+    not, nor is 64 at scale 2)."""
+    return bool(px > 1 and plan.output_tile[1] % px == 0
+                and np.all(plan.output_origins[:, 1] % px == 0))
 
 
 def _as_frame(frame_u8, device) -> torch.Tensor:
@@ -108,14 +136,24 @@ class ChunkedPipeline:
     ``render`` runs chunk by chunk, firing ``progress(i, n, it_s)`` after
     each model chunk — the reference's "batch i/n @ it/s" seam
     (img2img_render.cpp:336-338). The returned u8 tensor stays on the
-    device."""
+    device.
+
+    ``module_pack_x`` (optional): the packed-x-head twin of ``module`` over
+    the same parameters (``registry.packed_x_twin``), with its spec.
+    Geometries whose output x-origins are pack_x-aligned render through
+    it; the others through ``module`` (logged at debug level)."""
 
     def __init__(self, module, spec: ModelSpec, config: RenderConfig,
-                 device) -> None:
+                 device, module_pack_x=None,
+                 spec_pack_x: Optional[ModelSpec] = None,
+                 logger: Optional[Logger] = None) -> None:
         self._module = module
         self._spec = spec
         self._config = config
         self._device = torch.device(device)
+        self._module_px = module_pack_x
+        self._spec_px = spec_pack_x if module_pack_x is not None else None
+        self._logger = logger
         self._geoms: dict[tuple[int, int], tuple] = {}
 
     @property
@@ -127,19 +165,37 @@ class ChunkedPipeline:
         return self._device
 
     def get(self, frame_hw: tuple[int, int]):
-        """(prepare, finalize, plan, n_chunks) for a frame geometry."""
+        """(prepare, finalize, plan, n_chunks) for a frame geometry;
+        ``prepare.use_pack_x`` says whether it renders through the
+        packed-x twin."""
         key = (int(frame_hw[0]), int(frame_hw[1]))
         entry = self._geoms.get(key)
         if entry is None:
+            spec_used = self._spec
+            use_px = False
+            if self._spec_px is not None:
+                plan = resolve_tile_plan(self._spec, self._config, key)
+                use_px = pack_x_applicable(plan, self._spec_px.pack_x)
+                if use_px:
+                    spec_used = self._spec_px
+                elif self._logger is not None:
+                    self._logger.log(
+                        Severity.debug,
+                        f"{key[0]}x{key[1]}: output x-origins not "
+                        f"{self._spec_px.pack_x}-aligned; rendering "
+                        "through the pixel head")
             prepare, finalize, plan, chunk_sizes = make_chunked_fns(
-                self._spec, self._config, key, self._device)
+                spec_used, self._config, key, self._device)
+            prepare.use_pack_x = use_px
             entry = (prepare, finalize, plan, len(chunk_sizes))
             self._geoms[key] = entry
         return entry
 
-    def run_model(self, tiles: torch.Tensor) -> torch.Tensor:
+    def run_model(self, tiles: torch.Tensor,
+                  use_pack_x: bool = False) -> torch.Tensor:
+        module = self._module_px if use_pack_x else self._module
         with torch.inference_mode():
-            return self._module(tiles)
+            return module(tiles)
 
     def render(self, frame_u8, progress=None) -> torch.Tensor:
         frame = _as_frame(frame_u8, self._device)
@@ -148,7 +204,7 @@ class ChunkedPipeline:
         t_prev = time.perf_counter()
         with torch.inference_mode():
             for i, c in enumerate(prepare(frame)):
-                outs.append(self._module(c))
+                outs.append(self.run_model(c, prepare.use_pack_x))
                 if progress is not None:
                     t_now = time.perf_counter()
                     progress(i + 1, n_chunks,
@@ -171,6 +227,7 @@ class TileStream:
         self._hw = (int(frame_hw[0]), int(frame_hw[1]))
         prep, fin, plan, _ = pipeline.get(self._hw)
         self._prep_flat = prep.flat
+        self._use_px = prep.use_pack_x
         self._fin = fin
         self._n_steps = plan.tile_count
         self._chunk = pipeline.config.batch_size
@@ -220,7 +277,7 @@ class TileStream:
             else None
         t_prev = time.perf_counter()
         for i, c in enumerate(chunks):
-            self._outs.append([self._pl.run_model(c), 0])
+            self._outs.append([self._pl.run_model(c, self._use_px), 0])
             if self._progress is not None:
                 t_now = time.perf_counter()
                 self._progress(i + 1, len(chunks),
@@ -232,7 +289,8 @@ class TileStream:
         """Run the carried tail (one exact-size model call) and return the
         remaining frame outputs."""
         if self._carry is not None:
-            self._outs.append([self._pl.run_model(self._carry), 0])
+            self._outs.append([self._pl.run_model(self._carry,
+                                                  self._use_px), 0])
             self._carry = None
         return self._drain()
 

@@ -11,10 +11,15 @@ No fallback hides the device or a kernel: without a CUDA device a CUDA
 render raises, the CPU serves only when asked for by name, and a kernel
 that fails to build or launch raises. ``fused_block`` (kernel B for every
 Swin block) is the default on CUDA.
+
+``WAIFU2X_PACK_X=1`` in the environment adds the packed-x-head twin of the
+model (kernel D, same parameters) for every pack-aligned geometry, on any
+device: kernel D on CUDA, its plain twin on the CPU.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Optional
 
@@ -102,11 +107,20 @@ class Upscaler:
                 f"tile size {config.height} is not a multiple of "
                 f"{spec.tile_divisor} (required by this model)")
         self._spec = spec
-        self._pipeline = ChunkedPipeline(module, spec, config, device)
+        # packed-x-head twin (same parameters): pack-aligned geometries
+        # render through kernel D, with no separate depth-to-space
+        module_px = spec_px = None
+        if (os.environ.get("WAIFU2X_PACK_X") == "1"
+                and spec.arch == "swin_unet" and scale > 1):
+            module_px, spec_px = registry.packed_x_twin(module, spec)
+        self._pipeline = ChunkedPipeline(
+            module, spec, config, device, module_pack_x=module_px,
+            spec_pack_x=spec_px, logger=self.logger)
         self.logger.log(
             Severity.info,
             f"loaded {family} scale={scale} noise={noise} on {device} "
             f"({config.precision.cache_tag}, fused_block={fused_block}, "
+            f"packed_x={'on' if module_px is not None else 'off'}, "
             f"weights={'file' if from_file else 'random'})")
 
     # -- render (img2img_render.cpp:224-352) -------------------------------

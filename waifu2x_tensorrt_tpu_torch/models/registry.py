@@ -36,6 +36,10 @@ class ModelSpec:
     noise: int
     offset: int  # per-side output-space context shrink (0 for swin_unet)
     tile_divisor: int  # input tile size must be a multiple of this
+    # pack_x > 1: the model emits (oh, ow/pack_x, 3*pack_x) tiles whose
+    # bytes are the (oh, ow, 3) pixel tiles' (ops/head_pack.py). Requires
+    # all output x-origins % pack_x == 0.
+    pack_x: int = 1
 
     def output_tile(self, input_tile: int) -> int:
         """Model output spatial size for a given input tile."""
@@ -84,13 +88,14 @@ def create_model(family: str, scale: int, noise: int = -1,
                  fused_block: bool = False,
                  base_dim: Optional[int] = None,
                  depths: Optional[tuple] = None,
-                 device=None):
+                 device=None, packed_x_head: bool = False):
     """Build the torch module + spec for a (family, scale, noise) choice.
 
     ``fused_block`` routes every Swin block through kernel B
     (ops/swin_block.py); otherwise the blocks are dense math around
     kernel A (ops/window_attention.py). ``base_dim``/``depths`` override
-    the flagship architecture (96, (2, 2, 6, 2, 2))."""
+    the flagship architecture (96, (2, 2, 6, 2, 2)). ``packed_x_head``
+    (scale > 1 only) gives the packed-x head (``packed_x_twin``)."""
     from waifu2x_tensorrt_tpu_torch.models.swin_unet import SwinUNet
 
     spec = get_spec(family, scale, noise)
@@ -102,8 +107,21 @@ def create_model(family: str, scale: int, noise: int = -1,
     if depths is not None:
         kw["depths"] = tuple(int(d) for d in depths)
     module = SwinUNet(scale=scale, dtype=dtype or torch.float32,
-                      fused_block=fused_block, device=device, **kw)
-    return module.eval(), spec
+                      fused_block=fused_block, device=device, **kw).eval()
+    if packed_x_head and scale > 1:
+        return packed_x_twin(module, spec)
+    return module, spec
+
+
+def packed_x_twin(module, spec: ModelSpec):
+    """(module, spec) of the packed-x head over the SAME parameters as the
+    pixel-head ``module``: the twin shares its submodules and parameters
+    (one copy of the weights; loading into either loads both), and its
+    spec has ``pack_x = PACK_X``."""
+    from waifu2x_tensorrt_tpu_torch.ops.head_pack import PACK_X
+
+    return (module.packed_x_twin(),
+            dataclasses.replace(spec, pack_x=PACK_X))
 
 
 def _flax_leaves(module) -> dict[str, tuple]:

@@ -18,11 +18,17 @@ LayerNorm parameters, biases of the kernels and the bias tables stay fp32.
 window attention through kernel A (``ops/window_attention.py``). On CPU
 tensors both kernels' wrappers run their plain twins.
 
+``packed_x_head=True`` (scale > 1) ends in kernel D
+(``ops/head_pack.py``): the clamped depth-to-space writes the packed-x16
+layout (B, rH, rW/16, 48), whose bytes are those of the pixel output.
+``SwinUNet.packed_x_twin()`` gives that head over the same parameters.
+
 Parameter names are the left column of ``models/convert.swin_mapping``.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 
 import numpy as np
@@ -30,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from waifu2x_tensorrt_tpu_torch.ops.head_pack import PACK_X, pack_head_x16
 from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
 from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
     fused_window_attention_qkv,
@@ -238,7 +245,10 @@ class SwinUNet(nn.Module):
     """U-Net over Swin stages; output is input*scale exactly (offset 0).
 
     ``dtype`` is the compute dtype (bfloat16 for the CLI's fp16, float32
-    for tf32); inputs are cast to it."""
+    for tf32); inputs are cast to it. With ``packed_x_head`` (set on the
+    twin that ``packed_x_twin`` returns) the output is (B, rH, rW/16, 48)
+    from kernel D (clamp fused), and width * scale must be a multiple of
+    16."""
 
     def __init__(self, scale: int = 4, out_channels: int = 3,
                  base_dim: int = 96, depths: tuple = (2, 2, 6, 2, 2),
@@ -255,6 +265,7 @@ class SwinUNet(nn.Module):
         self.depths = tuple(depths)
         self.clamp = clamp
         self.dtype = dtype
+        self.packed_x_head = False
         kw = {"device": device}
         self.patch_conv1 = nn.Conv2d(3, half, 3, padding=1, **kw)
         self.patch_conv2 = nn.Conv2d(half, half, 3, padding=1, **kw)
@@ -269,6 +280,14 @@ class SwinUNet(nn.Module):
         self.to_image = nn.Conv2d(half, out_channels * scale * scale, 3,
                                   padding=1, **kw)
 
+    def packed_x_twin(self) -> "SwinUNet":
+        """This module with the packed-x head: a shallow copy whose
+        parameter and submodule tables are this module's own objects, so
+        the two hold one copy of the weights."""
+        twin = copy.copy(self)
+        twin.packed_x_head = self.scale > 1
+        return twin
+
     def forward(self, x):
         dt = self.dtype
         x = x.to(dt)
@@ -276,6 +295,13 @@ class SwinUNet(nn.Module):
         # internal edge pad to a multiple of 32 (two stride-2 stages x
         # window 8), cropped after decoding
         ph, pw = (-h) % 32, (-w) % 32
+        r = self.scale
+        if self.packed_x_head:
+            if (w * r) % PACK_X or ((w + pw) * r) % PACK_X:
+                raise ValueError(f"packed_x_head needs width*scale % "
+                                 f"{PACK_X} == 0, got {w}x{r}")
+            if not self.clamp:
+                raise ValueError("packed_x_head fuses the [0,1] clamp")
         if ph or pw:
             rows = torch.arange(h + ph, device=x.device).clamp_(max=h - 1)
             cols = torch.arange(w + pw, device=x.device).clamp_(max=w - 1)
@@ -292,6 +318,9 @@ class SwinUNet(nn.Module):
 
         # clamp before the depth-to-space (it commutes with the shuffle)
         z = _conv(d1, self.to_image, dt)
+        if self.packed_x_head:  # kernel D: clamp + shuffle + pack-x16
+            z = pack_head_x16(z.contiguous(), r=r)
+            return z[:, :h * r, :(w * r) // PACK_X] if ph or pw else z
         if self.clamp:
             z = torch.clamp(z, 0.0, 1.0)
         if self.scale > 1:

@@ -33,6 +33,8 @@ _SIGNATURES = {
     "w2x_window_attention_qkv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "w2x_swin_block": [_P] * 15 + [_P, _I, _I, _I, _I, _I, _P],
     "w2x_finalize_gather": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "w2x_head_pack": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "w2x_window_attention_heads": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -1,15 +1,22 @@
-"""Kernel A: shifted-window attention over the packed qkv layout.
+"""Kernels A and E: shifted-window attention.
 
-``fused_window_attention_qkv`` is the wrapper of the CUDA kernel
-``csrc/window_attention.cu`` (the port of the TPU kernel
+Kernel A, over the packed qkv layout: ``fused_window_attention_qkv`` is
+the wrapper of the CUDA kernel in ``csrc/window_attention.cu`` (the port
+of the TPU kernel
 ``waifu2x_tensorrt_tpu.ops.window_attention.fused_window_attention_qkv``);
 ``window_attention_qkv_plain`` is its plain PyTorch twin, the dense
 ``WindowAttention`` math of ``models/swin_unet.py`` on the same layout.
-
 Layout (as the JAX package's): qkv (BW, 64, 3C) with heads interleaved as
-[q_0..q_{nh-1} | k_0.. | v_0..] along the last axis, head dim 32; bias
-(nh, 64, 64) fp32; flags (BW,) int32 shift-boundary bits (bit0 bottom,
-bit1 right). Returns (BW, 64, C) in qkv's dtype.
+[q_0..q_{nh-1} | k_0.. | v_0..] along the last axis, head dim 32. Returns
+(BW, 64, C) in qkv's dtype.
+
+Kernel E, over unpacked heads: ``fused_window_attention`` wraps the second
+kernel of ``csrc/window_attention.cu`` (the port of the TPU kernel
+``fused_window_attention``), ``window_attention_plain`` is its plain twin.
+q, k, v (BW, nh, 64, 32) -> (BW, nh, 64, 32) in q's dtype.
+
+Both take bias (nh, 64, 64) fp32 and flags (BW,) int32 shift-boundary bits
+(bit0 bottom, bit1 right).
 """
 
 from __future__ import annotations
@@ -51,17 +58,50 @@ def window_attention_qkv_plain(qkv, bias, flags, *, num_heads: int,
     return out.to(dt).permute(0, 2, 1, 3).reshape(bw, n, c)
 
 
-def _check(qkv, bias, flags, num_heads, shift, ws):
-    if qkv.dim() != 3 or qkv.shape[1] != ws * ws or qkv.shape[2] % 3:
-        raise ValueError(f"qkv must be (BW, {ws * ws}, 3C), got "
-                         f"{tuple(qkv.shape)}")
-    c = qkv.shape[2] // 3
-    if c != num_heads * HEAD_DIM or c > MAX_DIM:
-        raise ValueError(f"C={c} with {num_heads} heads: the kernel takes "
+def window_attention_plain(q, k, v, bias, flags, *, shift: int = 0,
+                           ws: int = 8):
+    """Eager PyTorch attention on unpacked heads with kernel A's rounding
+    points (see ``window_attention_qkv_plain``): the JAX package's
+    ``window_attention_reference``."""
+    dt = q.dtype
+    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=dt, device=q.device)
+    attn = (q * scale).float() @ k.float().transpose(-1, -2)
+    attn = attn + bias.float()[None]
+    keep = keep_mask(flags, ws, shift)
+    attn = softmax_lastdim(attn, None if keep is None else keep[:, None])
+    return (attn.to(dt).float() @ v.float()).to(dt)
+
+
+def _check_geometry(nh, c, shift, ws):
+    if c != nh * HEAD_DIM or c > MAX_DIM:
+        raise ValueError(f"C={c} with {nh} heads: the kernel takes "
                          f"head dim {HEAD_DIM} and C <= {MAX_DIM}")
     if ws != 8 or shift not in (0, ws // 2):
         raise ValueError(f"window {ws} / shift {shift} not supported "
                          "(window 8, shift 0 or 4)")
+
+
+def _check_device(x, bias, flags, **tensors):
+    """The checks of a CUDA launch; raises on what the kernels do not
+    take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {x.dtype}: float32 or bfloat16 only")
+    if bias.dtype != torch.float32 or flags.dtype != torch.int32:
+        raise TypeError("bias must be float32 and flags int32")
+    for name, t in (*tensors.items(), ("bias", bias), ("flags", flags)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+        if name in tensors and t.dtype != x.dtype:
+            raise TypeError(f"{name} must be {x.dtype}")
+
+
+def _check(qkv, bias, flags, num_heads, shift, ws):
+    if qkv.dim() != 3 or qkv.shape[1] != ws * ws or qkv.shape[2] % 3:
+        raise ValueError(f"qkv must be (BW, {ws * ws}, 3C), got "
+                         f"{tuple(qkv.shape)}")
+    _check_geometry(num_heads, qkv.shape[2] // 3, shift, ws)
     if tuple(bias.shape) != (num_heads, ws * ws, ws * ws):
         raise ValueError(f"bias must be ({num_heads}, 64, 64), got "
                          f"{tuple(bias.shape)}")
@@ -80,15 +120,7 @@ def fused_window_attention_qkv(qkv, bias, flags, *, num_heads: int,
         return window_attention_qkv_plain(qkv, bias, flags,
                                           num_heads=num_heads, shift=shift,
                                           ws=ws)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"unsupported device {qkv.device}")
-    if qkv.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"qkv dtype {qkv.dtype}: float32 or bfloat16 only")
-    if bias.dtype != torch.float32 or flags.dtype != torch.int32:
-        raise TypeError("bias must be float32 and flags int32")
-    for name, t in (("qkv", qkv), ("bias", bias), ("flags", flags)):
-        if t.device != qkv.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {qkv.device}")
+    _check_device(qkv, bias, flags, qkv=qkv)
     bw = qkv.shape[0]
     c = qkv.shape[2] // 3
     out = torch.empty((bw, ws * ws, c), dtype=qkv.dtype, device=qkv.device)
@@ -105,3 +137,40 @@ def fused_window_attention_qkv(qkv, bias, flags, *, num_heads: int,
 
 
 fused_window_attention_qkv.launches = 0
+
+
+def fused_window_attention(q, k, v, bias, flags, *, shift: int = 0,
+                           ws: int = 8):
+    """Window attention on unpacked heads: kernel E for CUDA tensors, the
+    plain twin for CPU tensors. Counts kernel launches in
+    ``fused_window_attention.launches``."""
+    if q.dim() != 4 or q.shape[2] != ws * ws or q.shape[3] != HEAD_DIM:
+        raise ValueError(f"q must be (BW, nh, {ws * ws}, {HEAD_DIM}), got "
+                         f"{tuple(q.shape)}")
+    bw, nh = q.shape[0], q.shape[1]
+    if tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape):
+        raise ValueError("q, k and v must have one shape")
+    _check_geometry(nh, nh * HEAD_DIM, shift, ws)
+    if tuple(bias.shape) != (nh, ws * ws, ws * ws):
+        raise ValueError(f"bias must be ({nh}, 64, 64), got "
+                         f"{tuple(bias.shape)}")
+    if tuple(flags.shape) != (bw,):
+        raise ValueError(f"flags must be ({bw},), got {tuple(flags.shape)}")
+    if q.device.type == "cpu":
+        return window_attention_plain(q, k, v, bias, flags, shift=shift,
+                                      ws=ws)
+    _check_device(q, bias, flags, q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    if bw == 0:
+        return out
+    lib = build.load_library()
+    code = lib.w2x_window_attention_heads(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        flags.data_ptr(), out.data_ptr(), bw, nh, shift,
+        int(q.dtype == torch.bfloat16), build.stream_handle(q.device))
+    build.check(code, "window attention (unpacked heads) kernel")
+    fused_window_attention.launches += 1
+    return out
+
+
+fused_window_attention.launches = 0

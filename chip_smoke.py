@@ -11,7 +11,13 @@ the port through its library entry points (``Upscaler.load`` / ``render``
   2. kernel build (seconds)
   3. kernels A (window attention) and B (Swin block) against their plain
      PyTorch twins at the flagship shapes: fp32 max |d| <= 1e-4 (TF32 off),
-     bf16 by the rule |k16 - p32| <= max(2 |p16 - p32|, 0.02); median times
+     bf16 by the rule |k16 - p32| <= max(2 |p16 - p32|, 0.02), and B on
+     prepared operands (``block_operands``, built once) equal byte for
+     byte to B on per-call ones; median times: B on prepared operands in
+     bf16 and fp32, A beside ``scaled_dot_product_attention`` with the
+     bias and shift mask as one float mask, B beside a yardstick chain of
+     bf16 library calls (layer_norm, linear, SDPA, gelu) that the port
+     never calls
   4. kernel C (finalize) against the plain scan on the 720p -> 4x plan,
      chunk outputs split [16, 2] and in a TileStream split: byte-identical
   5. main path: swin_unet/art 4x noise 3, tile 256, batch 16, fp16 (bf16):
@@ -40,6 +46,13 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      packed twin, one 720p frame must be byte-identical to phase 5's
      render of it (the same math; only the head layout differs), then 10
      streamed frames, one of them held against its render as in phase 5
+
+Every kernel's time is printed beside its bound: the larger of its bytes
+(each input read once, each output written once) over 3.35 TB/s and its
+operations over the peak rate of their type (989 TFLOP/s for bf16 matrix
+products, 67 TFLOP/s for fp32 work), computed from the shapes of the run;
+and beside the one PyTorch call that computes the same function where
+there is one (SDPA for A and E; none for B, C and D).
 
 Phase 5 runs with WAIFU2X_PACK_X unset (the default path). Launch counters
 are set to 0 just before phases 5, 7, 9 and E's API call of phase 8 and
@@ -115,7 +128,89 @@ def _block_inputs(torch, bw, c, nh, dtype, seed):
     return x, qkv, params, bias, flags
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM
+# bytes/s, bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores.
+HBM_BPS = 3.35e12
+BF16_TC_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+
+def _bound(nbytes, tc_flops=0.0, fp32_flops=0.0, tc_rate=BF16_TC_FLOPS):
+    """(ms, "bytes" | "operations"): the least time for the work, the
+    larger of its bytes (each input read once, each output written once)
+    over the HBM rate and its operations over the peak rate of their type
+    (matrix products on the tensor cores at ``tc_rate``, elementwise fp32
+    work on the CUDA cores; the two run side by side)."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = max(tc_flops / tc_rate, fp32_flops / FP32_FLOPS)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _attention_work(bw, nh, elem):
+    """(bytes, product FLOPs, fp32 FLOPs) of window attention over bw
+    windows: q, k, v in and the output out (elem bytes each), the fp32 bias
+    and int32 flags; QK^T and PV; ~6 fp32 operations per score (bias, max,
+    subtract, exp, sum, divide)."""
+    nbytes = 4 * bw * nh * 64 * 32 * elem + nh * 64 * 64 * 4 + bw * 4
+    return nbytes, bw * nh * 2 * (2 * 64 * 64 * 32), bw * nh * 64 * 64 * 6
+
+
+def _block_work(bw, c, nh, elem):
+    """(bytes, product FLOPs, fp32 FLOPs) of kernel B: x in and out, the
+    GEMM weights (8 C^2) once, fp32 biases and LayerNorm parameters, the
+    bias and flags; the four GEMMs (1024 C^2 FLOP per window) and the
+    attention products; fp32 work of the softmax, the erf GELU (~8 per
+    hidden value) and the two LayerNorms with the residuals (~20 per
+    value)."""
+    a_bytes, a_flops, a_fp32 = _attention_work(bw, nh, elem)
+    nbytes = (2 * bw * 64 * c * elem + 8 * c * c * elem + 11 * c * 4
+              + nh * 64 * 64 * 4 + bw * 4)
+    flops = bw * 1024 * c * c + a_flops
+    fp32 = a_fp32 + bw * 64 * (2 * c * 8 + c * 20)
+    return nbytes, flops, fp32
+
+
+def _sdpa_mask(torch, bias, flags, shift, dtype):
+    """The relative bias and the shift mask as one float mask (BW, nh, 64,
+    64) for F.scaled_dot_product_attention: -inf where masked."""
+    from waifu2x_tensorrt_tpu_torch.ops.kernel_math import keep_mask
+
+    bw, nh = flags.shape[0], bias.shape[0]
+    mask = bias[None].expand(bw, nh, 64, 64)
+    keep = keep_mask(flags, 8, shift)
+    if keep is not None:
+        mask = torch.where(keep[:, None], mask, float("-inf"))
+    return mask.to(dtype).contiguous()
+
+
+def _block_chain(torch, params, c, nh):
+    """Kernel B's block as a chain of bf16 library calls (F.layer_norm,
+    F.linear, SDPA, F.gelu): a yardstick of what PyTorch's own kernels
+    take for the block. The port never calls it."""
+    import torch.nn.functional as F
+
+    w = {k: (v.t() if k.endswith("_kernel") else v).to(torch.bfloat16)
+         .contiguous() for k, v in params.items()}
+
+    def block(x, mask):
+        bw = x.shape[0]
+        h = F.layer_norm(x, (c,), w["n1_scale"], w["n1_bias"])
+        qkv = F.linear(h, w["qkv_kernel"], w["qkv_bias"])
+        q, k, v = qkv.view(bw, 64, 3, nh, 32).permute(2, 0, 3, 1, 4)
+        a = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        x1 = x + F.linear(a.transpose(1, 2).reshape(bw, 64, c),
+                          w["proj_kernel"], w["proj_bias"])
+        m = F.layer_norm(x1, (c,), w["n2_scale"], w["n2_bias"])
+        g = F.gelu(F.linear(m, w["fc1_kernel"], w["fc1_bias"]))
+        return x1 + F.linear(g, w["fc2_kernel"], w["fc2_bias"])
+
+    return block
+
+
 def phase_kernels_ab(torch, report):
+    import torch.nn.functional as F
+
     from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
     from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
 
@@ -125,6 +220,8 @@ def phase_kernels_ab(torch, report):
     for bw, c, nh in cases:
         x, qkv, params, bias, flags = _block_inputs(torch, bw, c, nh,
                                                    torch.float32, seed=c + bw)
+        ops16 = sb.block_operands(params, bias, torch.bfloat16)
+        ops32 = sb.block_operands(params, bias, torch.float32)
         for shift in (0, 4):
             for name, kern, plain, inp in (
                     ("A", wa.fused_window_attention_qkv,
@@ -139,29 +236,64 @@ def phase_kernels_ab(torch, report):
                 a16 = (inp.bfloat16(),) + args[1:]
                 k16 = kern(*a16, **kw).float()
                 p16 = plain(*a16, **kw).float()
+                same = True
+                if name == "B":  # prepared operands: the same bytes
+                    same = torch.equal(sb.swin_block_prepared(
+                        a16[0], ops16, flags, shift=shift).float(), k16)
                 torch.cuda.synchronize()
                 e_k = (k16 - p32).abs().max().item()
                 e_p = (p16 - p32).abs().max().item()
-                ok = err32 <= 1e-4 and e_k <= max(2 * e_p, 0.02)
+                ok = err32 <= 1e-4 and e_k <= max(2 * e_p, 0.02) and same
                 print(f"  kernel {name} BW={bw} C={c} nh={nh} shift={shift}: "
                       f"fp32 max|d|={err32:.3e} (tol 1e-4); bf16 "
-                      f"|k16-p32|={e_k:.3e} <= max(2*{e_p:.3e}, 0.02): "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                      f"|k16-p32|={e_k:.3e} <= max(2*{e_p:.3e}, 0.02)"
+                      + ("; prepared operands give the same bytes: "
+                         f"{same}" if name == "B" else "")
+                      + f": {'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     raise AssertionError(f"kernel {name} disagrees with its "
                                          "plain version")
                 worst[name] = max(worst[name], err32)
                 if shift == 4 and bw != 37:
-                    km = _median_ms(lambda: kern(*a16, **kw))
+                    x16 = a16[0]
+                    mask = _sdpa_mask(torch, bias, flags, 4, torch.bfloat16)
+                    if name == "A":
+                        km = _median_ms(lambda: kern(*a16, **kw))
+                        q, k, v = (x16.view(bw, 64, 3, nh, 32)
+                                   .permute(2, 0, 3, 1, 4))
+                        lm = _median_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q, k, v, attn_mask=mask))
+                        work = _attention_work(bw, nh, 2)
+                        extra = {"library_ms": lm}
+                        label = f"SDPA with a float mask {lm:.3f} ms"
+                    else:
+                        km = _median_ms(lambda: sb.swin_block_prepared(
+                            x16, ops16, flags, shift=4))
+                        km32 = _median_ms(lambda: sb.swin_block_prepared(
+                            inp, ops32, flags, shift=4))
+                        chain = _block_chain(torch, params, c, nh)
+                        lm = _median_ms(lambda: chain(x16, mask))
+                        work = _block_work(bw, c, nh, 2)
+                        b32 = _bound(*_block_work(bw, c, nh, 4),
+                                     tc_rate=FP32_FLOPS)
+                        extra = {"library_ms": None, "library_chain_ms": lm,
+                                 "fp32_ms": km32, "fp32_bound_ms": b32[0]}
+                        label = (f"fp32 kernel {km32:.3f} ms (bound "
+                                 f"{b32[0]:.4f} ms at 67 TFLOP/s); "
+                                 f"yardstick, bf16 library chain "
+                                 f"(layer_norm, linear, SDPA, gelu; never "
+                                 f"called by the port) {lm:.3f} ms")
                     pm = _median_ms(lambda: plain(*a16, **kw))
-                    times[(name, c)] = (km, pm)
+                    bms, by = _bound(*work)
+                    times[(name, c)] = dict(ms=km, plain_ms=pm, bound_ms=bms,
+                                            bound_by=by, **extra)
                     print(f"  kernel {name} bf16 BW={bw} C={c}: kernel "
-                          f"{km:.3f} ms, plain {pm:.3f} ms (median, CUDA "
-                          f"events)", flush=True)
-    report["A"] = {"max_abs_err": worst["A"], "ms": times[("A", 96)][0],
-                   "plain_ms": times[("A", 96)][1]}
-    report["B"] = {"max_abs_err": worst["B"], "ms": times[("B", 96)][0],
-                   "plain_ms": times[("B", 96)][1]}
+                          f"{km:.3f} ms (bound {bms:.4f} ms by {by}, "
+                          f"{100 * bms / km:.1f}% of it), plain {pm:.3f} "
+                          f"ms; {label} (median, CUDA events)", flush=True)
+    report["A"] = dict(times[("A", 96)], max_abs_err=worst["A"])
+    report["B"] = dict(times[("B", 96)], max_abs_err=worst["B"])
     return times
 
 
@@ -204,7 +336,14 @@ def phase_kernel_c(torch, report):
           f"{pm:.3f} ms (median, CUDA events)", flush=True)
     if not same:
         raise AssertionError("kernel C is not byte-identical to the scan")
-    report["C"] = {"max_abs_err": float(err), "ms": km, "plain_ms": pm}
+    # each tile value read once, each u8 output written once; a multiply
+    # and an add per tile value
+    n_in = sum(o.numel() for o in outs)
+    bms, by = _bound(2 * n_in + got.numel(), fp32_flops=2 * n_in)
+    print(f"  kernel C bound {bms:.4f} ms by {by} ({100 * bms / km:.1f}% "
+          "of it)", flush=True)
+    report["C"] = {"max_abs_err": float(err), "ms": km, "plain_ms": pm,
+                   "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
 def _counters():
@@ -342,22 +481,30 @@ def phase_fused_block_false(torch):
 
 @contextlib.contextmanager
 def _swin_block_as(fn, plain_finalize=False):
-    """Inside the context every fused Swin block runs ``fn`` in place of
-    kernel B, and pipelines made there finalize with the plain scan in
+    """Inside the context every fused Swin block runs ``fn(x, operands,
+    flags, shift=, ws=)`` in place of kernel B, and pipelines made there finalize with the plain scan in
     place of kernel C when ``plain_finalize`` is set."""
     import waifu2x_tensorrt_tpu_torch.engine.renderer as renderer
     import waifu2x_tensorrt_tpu_torch.models.swin_unet as swin
     from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import finalize_scan
 
-    saved = (swin.fused_swin_block, renderer.make_finalize_epilogue)
-    swin.fused_swin_block = fn
+    saved = (swin.swin_block_prepared, renderer.make_finalize_epilogue)
+    swin.swin_block_prepared = fn
     if plain_finalize:
         renderer.make_finalize_epilogue = (
             lambda plan, device: lambda *outs: finalize_scan(outs, plan))
     try:
         yield
     finally:
-        swin.fused_swin_block, renderer.make_finalize_epilogue = saved
+        swin.swin_block_prepared, renderer.make_finalize_epilogue = saved
+
+
+def _plain_prepared(x, operands, flags, **kw):
+    """Kernel B's plain twin on a block's prepared operands."""
+    from waifu2x_tensorrt_tpu_torch.ops.swin_block import swin_block_plain
+
+    return swin_block_plain(x, operands.params(), operands.bias, flags,
+                            num_heads=operands.num_heads, **kw)
 
 
 def _unit_scale_params(module, seed):
@@ -392,13 +539,12 @@ def phase_network_gate(torch):
     )
     from waifu2x_tensorrt_tpu_torch.engine.renderer import make_chunked_fns
     from waifu2x_tensorrt_tpu_torch.models import registry
-    from waifu2x_tensorrt_tpu_torch.ops.swin_block import swin_block_plain
 
     frame = np.random.default_rng(6).integers(0, 256, (720, 1280, 3),
                                               np.uint8)
     # a. the u8 frame, seed-0 weights: kernels B and C vs their plain twins
     got = _load(torch, Precision.TF32).render(frame)
-    with _swin_block_as(swin_block_plain, plain_finalize=True):
+    with _swin_block_as(_plain_prepared, plain_finalize=True):
         want = _load(torch, Precision.TF32).render(frame)
     ok, dmax, frac = _golden_gate(got, want)
     print(f"  phase 6a tf32 frame, kernel path vs all-plain path: max "
@@ -429,7 +575,7 @@ def phase_network_gate(torch):
             ("unit-scale", lambda m: _unit_scale_params(m, seed=1))):
         k32 = forward(torch.float32, weights)
         k16 = forward(torch.bfloat16, weights)
-        with _swin_block_as(swin_block_plain):
+        with _swin_block_as(_plain_prepared):
             p32 = forward(torch.float32, weights)
             p16 = forward(torch.bfloat16, weights)
         with _swin_block_as(lambda x, *args, **kw: x):
@@ -486,7 +632,12 @@ def phase_kernels_de(torch, report):
                 pm = _median_ms(lambda: hp.pack_head_plain(z, 4))
                 print(f"  kernel D bf16 r=4: kernel {km:.3f} ms, plain "
                       f"{pm:.3f} ms (median, CUDA events)", flush=True)
-                report["D"] = {"max_abs_err": 0.0, "ms": km, "plain_ms": pm}
+                bms, by = _bound(2 * z.numel() * 2)  # read and write once
+                print(f"  kernel D bound {bms:.4f} ms by {by} "
+                      f"({100 * bms / km:.1f}% of it)", flush=True)
+                report["D"] = {"max_abs_err": 0.0, "ms": km, "plain_ms": pm,
+                               "bound_ms": bms, "bound_by": by,
+                               "library_ms": None}
         del z32, z, k, p, pix
     report["D"]["max_abs_err"] = worst_d
 
@@ -522,10 +673,18 @@ def phase_kernels_de(torch, report):
                     *a16, shift=4))
                 pm = _median_ms(lambda: wa.window_attention_plain(
                     *a16, shift=4))
+                mask = _sdpa_mask(torch, bias, flags, 4, torch.bfloat16)
+                lm = _median_ms(lambda: torch.nn.functional
+                                .scaled_dot_product_attention(
+                                    a16[0], a16[1], a16[2], attn_mask=mask))
+                bms, by = _bound(*_attention_work(bw, nh, 2))
                 print(f"  kernel E bf16 BW={bw} nh={nh}: kernel {km:.3f} "
-                      f"ms, plain {pm:.3f} ms (median, CUDA events)",
-                      flush=True)
-                report["E"] = {"ms": km, "plain_ms": pm}
+                      f"ms (bound {bms:.4f} ms by {by}, "
+                      f"{100 * bms / km:.1f}% of it), plain {pm:.3f} ms, "
+                      f"SDPA with a float mask {lm:.3f} ms (median, CUDA "
+                      "events)", flush=True)
+                report["E"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
+                               "bound_by": by, "library_ms": lm}
                 api_args = a16
     report["E"]["max_abs_err"] = worst_e
     # E's run: one call through the ops package's public API
@@ -679,8 +838,12 @@ def main() -> int:
     kernels = [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                 "replaces": meta[k][2], "launches": meta[k][3],
                 "launches_counted_in": meta[k][4],
-                "max_abs_err": report[k]["max_abs_err"],
-                "ms": report[k]["ms"], "plain_ms": report[k]["plain_ms"]}
+                **{key: report[k][key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                **{key: report[k][key] for key in (
+                    "library_chain_ms", "fp32_ms", "fp32_bound_ms")
+                   if key in report[k]}}
                for k in ("A", "B", "C", "D", "E")]
     print(smi)
     print(json.dumps({"kernels": kernels}))

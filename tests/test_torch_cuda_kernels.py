@@ -6,7 +6,11 @@ machine with one, run
 conftest sets up JAX, which such a machine need not have).
 Same checks as phases 3, 4 and 8 of ``chip_smoke.py``, at smaller
 shapes: kernels A, B and E within fp32 max |d| <= 1e-4 (TF32 off) and the
-bf16 rule |k16 - p32| <= max(2 |p16 - p32|, 0.02); kernel C byte-identical
+bf16 rule |k16 - p32| <= max(2 |p16 - p32|, 0.02); kernel B's bf16
+tensor-core kernel also at C 96 / 3 heads and C 192 / 6 heads with window
+counts of 1, 37 and full CTAs, on prepared operands (the same bytes as
+per-call ones, one launch counted), and with logits beyond 100 under the
+shift mask; kernel C byte-identical
 to the scan, with whole chunks and TileStream pieces; kernel D equal to
 its plain twin and to the clamped pixel shuffle, byte for byte.
 """
@@ -89,6 +93,73 @@ def test_kernel_b_matches_plain(bw, c, nh, shift):
     x, _q, params, bias, flags = _inputs(bw, c, nh, bw + shift + 1)
     _check(sb.fused_swin_block, sb.swin_block_plain,
            (x, params, bias, flags), {"num_heads": nh, "shift": shift})
+
+
+@pytest.mark.parametrize("bw,c,nh", [
+    (512, 96, 3), (256, 192, 6), (37, 96, 3), (37, 192, 6), (1, 96, 3),
+    (1, 192, 6),
+])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_kernel_b_tensor_core_shapes(bw, c, nh, shift):
+    """The bf16 tensor-core kernel at the flagship widths, with window
+    counts that fill, half-fill (odd BW) or barely use a CTA of two
+    windows; prepared operands give the same bytes as per-call ones."""
+    from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
+
+    x, _q, params, bias, flags = _inputs(bw, c, nh, bw + c + shift)
+    kw = {"num_heads": nh, "shift": shift}
+    _check(sb.fused_swin_block, sb.swin_block_plain,
+           (x, params, bias, flags), kw)
+    x16 = x.bfloat16()
+    ops = sb.block_operands(params, bias, torch.bfloat16)
+    assert ops.out_in
+    before = sb.fused_swin_block.launches
+    got = sb.swin_block_prepared(x16, ops, flags, shift=shift)
+    assert sb.fused_swin_block.launches == before + 1
+    assert torch.equal(got, sb.fused_swin_block(x16, params, bias, flags,
+                                                **kw))
+
+
+@pytest.mark.parametrize("c,nh", [(96, 3), (192, 6)])
+def test_kernel_b_large_logits(c, nh):
+    """q.k scaled up (the q and k columns of the qkv weights x 12: head-0
+    logits beyond 100, where exp without the max-subtraction overflows
+    fp32) under the shift mask in every window: the max-subtraction and
+    the masked zeros must hold. v keeps its scale, so the output stays
+    near unit size and the fp32 limit keeps its meaning."""
+    from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
+
+    x, _q, params, bias, flags = _inputs(64, c, nh, 7 + c)
+    qk_scale = torch.ones(3 * c, device="cuda")
+    qk_scale[:2 * c] = 12
+    params = dict(params, qkv_kernel=params["qkv_kernel"] * qk_scale)
+    flags = torch.full_like(flags, 3)  # every window masked both ways
+    kw = {"num_heads": nh, "shift": 4}
+    qkv = sb._dense(sb.layernorm(x, params["n1_scale"], params["n1_bias"]),
+                    params["qkv_kernel"], params["qkv_bias"], x.dtype)
+    logits = (qkv[..., :32] * 32 ** -0.5) @ qkv[..., c:c + 32].transpose(1, 2)
+    assert logits.abs().max().item() > 100
+    _check(sb.fused_swin_block, sb.swin_block_plain,
+           (x, params, bias, flags), kw)
+    out = sb.fused_swin_block(x.bfloat16(), params, bias, flags, **kw)
+    assert torch.isfinite(out.float()).all()
+
+
+def test_kernel_b_wrapper_checks():
+    from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
+
+    x, _q, params, bias, flags = _inputs(8, 96, 3, 3)
+    ops = sb.block_operands(params, bias, torch.bfloat16)
+    with pytest.raises(TypeError):  # operands built for another dtype
+        sb.swin_block_prepared(x, ops, flags)
+    with pytest.raises(ValueError):  # C of x and operands differ
+        sb.swin_block_prepared(x[..., :64].bfloat16().contiguous(), ops,
+                               flags)
+    x16 = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    x16 = x16[1:].view(x.shape)
+    x16.copy_(x)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        sb.swin_block_prepared(x16, ops, flags)
 
 
 @pytest.mark.parametrize("bw,nh", [(256, 3), (64, 6), (37, 2)])

@@ -2,8 +2,8 @@
 
 An AST scan, because the test process has jax loaded already (the conftest
 imports it), so ``sys.modules`` cannot tell who imported it:
-- no module of the port, and not ``chip_smoke.py``, imports jax, flax or
-  the JAX package;
+- no module of the port, and not ``chip_smoke.py`` or the measurement
+  scripts under ``tools/``, imports jax, flax or the JAX package;
 - ``triton`` is imported only inside functions;
 - importing every module of the port builds nothing.
 """
@@ -19,7 +19,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "waifu2x_tensorrt_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "waifu2x_tensorrt_tpu")
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _imports(tree):

@@ -12,6 +12,8 @@ batches (B, H, W, 3), window tokens (BW, 64, C). Convolutions run on
 ``channels_last`` views of the same memory. Parameters are float32 (as
 loaded); GEMM and conv weights are cast to the compute dtype per call,
 LayerNorm parameters, biases of the kernels and the bias tables stay fp32.
+Kernel B's operands are the exception: each ``SwinBlock`` builds them
+once per dtype and keeps them until a parameter changes or moves.
 
 ``fused_block=True`` runs each Swin block through kernel B
 (``ops/swin_block.py``); otherwise the block is the dense math with
@@ -37,7 +39,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from waifu2x_tensorrt_tpu_torch.ops.head_pack import PACK_X, pack_head_x16
-from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
+from waifu2x_tensorrt_tpu_torch.ops.swin_block import (
+    BlockOperands,
+    block_operands,
+    swin_block_prepared,
+)
 from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
     fused_window_attention_qkv,
 )
@@ -172,10 +178,11 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.mlp_fc1 = nn.Linear(dim, dim * mlp_ratio, device=device)
         self.mlp_fc2 = nn.Linear(dim * mlp_ratio, dim, device=device)
+        self._operands = {}  # dtype -> (stamp, BlockOperands)
 
     def kernel_params(self) -> dict:
-        """The block's parameters in kernel B's layout (GEMM kernels as
-        (in, out), fp32)."""
+        """The block's parameters in the JAX layout (GEMM kernels as
+        (in, out) views, fp32)."""
         return {
             "n1_scale": self.norm1.weight, "n1_bias": self.norm1.bias,
             "qkv_kernel": self.attn.qkv.weight.t(),
@@ -188,6 +195,27 @@ class SwinBlock(nn.Module):
             "fc2_kernel": self.mlp_fc2.weight.t(),
             "fc2_bias": self.mlp_fc2.bias,
         }
+
+    def operands(self, dtype: torch.dtype) -> BlockOperands:
+        """Kernel B's operands for ``dtype`` on the parameters' device,
+        built at the first call and kept until a parameter changes or
+        moves: the cache is stamped with the device and each parameter's
+        storage and version counter, which ``load_state_dict``
+        (``registry.load_into``) bumps as it copies in place. The packed-x
+        twin holds this same block, so it shares the cache."""
+        params = tuple(self.parameters())
+        stamp = (params[0].device,
+                 tuple((p.data_ptr(), p._version) for p in params))
+        hit = self._operands.get(dtype)
+        if hit is not None and hit[0] == stamp:
+            return hit[1]
+        with torch.inference_mode(False), torch.no_grad():
+            ops = block_operands(
+                self.kernel_params(),
+                _bias_from_table(self.attn.relative_position_bias_table,
+                                 self.num_heads), dtype)
+        self._operands[dtype] = (stamp, ops)
+        return ops
 
     def forward(self, x):
         if self.fused_block:
@@ -208,13 +236,11 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
         xw = _window_split(x, ws)
         nw = xw.shape[1]
-        out = fused_swin_block(
+        out = swin_block_prepared(
             xw.reshape(b * nw, ws * ws, c).contiguous(),
-            self.kernel_params(),
-            _bias_from_table(self.attn.relative_position_bias_table,
-                             self.num_heads, ws),
+            self.operands(x.dtype),
             _flags_tensor(b, h // ws, w // ws, x.device),
-            num_heads=self.num_heads, shift=self.shift, ws=ws,
+            shift=self.shift, ws=ws,
         ).reshape(b, nw, ws * ws, c)
         out = _window_merge(out, h, w, ws)
         if self.shift:

@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
 
-``nvcc`` compiles every source into ONE shared library with a plain C
+``nvcc`` compiles every source (one process per source, all started
+together) and links them into ONE shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers: a build takes
 seconds, not minutes). The library is built at first use into
 ``build/kernels/`` at the root of the checkout, under a name keyed on a
 hash of the sources and the flags, so a changed source always rebuilds and
 an unchanged one is reused. Nothing is built at import time.
+``extra_flags`` builds a variant of the library beside it (a measurement
+build, e.g. ``-DW2X_PHASE_CLOCK``); the kernels' wrappers use the plain one.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()`` after the launch; the wrappers in ``ops/`` raise on
@@ -23,8 +26,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,8 +48,8 @@ def _sources() -> list[Path]:
     return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def source_hash(extra_flags=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -65,41 +69,61 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libw2x_kernels_{source_hash()}.so"
+def library_path(extra_flags=()) -> Path:
+    return BUILD_DIR / f"libw2x_kernels_{source_hash(extra_flags)}.so"
 
 
-def build() -> Path:
+def build(extra_flags=()) -> Path:
     """Compile the kernels if the hashed library is missing; returns its
     path. Raises with nvcc's output when the compile fails."""
-    out = library_path()
+    out = library_path(extra_flags)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objdir = BUILD_DIR / f"{tmp.name}.obj"
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    try:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = objdir / f"{src.stem}.o"
+            jobs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *extra_flags, "-c", str(src), "-o",
+                 str(obj)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        outputs = [proc.communicate() for _, proc in jobs]  # all finish
+        for (_, proc), (stdout, stderr) in zip(jobs, outputs):
+            _raise_on_failure(proc.returncode, stdout, stderr)
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *[str(obj) for obj, _ in jobs]], capture_output=True, text=True)
+        _raise_on_failure(link.returncode, link.stdout, link.stderr)
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+        shutil.rmtree(objdir, ignore_errors=True)
     return out
 
 
-def load_library() -> ctypes.CDLL:
+def _raise_on_failure(code: int, stdout: str, stderr: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{stdout}\n{stderr}")
+
+
+def load_library(extra_flags=()) -> ctypes.CDLL:
     """The kernels' library (built at first call, then cached for the
-    process)."""
+    process); with ``extra_flags``, a measurement variant, loaded anew."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    if _lib is not None and not extra_flags:
+        return _lib
+    lib = ctypes.CDLL(str(build(extra_flags)))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    if not extra_flags:
         _lib = lib
-    return _lib
+    return lib
 
 
 def check(code: int, name: str) -> None:

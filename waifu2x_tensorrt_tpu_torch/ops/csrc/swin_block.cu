@@ -7,41 +7,92 @@
 //   (C -> 2C) -> erf GELU -> fc2 -> residual
 // on x (BW, 64, C), C = 32 * nh (96/3 and 192/6 on the flagship).
 //
-// What bounds it on the H100: 512*C^2 MACs of GEMM per window (19 GMAC
-// per block per 16-tile chunk at either stage) against 2 * 64*C values of
-// HBM traffic, so it is compute-bound; this first version runs the GEMMs
-// as fp32 FMA loops on the CUDA cores, with the weights read through L2.
-// What the design does about it: the TPU kernel kept every weight resident
-// in VMEM; at C=192 the weights are ~0.59 MB in bf16, more than the 227 KB
-// of shared memory a CTA may use. So one CTA per window keeps the window's
-// ACTIVATIONS in shared memory (the qkv / MLP-hidden buffer, the LN output
-// or residual, the 64x64 scores: 209 KB at C=192 fp32, 113 KB in bf16) and
-// reads the weights from global memory, where all blocks' weights stay in
-// the 50 MB L2. Activations touch HBM once in, once out. Tensor-core GEMMs
-// (mma/wgmma) and weight tiles staged by TMA are later work.
+// What bounds it on the H100: 1024 * C^2 + 524288 * nh FLOP per window
+// (45 GFLOP per launch at BW 4096, C 96; 42 at BW 1024, C 192) against
+// 4 * 64 * C bytes of activations in and out (101 MB; 50 MB), so the
+// tensor cores bound it: ~0.046 ms and ~0.042 ms at 989 TFLOP/s.
 //
-// Rounding points mirror _block_body (swin_block.py:67-177): LN output
-// rounded to T; GEMMs accumulate in fp32, add the fp32 bias, then round
-// to T; the residual adds round to T; GELU runs on the fp32
-// pre-activation. Exact forms for every T (see common.cuh).
+// Two instantiations, chosen by dtype:
+//
+// bf16 (swin_block_tc_kernel, the main path): all six products (qkv,
+// q k^T, p v, proj, fc1, fc2) on the tensor cores with mma.sync m16n8k16
+// (bf16 operands, fp32 accumulators) fed by ldmatrix. mma.sync, not
+// wgmma, is a design choice of this first tensor-core version: its
+// fragments are per-warp and need no shared-memory descriptors, so the
+// per-head attention and the chunked MLP can chain one product's output
+// into the next from registers; wgmma is later work.
+//   - One CTA holds TC_WPC = 2 windows (8 warps); each warp owns 16 rows of
+//     one window and keeps them in registers or in its own rows of shared
+//     memory. Only K and V are shared by the 4 warps of a window.
+//   - The weights stream through a 2-stage ring of shared-memory tiles
+//     (cp.async, 16-byte copies), read in nn.Linear's (out, in) layout, K
+//     contiguous, which is what ldmatrix wants for the B operand. Each tile
+//     serves both windows of the CTA, so L2 weight reads per launch halve
+//     against one CTA per window. One CTA barrier per tile.
+//   - x arrives by cp.async into the LN rows; both LayerNorms are two-pass
+//     fp32 in the accumulator layout (a row's quad reduces by shuffles).
+//   - Attention one head at a time without touching shared memory for
+//     scores: q_h (16 x 32) is computed per warp and converted from
+//     accumulators to an A fragment; the 16 x 64 fp32 score tile lives in
+//     registers, starting from the relative bias; the shift mask and the
+//     exact max-subtracted softmax run without branches (a masked entry's
+//     exp is computed, then dropped), and p = e / sum is the correctly
+//     rounded quotient through the row's reciprocal and one exact-remainder
+//     FMA step; the bf16 probabilities feed p v from registers; each
+//     head's bf16 output feeds proj at once: proj = sum_h O_h Wproj[h], so
+//     neither the scores nor the concatenated heads are stored.
+//   - The MLP runs in 32-column hidden chunks: fc1 chunk -> GELU -> bf16
+//     -> accumulate into fc2's 16 x C accumulators; the 64 x 2C hidden is
+//     never stored.
+//   - A ragged last CTA (BW odd) computes its empty slot on a copy of the
+//     last window and stores nothing for it.
+//   - Shared memory: 2 weight stages + per window the LN rows (64 x C+8)
+//     and [K | V] (64 x 2C+8): 104 KB at C 96 (two CTAs per SM, 128
+//     registers a thread), 203 KB at C 192 (one CTA per SM, 255).
+//   What holds it near 12% of the bound (phase clocks of
+//   tools/block_phase_clock.py, PERF.md): latency. A CTA's cycles go to
+//   fc1 + GELU (~25%), q_h and the softmax (~27%), and the loads,
+//   LayerNorms and stores (~25%), with 16 (C 96) or 8 (C 192) warps per
+//   SM to hide short dependent mma.sync chains and the CUDA-core work
+//   between them.
+//
+// fp32 (swin_block_kernel<float>, the CLI's tf32 precision): unchanged
+// from the first port: one CTA per window, scalar fp32 FMA GEMMs on the
+// CUDA cores with W (in, out) read from L2, scores in shared memory.
+// TF32 tensor cores would break the fp32 checks (max |d| <= 1e-4 against
+// the plain twin, the tf32 golden gate), so it keeps full fp32 math.
+//
+// Rounding points mirror _block_body (swin_block.py:67-177) in both: LN
+// output rounded to T; GEMMs accumulate in fp32, add the fp32 bias, then
+// round to T; q*scale rounded to T; probabilities rounded to T before
+// p v; each head's output rounded to T before proj; GELU on the fp32
+// pre-activation; the residual adds round to T. Only the order of the
+// fp32 sums differs between the two and from the plain twin.
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace w2x {
 
 struct BlockParams {
   const float* n1s;
   const float* n1b;
-  const void* qkvk;  // (C, 3C) in T
+  const void* qkvk;  // T = float: (C, 3C); bf16: (3C, C) = (out, in)
   const float* qkvb;
-  const void* projk;  // (C, C) in T
+  const void* projk;  // float: (C, C) (in, out); bf16: (out, in)
   const float* projb;
   const float* n2s;
   const float* n2b;
-  const void* fc1k;  // (C, 2C) in T
+  const void* fc1k;  // float: (C, 2C); bf16: (2C, C)
   const float* fc1b;
-  const void* fc2k;  // (2C, C) in T
+  const void* fc2k;  // float: (2C, C); bf16: (C, 2C)
   const float* fc2b;
 };
+
+constexpr int kMaxDevices = 64;
+
+// ---------------------------------------------------------------------------
+// fp32: one CTA per window on the CUDA cores
+// ---------------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
@@ -100,21 +151,561 @@ template <typename T>
 int launch_swin_block(const void* x, const BlockParams& p, const void* bias,
                       const void* flags, void* out, int bw, int C, int nh,
                       int shift, cudaStream_t stream) {
+  // sized for the largest C, so the attribute is set once per device
+  constexpr size_t kMaxSmem = NTOK * SLD * sizeof(float) +
+                              (size_t)NTOK * padded_ld<T>(192) * sizeof(T) +
+                              (size_t)NTOK * padded_ld<T>(3 * 192) * sizeof(T);
+  static bool configured[kMaxDevices] = {};
   const size_t smem = NTOK * SLD * sizeof(float) +
                       (size_t)NTOK * padded_ld<T>(C) * sizeof(T) +
                       (size_t)NTOK * padded_ld<T>(3 * C) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      swin_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(swin_block_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) configured[dev] = true;
+  }
   swin_block_kernel<T><<<bw, NTHREADS, smem, stream>>>(
       static_cast<const T*>(x), p, static_cast<const float*>(bias),
       static_cast<const int*>(flags), static_cast<T*>(out), C, nh, shift);
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores, weights staged in shared memory
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Phase clocks, in a measurement build only (nvcc -DW2X_PHASE_CLOCK; see
+// tools/block_phase_clock.py): thread 0 of every CTA adds the clock64()
+// cycles since the previous clock point into w2x_phase_cycles[i] at point
+// i (0 x + LN1, 1 K | V tiles, per head 8 bias + q, 9 q k^T, 10 softmax,
+// 11 p v, 2 proj, 3 x1 + LN2, per MLP chunk 12 fc1 + GELU, 4 fc2, 5
+// output store), its waits at the weight-tile barriers into [6] and 1
+// into [7] (the CTA count). The main build compiles none of it.
+#ifdef W2X_PHASE_CLOCK
+__device__ unsigned long long w2x_phase_cycles[16];
+#define W2X_CLOCK_START()                                         \
+  long long w2x_t = clock64();                                    \
+  if (threadIdx.x == 0) atomicAdd(&w2x_phase_cycles[7], 1ull)
+#define W2X_CLOCK_PHASE(i)                                        \
+  do {                                                            \
+    const long long now = clock64();                              \
+    if (threadIdx.x == 0)                                         \
+      atomicAdd(&w2x_phase_cycles[i],                             \
+                (unsigned long long)(now - w2x_t));               \
+    w2x_t = now;                                                  \
+  } while (0)
+#define W2X_CLOCK_BEGIN_WAIT() const long long w2x_w = clock64()
+#define W2X_CLOCK_END_WAIT()                                      \
+  if (threadIdx.x == 0)                                           \
+  atomicAdd(&w2x_phase_cycles[6], (unsigned long long)(clock64() - w2x_w))
+#else
+#define W2X_CLOCK_START()
+#define W2X_CLOCK_PHASE(i)
+#define W2X_CLOCK_BEGIN_WAIT()
+#define W2X_CLOCK_END_WAIT()
+#endif
+
+constexpr int TC_WPC = 2;                 // windows per CTA
+constexpr int TC_WARPS = 4 * TC_WPC;      // 4 warps x 16 rows per window
+constexpr int TC_THREADS = 32 * TC_WARPS;
+
+template <int C>
+struct TcLayout {
+  static constexpr int NH = C / HD;
+  static constexpr int LDH = C + 8;       // LN-output rows (elements)
+  static constexpr int LDKV = 2 * C + 8;  // [K | V] rows; later x1
+  static constexpr int LDS = HD + 8;      // rows of a 32-column weight slab
+  // Row strides are an odd number of 16-byte units, so the 8 row addresses
+  // of one ldmatrix fall in 8 different bank groups.
+  static_assert(C % HD == 0 && C >= HD && C <= 192, "C = 32 * nh <= 192");
+  static_assert((LDH * 2 / 16) % 2 == 1 && (LDKV * 2 / 16) % 2 == 1 &&
+                    (LDS * 2 / 16) % 2 == 1,
+                "ldmatrix row strides must be odd multiples of 16 bytes");
+  // A weight tile: 64 rows of Wqkv (K | V) as 64 x LDH, or a pair for one
+  // head / MLP chunk: 32 rows (HD x LDH) + a C x 32 column slab (C x LDS).
+  static constexpr int KV_TILE = 64 * LDH;
+  static constexpr int PAIR_TILE = HD * LDH + C * LDS;
+  static constexpr int STAGE = KV_TILE > PAIR_TILE ? KV_TILE : PAIR_TILE;
+  static constexpr int WIN = NTOK * (LDH + LDKV);  // per window
+  static constexpr size_t SMEM = (size_t)(2 * STAGE + TC_WPC * WIN) * 2;
+  static constexpr int KV_TILES = 2 * C / 64;
+  static constexpr int MLP_TILES = 2 * C / HD;
+  static constexpr int TILES = KV_TILES + NH + MLP_TILES;
+};
+
+// rows x cols (cols % 8 == 0) of a bf16 matrix with row stride lds into
+// shared memory with row stride ldd; every thread of the CTA takes part
+template <int ROWS, int COLS>
+__device__ __forceinline__ void tile_async(bf16* dst, int ldd, const bf16* src,
+                                           int lds) {
+  constexpr int PER_ROW = COLS / 8;
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += TC_THREADS) {
+    const int r = i / PER_ROW, c = (i - r * PER_ROW) * 8;
+    tc::cp_async16(dst + r * ldd + c, src + (size_t)r * lds + c);
+  }
+}
+
+// The weight tiles in the order the block consumes them, double-buffered:
+// acquire(t) waits for tile t and syncs the CTA -- after which every warp
+// is done with tile t-1 -- and starts tile t+1's copy into t-1's stage.
+// One CTA barrier per tile.
+template <int C>
+struct WeightStream {
+  using L = TcLayout<C>;
+  bf16* stages;
+  const bf16* wqkv;   // (3C, C)
+  const bf16* wproj;  // (C, C)
+  const bf16* wfc1;   // (2C, C)
+  const bf16* wfc2;   // (C, 2C)
+
+  __device__ void load(int t) {
+    bf16* st = stages + (t & 1) * L::STAGE;
+    if (t < L::KV_TILES) {  // rows C + 64t .. of Wqkv: K then V columns
+      tile_async<64, C>(st, L::LDH, wqkv + (size_t)(C + 64 * t) * C, C);
+    } else if (t < L::KV_TILES + L::NH) {  // head h: Wq rows, Wproj columns
+      const int h = t - L::KV_TILES;
+      tile_async<HD, C>(st, L::LDH, wqkv + (size_t)h * HD * C, C);
+      tile_async<C, HD>(st + HD * L::LDH, L::LDS, wproj + h * HD, C);
+    } else {  // MLP chunk j: Wfc1 rows, Wfc2 columns
+      const int j = t - L::KV_TILES - L::NH;
+      tile_async<HD, C>(st, L::LDH, wfc1 + (size_t)j * HD * C, C);
+      tile_async<C, HD>(st + HD * L::LDH, L::LDS, wfc2 + j * HD, 2 * C);
+    }
+    tc::cp_async_commit();
+  }
+  __device__ const bf16* acquire(int t) {
+    W2X_CLOCK_BEGIN_WAIT();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    W2X_CLOCK_END_WAIT();
+    if (t + 1 < L::TILES) load(t + 1);
+    return stages + (t & 1) * L::STAGE;
+  }
+};
+
+// acc (16 x 8*NT) += A (16 x K, shared, row stride lda) * W^T, where W is
+// (8*NT x K) in shared memory with row stride ldw (the (out, in) layout).
+template <int NT, int K>
+__device__ __forceinline__ void mma_smem(float (&acc)[NT][4], const bf16* a,
+                                         int lda, const bf16* w, int ldw) {
+  static_assert(NT % 2 == 0 && K % 16 == 0, "tile shape");
+  const int lane = threadIdx.x & 31;
+  const bf16* arow = a + (lane & 15) * lda + (lane >> 4) * 8;
+  const bf16* wrow = w + ((lane & 7) + ((lane >> 4) << 3)) * ldw +
+                     ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t af[4];
+    tc::ldsm_x4(af, arow + k0);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
+      tc::ldsm_x4(b, wrow + j * 8 * ldw + k0);
+      tc::mma_bf16(acc[j], af, b[0], b[1]);
+      tc::mma_bf16(acc[j + 1], af, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x 8*NT) += A (16 x 32, two k16 fragments in registers) * W^T,
+// W (8*NT x 32) in shared memory with row stride ldw
+template <int NT>
+__device__ __forceinline__ void mma_regs_k32(float (&acc)[NT][4],
+                                             const uint32_t (&a)[2][4],
+                                             const bf16* w, int ldw) {
+  const int lane = threadIdx.x & 31;
+  const bf16* wrow = w + ((lane & 7) + ((lane >> 4) << 3)) * ldw +
+                     ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t b[4];
+      tc::ldsm_x4(b, wrow + j * 8 * ldw + s * 16);
+      tc::mma_bf16(acc[j], a[s], b[0], b[1]);
+      tc::mma_bf16(acc[j + 1], a[s], b[2], b[3]);
+    }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+}
+
+// Two-pass fp32 LayerNorm of this thread's two rows, held in the
+// accumulator layout (v[j][0..1]: row a, columns 8j+2t and 8j+2t+1;
+// v[j][2..3]: row b); each row's quad reduces with shuffles. The result is
+// rounded to bf16 into the rows da and db (same columns).
+template <int NC>
+__device__ __forceinline__ void layernorm_frag(const float (&v)[NC][4],
+                                               const float* __restrict__ s,
+                                               const float* __restrict__ b,
+                                               bf16* da, bf16* db) {
+  constexpr float c = (float)(NC * 8);
+  const int t = threadIdx.x & 3;
+  float sa = 0.f, sb = 0.f;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    sa += v[j][0] + v[j][1];
+    sb += v[j][2] + v[j][3];
+  }
+  const float ma = quad_sum(sa) / c, mb = quad_sum(sb) / c;
+  float qa = 0.f, qb = 0.f;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    float d;
+    d = v[j][0] - ma; qa = fmaf(d, d, qa);
+    d = v[j][1] - ma; qa = fmaf(d, d, qa);
+    d = v[j][2] - mb; qb = fmaf(d, d, qb);
+    d = v[j][3] - mb; qb = fmaf(d, d, qb);
+  }
+  const float ia = 1.f / sqrtf(quad_sum(qa) / c + 1e-5f);
+  const float ib = 1.f / sqrtf(quad_sum(qb) / c + 1e-5f);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float s0 = s[col], s1 = s[col + 1], b0 = b[col], b1 = b[col + 1];
+    *reinterpret_cast<uint32_t*>(da + col) = tc::pack_bf16(
+        (v[j][0] - ma) * ia * s0 + b0, (v[j][1] - ma) * ia * s1 + b1);
+    *reinterpret_cast<uint32_t*>(db + col) = tc::pack_bf16(
+        (v[j][2] - mb) * ib * s0 + b0, (v[j][3] - mb) * ib * s1 + b1);
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(TC_THREADS, C <= 96 ? 2 : 1)
+swin_block_tc_kernel(const bf16* __restrict__ x, BlockParams p,
+                     const float* __restrict__ bias,
+                     const int* __restrict__ flags, bf16* __restrict__ out,
+                     int bw, int shift) {
+  using L = TcLayout<C>;
+  constexpr int NC = C / 8;  // n8 tiles across C
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int slot = warp >> 2;       // window slot of this warp in the CTA
+  const int r0 = (warp & 3) * 16;   // this warp's first row in its window
+  const int win_raw = blockIdx.x * TC_WPC + slot;
+  const bool live = win_raw < bw;   // the last CTA may hold one window
+  const int win = live ? win_raw : bw - 1;
+  bf16* hbuf = smem + 2 * L::STAGE + slot * L::WIN;  // 64 x LDH: x, LN1, LN2
+  bf16* kv = hbuf + NTOK * L::LDH;                   // 64 x LDKV: K | V, x1
+  bf16* hrows = hbuf + r0 * L::LDH;                  // this warp's rows
+  const bf16* xw = x + (size_t)win * NTOK * C;
+  const int ra = r0 + g, rb = r0 + g + 8;  // this thread's two rows
+  W2X_CLOCK_START();
+
+  // this warp's 16 rows of x -> hbuf (one copy group), then weight tile 0
+#pragma unroll
+  for (int i = lane; i < 16 * (C / 8); i += 32) {
+    const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+    tc::cp_async16(hrows + r * L::LDH + c, xw + (size_t)(r0 + r) * C + c);
+  }
+  tc::cp_async_commit();
+  WeightStream<C> ws{smem, static_cast<const bf16*>(p.qkvk),
+                     static_cast<const bf16*>(p.projk),
+                     static_cast<const bf16*>(p.fc1k),
+                     static_cast<const bf16*>(p.fc2k)};
+  ws.load(0);
+  tc::cp_async_wait<1>();  // x has landed (tile 0 may still be in flight)
+  __syncwarp();
+  {  // LN1(x) in place
+    float xv[NC][4];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(hbuf + ra * L::LDH + col));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(hbuf + rb * L::LDH + col));
+      xv[j][0] = a.x;
+      xv[j][1] = a.y;
+      xv[j][2] = b.x;
+      xv[j][3] = b.y;
+    }
+    layernorm_frag<NC>(xv, p.n1s, p.n1b, hbuf + ra * L::LDH,
+                       hbuf + rb * L::LDH);
+  }
+  __syncwarp();
+  W2X_CLOCK_PHASE(0);
+
+  // K | V = LN1(x) Wqkv[C:3C] + b for this warp's rows -> kv
+  for (int tile = 0; tile < L::KV_TILES; ++tile) {
+    const bf16* wt = ws.acquire(tile);
+    float acc[8][4];
+    zero(acc);
+    mma_smem<8, C>(acc, hrows, L::LDH, wt, L::LDH);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * tile + 8 * j + 2 * t;
+      const float b0 = p.qkvb[C + col], b1 = p.qkvb[C + col + 1];
+      *reinterpret_cast<uint32_t*>(kv + ra * L::LDKV + col) =
+          tc::pack_bf16(acc[j][0] + b0, acc[j][1] + b1);
+      *reinterpret_cast<uint32_t*>(kv + rb * L::LDKV + col) =
+          tc::pack_bf16(acc[j][2] + b0, acc[j][3] + b1);
+    }
+  }
+  W2X_CLOCK_PHASE(1);
+
+  // keep bits of this thread's 32 score entries: bit 4j + e of s[j][e]
+  uint32_t keep = 0xffffffffu;
+  if (shift) {
+    const int fl = flags[win];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = (e & 2) ? rb : ra, col = 8 * j + 2 * t + (e & 1);
+        if (!keep_entry(fl, i, col, shift)) keep &= ~(1u << (4 * j + e));
+      }
+  }
+  // jnp.asarray(32 ** -0.5, bf16): the scale itself is rounded
+  const float scale = round_to<bf16>(0.17677669529663687f);
+  const bf16* krow = kv + ((lane & 7) + ((lane >> 4) << 3)) * L::LDKV +
+                     ((lane >> 3) & 1) * 8;
+  const bf16* vrow = kv + ((lane & 7) + ((lane >> 3) & 1) * 8) * L::LDKV + C +
+                     (lane >> 4) * 8;
+
+  float pacc[NC][4];  // proj accumulators: sum over heads of O_h Wproj[h]
+  zero(pacc);
+  for (int h = 0; h < L::NH; ++h) {
+    // the acquire barrier also orders the K | V stores before these reads
+    const bf16* wt = ws.acquire(L::KV_TILES + h);
+    float s[8][4];  // scores of rows ra, rb against the 64 tokens, from
+    {               // the relative bias (loaded first: its latency hides
+      const float* bh = bias + (size_t)h * NTOK * NTOK;  // behind q_h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        const float2 ba = *reinterpret_cast<const float2*>(bh + ra * NTOK + col);
+        const float2 bb = *reinterpret_cast<const float2*>(bh + rb * NTOK + col);
+        s[j][0] = ba.x;
+        s[j][1] = ba.y;
+        s[j][2] = bb.x;
+        s[j][3] = bb.y;
+      }
+    }
+    uint32_t qa[2][4];
+    {  // q_h = LN1(x) Wq[h] + b, rounded, times scale, rounded
+      float q[4][4];
+      zero(q);
+      mma_smem<4, C>(q, hrows, L::LDH, wt, L::LDH);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = h * HD + 8 * j + 2 * t;
+        const float b0 = p.qkvb[col], b1 = p.qkvb[col + 1];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = round_to<bf16>(q[j][e] + ((e & 1) ? b1 : b0));
+          q[j][e] = v * scale;  // rounded by to_a_frag
+        }
+      }
+      tc::to_a_frag(qa[0], q[0], q[1]);
+      tc::to_a_frag(qa[1], q[2], q[3]);
+    }
+    W2X_CLOCK_PHASE(8);
+    // s += (q * scale) k^T
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t b[4];
+        tc::ldsm_x4(b, krow + j * 8 * L::LDKV + h * HD + k * 16);
+        tc::mma_bf16(s[j], qa[k], b[0], b[1]);
+        tc::mma_bf16(s[j + 1], qa[k], b[2], b[3]);
+      }
+    W2X_CLOCK_PHASE(9);
+    // exact softmax over the kept entries (masked -> exactly 0), without
+    // branches: a masked entry's exp is computed and then dropped
+    float ma = -INFINITY, mb = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = (keep >> (4 * j + e) & 1) ? s[j][e] : -INFINITY;
+        if (e & 2)
+          mb = fmaxf(mb, v);
+        else
+          ma = fmaxf(ma, v);
+      }
+    ma = quad_max(ma);
+    mb = quad_max(mb);
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = expf(s[j][e] - ((e & 2) ? mb : ma));
+        s[j][e] = (keep >> (4 * j + e) & 1) ? v : 0.f;
+        if (e & 2)
+          sb += s[j][e];
+        else
+          sa += s[j][e];
+      }
+    sa = quad_sum(sa);
+    sb = quad_sum(sb);
+    // p = e / sum, correctly rounded: the row's correctly rounded
+    // reciprocal, a product, and one exact-remainder correction (Markstein)
+    const float ia = __frcp_rn(sa), ib = __frcp_rn(sb);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float d = (e & 2) ? sb : sa, r = (e & 2) ? ib : ia;
+        const float q = s[j][e] * r;
+        s[j][e] = fmaf(fmaf(-q, d, s[j][e]), r, q);
+      }
+    uint32_t pa[4][4];  // probabilities, rounded to bf16, as A fragments
+#pragma unroll
+    for (int k = 0; k < 4; ++k) tc::to_a_frag(pa[k], s[2 * k], s[2 * k + 1]);
+    W2X_CLOCK_PHASE(10);
+    // O_h = P V_h (16 x 32)
+    float o[4][4];
+    zero(o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        uint32_t b[4];
+        tc::ldsm_x4_trans(b, vrow + k * 16 * L::LDKV + h * HD + j * 8);
+        tc::mma_bf16(o[j], pa[k], b[0], b[1]);
+        tc::mma_bf16(o[j + 1], pa[k], b[2], b[3]);
+      }
+    uint32_t oa[2][4];  // O_h rounded to bf16
+    tc::to_a_frag(oa[0], o[0], o[1]);
+    tc::to_a_frag(oa[1], o[2], o[3]);
+    W2X_CLOCK_PHASE(11);
+    mma_regs_k32<NC>(pacc, oa, wt + HD * L::LDH, L::LDS);
+    W2X_CLOCK_PHASE(2);
+  }
+
+  // x1 = x + round(attn Wproj + b), in place of pacc
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float b0 = p.projb[col], b1 = p.projb[col + 1];
+    const float2 xa = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(xw + ra * C + col));
+    const float2 xb = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(xw + rb * C + col));
+    pacc[j][0] = round_to<bf16>(xa.x + round_to<bf16>(pacc[j][0] + b0));
+    pacc[j][1] = round_to<bf16>(xa.y + round_to<bf16>(pacc[j][1] + b1));
+    pacc[j][2] = round_to<bf16>(xb.x + round_to<bf16>(pacc[j][2] + b0));
+    pacc[j][3] = round_to<bf16>(xb.y + round_to<bf16>(pacc[j][3] + b1));
+  }
+  __syncwarp();  // this warp's ldmatrix reads of LN1 rows are done
+  layernorm_frag<NC>(pacc, p.n2s, p.n2b, hbuf + ra * L::LDH,
+                     hbuf + rb * L::LDH);
+  W2X_CLOCK_PHASE(3);
+
+  // MLP in 32-column hidden chunks: fc1 -> GELU -> bf16 -> into fc2.
+  // After the first chunk's barrier no warp reads K or V: x1 goes there.
+  const bf16* wt = ws.acquire(L::KV_TILES + L::NH);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int col = 8 * j + 2 * t;
+    *reinterpret_cast<uint32_t*>(kv + ra * L::LDKV + col) =
+        tc::pack_bf16(pacc[j][0], pacc[j][1]);
+    *reinterpret_cast<uint32_t*>(kv + rb * L::LDKV + col) =
+        tc::pack_bf16(pacc[j][2], pacc[j][3]);
+  }
+  __syncwarp();
+  float oacc[NC][4];
+  zero(oacc);
+  for (int c = 0; c < L::MLP_TILES; ++c) {
+    if (c) wt = ws.acquire(L::KV_TILES + L::NH + c);
+    float z[4][4];
+    zero(z);
+    mma_smem<4, C>(z, hrows, L::LDH, wt, L::LDH);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = HD * c + 8 * j + 2 * t;
+      const float b0 = p.fc1b[col], b1 = p.fc1b[col + 1];
+      z[j][0] = gelu_erf(z[j][0] + b0);
+      z[j][1] = gelu_erf(z[j][1] + b1);
+      z[j][2] = gelu_erf(z[j][2] + b0);
+      z[j][3] = gelu_erf(z[j][3] + b1);
+    }
+    uint32_t ga[2][4];
+    tc::to_a_frag(ga[0], z[0], z[1]);
+    tc::to_a_frag(ga[1], z[2], z[3]);
+    W2X_CLOCK_PHASE(12);
+    mma_regs_k32<NC>(oacc, ga, wt + HD * L::LDH, L::LDS);
+    W2X_CLOCK_PHASE(4);
+  }
+
+  // out = x1 + round(g Wfc2 + b)
+  if (!live) return;
+  bf16* ow = out + (size_t)win * NTOK * C;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float b0 = p.fc2b[col], b1 = p.fc2b[col + 1];
+    const float2 xa = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(kv + ra * L::LDKV + col));
+    const float2 xb = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(kv + rb * L::LDKV + col));
+    *reinterpret_cast<uint32_t*>(ow + ra * C + col) =
+        tc::pack_bf16(xa.x + round_to<bf16>(oacc[j][0] + b0),
+                      xa.y + round_to<bf16>(oacc[j][1] + b1));
+    *reinterpret_cast<uint32_t*>(ow + rb * C + col) =
+        tc::pack_bf16(xb.x + round_to<bf16>(oacc[j][2] + b0),
+                      xb.y + round_to<bf16>(oacc[j][3] + b1));
+  }
+  W2X_CLOCK_PHASE(5);
+}
+
+template <int C>
+int launch_swin_block_tc(const void* x, const BlockParams& p,
+                         const void* bias, const void* flags, void* out,
+                         int bw, int shift, cudaStream_t stream) {
+  using L = TcLayout<C>;
+  static bool configured[kMaxDevices] = {};  // one per instantiation
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(swin_block_tc_kernel<C>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)L::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < kMaxDevices) configured[dev] = true;
+  }
+  const int grid = (bw + TC_WPC - 1) / TC_WPC;
+  swin_block_tc_kernel<C><<<grid, TC_THREADS, L::SMEM, stream>>>(
+      static_cast<const bf16*>(x), p, static_cast<const float*>(bias),
+      static_cast<const int*>(flags), static_cast<bf16*>(out), bw, shift);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace w2x
 
+// GEMM weights: (in, out) for fp32 (is_bf16 = 0), (out, in) for bf16.
 extern "C" int w2x_swin_block(const void* x, const void* n1s, const void* n1b,
                               const void* qkvk, const void* qkvb,
                               const void* projk, const void* projb,
@@ -138,9 +729,63 @@ extern "C" int w2x_swin_block(const void* x, const void* n1s, const void* n1b,
   p.fc2k = fc2k;
   p.fc2b = static_cast<const float*>(fc2b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return w2x::launch_swin_block<__nv_bfloat16>(x, p, bias, flags, out, bw,
-                                                 C, nh, shift, s);
-  return w2x::launch_swin_block<float>(x, p, bias, flags, out, bw, C, nh,
-                                       shift, s);
+  if (!is_bf16)
+    return w2x::launch_swin_block<float>(x, p, bias, flags, out, bw, C, nh,
+                                         shift, s);
+  if (nh * w2x::HD != C) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 32:
+      return w2x::launch_swin_block_tc<32>(x, p, bias, flags, out, bw, shift, s);
+    case 64:
+      return w2x::launch_swin_block_tc<64>(x, p, bias, flags, out, bw, shift, s);
+    case 96:
+      return w2x::launch_swin_block_tc<96>(x, p, bias, flags, out, bw, shift, s);
+    case 128:
+      return w2x::launch_swin_block_tc<128>(x, p, bias, flags, out, bw, shift, s);
+    case 160:
+      return w2x::launch_swin_block_tc<160>(x, p, bias, flags, out, bw, shift, s);
+    case 192:
+      return w2x::launch_swin_block_tc<192>(x, p, bias, flags, out, bw, shift, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
+
+#ifdef W2X_PHASE_CLOCK
+// Copy the phase clocks out (16 counters) and clear them.
+extern "C" int w2x_read_phase_cycles(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, w2x::w2x_phase_cycles,
+                                         sizeof(w2x::w2x_phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[16] = {};
+  return (int)cudaMemcpyToSymbol(w2x::w2x_phase_cycles, zero, sizeof(zero));
+}
+
+// Registers per thread, static shared memory, and resident CTAs per SM of
+// the bf16 kernel for C (with its dynamic shared memory).
+template <int C>
+static int tc_info(int* regs, int* ctas_per_sm) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, w2x::swin_block_tc_kernel<C>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  err = cudaFuncSetAttribute(w2x::swin_block_tc_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)w2x::TcLayout<C>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, w2x::swin_block_tc_kernel<C>, w2x::TC_THREADS,
+      w2x::TcLayout<C>::SMEM);
+}
+
+extern "C" int w2x_swin_block_tc_info(int C, int* regs, int* ctas_per_sm) {
+  switch (C) {
+    case 96:
+      return tc_info<96>(regs, ctas_per_sm);
+    case 192:
+      return tc_info<192>(regs, ctas_per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+#endif

@@ -13,9 +13,16 @@ n1_scale, n1_bias, qkv_kernel (C, 3C), qkv_bias, proj_kernel (C, C),
 proj_bias, n2_scale, n2_bias, fc1_kernel (C, 2C), fc1_bias, fc2_kernel
 (2C, C), fc2_bias — GEMM kernels in (in, out) layout; bias (nh, 64, 64)
 fp32 relative-position bias; flags (BW,) int32 shift-boundary bits.
+
+The kernel reads its operands in its own layout: ``block_operands`` builds
+them once (``BlockOperands``), ``swin_block_prepared`` runs the block on
+them. ``fused_swin_block`` builds them per call, for the tests and the
+``ops`` API; the model caches them (``models/swin_unet.SwinBlock``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -54,17 +61,16 @@ def swin_block_plain(x, params, bias, flags, *, num_heads: int,
     return x1 + _dense(g, p["fc2_kernel"], p["fc2_bias"], dt).to(dt)
 
 
-def _check(x, params, bias, flags, num_heads, shift, ws):
-    if x.dim() != 3 or x.shape[1] != ws * ws:
-        raise ValueError(f"x must be (BW, {ws * ws}, C), got "
-                         f"{tuple(x.shape)}")
-    c = x.shape[2]
+def _check_geometry(c, num_heads, shift, ws):
     if c != num_heads * HEAD_DIM or c > MAX_DIM:
         raise ValueError(f"C={c} with {num_heads} heads: the kernel takes "
                          f"head dim {HEAD_DIM} and C <= {MAX_DIM}")
     if ws != 8 or shift not in (0, ws // 2):
         raise ValueError(f"window {ws} / shift {shift} not supported "
                          "(window 8, shift 0 or 4)")
+
+
+def _check_params(params, bias, c, num_heads, ws):
     shapes = {
         "n1_scale": (c,), "n1_bias": (c,), "qkv_kernel": (c, 3 * c),
         "qkv_bias": (3 * c,), "proj_kernel": (c, c), "proj_bias": (c,),
@@ -78,48 +84,142 @@ def _check(x, params, bias, flags, num_heads, shift, ws):
     if tuple(bias.shape) != (num_heads, ws * ws, ws * ws):
         raise ValueError(f"bias must be ({num_heads}, 64, 64), got "
                          f"{tuple(bias.shape)}")
+
+
+def _check_x(x, flags, ws):
+    if x.dim() != 3 or x.shape[1] != ws * ws:
+        raise ValueError(f"x must be (BW, {ws * ws}, C), got "
+                         f"{tuple(x.shape)}")
     if tuple(flags.shape) != (x.shape[0],):
         raise ValueError(f"flags must be ({x.shape[0]},), got "
                          f"{tuple(flags.shape)}")
 
 
-def fused_swin_block(x, params, bias, flags, *, num_heads: int,
-                     shift: int = 0, ws: int = 8):
-    """One Swin block: the CUDA kernel for CUDA tensors, the plain twin for
-    CPU tensors. GEMM weights are handed to the kernel in x's dtype, biases
-    and LayerNorm parameters in fp32. Counts kernel launches in
-    ``fused_swin_block.launches``."""
-    _check(x, params, bias, flags, num_heads, shift, ws)
+@dataclasses.dataclass(frozen=True)
+class BlockOperands:
+    """Kernel B's operands for one block, in the layout and dtype that the
+    kernel for ``dtype`` reads (``block_operands`` builds them).
+
+    ``tensors`` follow ``PARAM_NAMES``: GEMM weights in ``dtype``,
+    (out, in) — nn.Linear's layout, K contiguous — when ``out_in`` (the
+    bf16 tensor-core kernel on the card), else (in, out) as the JAX
+    params; biases and LayerNorm parameters fp32. ``bias`` is the
+    (nh, 64, 64) fp32 relative-position bias."""
+
+    tensors: tuple
+    bias: torch.Tensor
+    dtype: torch.dtype
+    out_in: bool
+
+    @property
+    def num_heads(self) -> int:
+        return self.bias.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.tensors[0].shape[0]
+
+    def params(self) -> dict:
+        """The JAX-layout parameter dict (GEMM kernels (in, out)), for the
+        plain twin."""
+        return {name: (t.t().contiguous() if self.out_in and name in _GEMM
+                       else t)
+                for name, t in zip(PARAM_NAMES, self.tensors)}
+
+
+def block_operands(params, bias, dtype: torch.dtype, *,
+                   ws: int = 8) -> BlockOperands:
+    """Kernel B's operands from JAX-layout ``params`` and the (nh, 64, 64)
+    bias, on the params' device: at most one copy of each tensor, made
+    without autograd history."""
+    c = params["n1_scale"].shape[0]
+    nh = bias.shape[0]
+    _check_geometry(c, nh, 0, ws)
+    _check_params(params, bias, c, nh, ws)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {dtype}: float32 or bfloat16 only")
+    device = params["qkv_kernel"].device
+    out_in = dtype == torch.bfloat16 and device.type == "cuda"
+    with torch.inference_mode(False), torch.no_grad():
+        tensors = []
+        for name in PARAM_NAMES:
+            t = params[name]
+            if t.device != device:
+                raise ValueError(f"{name} must lie on {device}")
+            if name in _GEMM:
+                t = (t.t() if out_in else t).to(dtype).contiguous()
+            else:
+                t = t.to(torch.float32).contiguous()
+            tensors.append(t)
+        bias = bias.to(device, torch.float32).contiguous()
+    ops = BlockOperands(tuple(tensors), bias, dtype, out_in)
+    if device.type == "cuda":
+        for name, t in zip(PARAM_NAMES + ("bias",), ops.tensors + (bias,)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+    return ops
+
+
+def swin_block_prepared(x, operands: BlockOperands, flags, *,
+                        shift: int = 0, ws: int = 8):
+    """One Swin block on prepared operands: the CUDA kernel for CUDA
+    tensors (bf16: tensor cores; fp32: CUDA cores), the plain twin for CPU
+    tensors. Counts kernel launches in ``fused_swin_block.launches``."""
+    _check_x(x, flags, ws)
+    nh = operands.num_heads
+    _check_geometry(x.shape[2], nh, shift, ws)
+    if x.shape[2] != operands.dim:
+        raise ValueError(f"x has C={x.shape[2]}, the operands "
+                         f"C={operands.dim}")
     if x.device.type == "cpu":
-        return swin_block_plain(x, params, bias, flags, num_heads=num_heads,
-                                shift=shift, ws=ws)
+        return swin_block_plain(x, operands.params(), operands.bias, flags,
+                                num_heads=nh, shift=shift, ws=ws)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x dtype {x.dtype}: float32 or bfloat16 only")
-    if bias.dtype != torch.float32 or flags.dtype != torch.int32:
-        raise TypeError("bias must be float32 and flags int32")
-    for name, t in (("x", x), ("bias", bias), ("flags", flags)):
+    if x.dtype != operands.dtype:
+        raise TypeError(f"x is {x.dtype}, the operands {operands.dtype}")
+    if operands.bias.device != x.device:
+        raise ValueError(f"the operands must lie on {x.device}")
+    if flags.dtype != torch.int32:
+        raise TypeError("flags must be int32")
+    for name, t in (("x", x), ("flags", flags)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    args = []
-    for name in PARAM_NAMES:
-        t = params[name]
-        if t.device != x.device:
-            raise ValueError(f"{name} must lie on {x.device}")
-        t = t.to(x.dtype if name in _GEMM else torch.float32).contiguous()
-        args.append(t)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out
     lib = build.load_library()
     code = lib.w2x_swin_block(
-        x.data_ptr(), *[t.data_ptr() for t in args], bias.data_ptr(),
-        flags.data_ptr(), out.data_ptr(), x.shape[0], x.shape[2], num_heads,
-        shift, int(x.dtype == torch.bfloat16), build.stream_handle(x.device))
+        x.data_ptr(), *[t.data_ptr() for t in operands.tensors],
+        operands.bias.data_ptr(), flags.data_ptr(), out.data_ptr(),
+        x.shape[0], x.shape[2], nh, shift, int(x.dtype == torch.bfloat16),
+        build.stream_handle(x.device))
     build.check(code, "swin block kernel")
     fused_swin_block.launches += 1
     return out
+
+
+def fused_swin_block(x, params, bias, flags, *, num_heads: int,
+                     shift: int = 0, ws: int = 8):
+    """One Swin block on JAX-layout params: builds the operands for x's
+    dtype, then ``swin_block_prepared``. Counts kernel launches in
+    ``fused_swin_block.launches``."""
+    _check_x(x, flags, ws)
+    _check_geometry(x.shape[2], num_heads, shift, ws)
+    _check_params(params, bias, x.shape[2], num_heads, ws)
+    if x.device.type == "cpu":
+        return swin_block_plain(x, params, bias, flags, num_heads=num_heads,
+                                shift=shift, ws=ws)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x dtype {x.dtype}: float32 or bfloat16 only")
+    if bias.dtype != torch.float32:
+        raise TypeError("bias must be float32")
+    if bias.device != x.device:
+        raise ValueError(f"bias must lie on {x.device}")
+    return swin_block_prepared(x, block_operands(params, bias, x.dtype),
+                               flags, shift=shift, ws=ws)
 
 
 fused_swin_block.launches = 0

@@ -46,20 +46,34 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      packed twin, one 720p frame must be byte-identical to phase 5's
      render of it (the same math; only the head layout differs), then 10
      streamed frames, one of them held against its render as in phase 5
+ 10. kernel F (int8/bf16 mma probe) vs plain: at the probe's four shapes
+     (the ideal 512 x 1024 x 512 and the stage-1 qkv, fc1 and fc2 GEMMs)
+     in int8 and bf16, at R = 3 and R = 2048, int8 equal to the plain
+     twin and bf16 within the float32 sum bound (``fp32_sum_bound``);
+     kernel, plain and library times beside the bound; then the probe's
+     own run (``int8_probe.run`` and ``run_library``, what ``python -m
+     waifu2x_tensorrt_tpu_torch.probes.int8_probe`` prints): path (b),
+     path (a) and the decision gate. A rate above 1.05x the dense peak of
+     its type fails (the work was skipped), and so does a time at R that
+     is not 1.8-2.2x the time at R/2 (the products were not all run).
+     The kernel times are those of the probe's run
 
 Every kernel's time is printed beside its bound: the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
 operations over the peak rate of their type (989 TFLOP/s for bf16 matrix
-products, 67 TFLOP/s for fp32 work), computed from the shapes of the run;
-and beside the one PyTorch call that computes the same function where
-there is one (SDPA for A and E; none for B, C and D).
+products, 1,979 TOP/s for int8 ones, 67 TFLOP/s for fp32 work), computed
+from the shapes of the run; and beside the one PyTorch call that computes
+the same function where there is one (SDPA for A and E; none for B, C and
+D; for F, R times one ``torch._int_mm`` or bf16 ``torch.matmul``, since no
+call runs R serialized products).
 
 Phase 5 runs with WAIFU2X_PACK_X unset (the default path). Launch counters
-are set to 0 just before phases 5, 7, 9 and E's API call of phase 8 and
-read just after each (phase 5: kernels B and C; phase 7: A; phase 8: E;
-phase 9: D, B and C); each kernel must have launched in its run. Any
-failed check raises, so the script exits non-zero; the last line is the
-JSON device record, printed only when every phase passed. Without a CUDA
+are set to 0 just before phases 5, 7, 9, E's API call of phase 8 and the
+probe's run of phase 10, and read just after each (phase 5: kernels B and
+C; phase 7: A; phase 8: E; phase 9: D, B and C; phase 10: F); each kernel
+must have launched in its run. Any failed check raises, so the script
+exits non-zero; the last line is the JSON device record, printed only
+when every phase passed. Without a CUDA
 device it exits non-zero before printing any result.
 """
 
@@ -129,20 +143,23 @@ def _block_inputs(torch, bw, c, nh, dtype, seed):
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM
-# bytes/s, bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores.
+# bytes/s and fp32 FLOP/s outside the tensor cores. The tensor cores' bf16
+# and int8 peaks are BF16_PEAK and INT8_PEAK of the port's int8 probe.
 HBM_BPS = 3.35e12
-BF16_TC_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 
-def _bound(nbytes, tc_flops=0.0, fp32_flops=0.0, tc_rate=BF16_TC_FLOPS):
+def _bound(nbytes, tc_flops=0.0, fp32_flops=0.0, tc_rate=None):
     """(ms, "bytes" | "operations"): the least time for the work, the
     larger of its bytes (each input read once, each output written once)
     over the HBM rate and its operations over the peak rate of their type
-    (matrix products on the tensor cores at ``tc_rate``, elementwise fp32
-    work on the CUDA cores; the two run side by side)."""
+    (matrix products on the tensor cores at ``tc_rate``, by default the
+    bf16 peak; elementwise fp32 work on the CUDA cores; the two run side
+    by side)."""
+    from waifu2x_tensorrt_tpu_torch.probes.int8_probe import BF16_PEAK
+
     t_bytes = nbytes / HBM_BPS
-    t_ops = max(tc_flops / tc_rate, fp32_flops / FP32_FLOPS)
+    t_ops = max(tc_flops / (tc_rate or BF16_PEAK), fp32_flops / FP32_FLOPS)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -357,9 +374,11 @@ def _counters():
         fused_window_attention_qkv,
     )
 
+    from waifu2x_tensorrt_tpu_torch.ops.mma_probe import mma_probe
+
     return {"A": fused_window_attention_qkv, "B": fused_swin_block,
             "C": finalize_gather, "D": pack_head_x16,
-            "E": fused_window_attention}
+            "E": fused_window_attention, "F": mma_probe}
 
 
 def _load(torch, precision, fused_block=None, batch=16):
@@ -771,6 +790,109 @@ def phase_packed_x(torch, smi, report, pixel_out):
             os.environ["WAIFU2X_PACK_X"] = saved
 
 
+def _work_ratio(ip, call):
+    """t(R) / t(R/2) of kernel F, ``call(reps)``: each time the median of
+    three ``time_call`` readings, taken alternately so that both see the
+    same clocks. Near 2 when every product runs."""
+    full, half = [], []
+    for _ in range(3):
+        half.append(ip.time_call(lambda: call(ip.R // 2)))
+        full.append(ip.time_call(lambda: call(ip.R)))
+    return sorted(full)[1] / sorted(half)[1]
+
+
+def phase_kernel_f(torch, smi, report):
+    """Phase 10: kernel F against its plain twin at the probe's shapes;
+    then the probe's own run, whose kernel times are printed beside the
+    bound, the plain twin and the library calls. Returns the launch counts
+    of that run."""
+    import numpy as np
+
+    from waifu2x_tensorrt_tpu_torch.ops.mma_probe import (
+        fp32_sum_bound,
+        mma_probe,
+        mma_probe_plain,
+    )
+    from waifu2x_tensorrt_tpu_torch.probes import int8_probe as ip
+
+    peaks = {"int8": ip.INT8_PEAK, "bf16": ip.BF16_PEAK}
+    worst = {"int8": 0.0, "bf16": 0.0}
+    times = {}
+    rng = np.random.default_rng(0)  # the probe's draws, in its order
+    for name, m, k, n in ip.SHAPES:
+        a8, b8, abf, bbf = ip.make_inputs(m, k, n, rng, "cuda")
+        int_mm, mm = ip.library_calls(a8, b8, abf, bbf)
+        for label, a, b, lib in (("bf16", abf, bbf, mm),
+                                 ("int8", a8, b8, int_mm)):
+            a2 = ip.stack2(a)
+            for reps in (3, ip.R):
+                got = mma_probe(a2, b, reps)
+                want = mma_probe_plain(a2, b, reps)
+                err = (got.double() - want.double()).abs().max().item()
+                if label == "int8":
+                    ok, rule = torch.equal(got, want), "equal"
+                else:
+                    tol = fp32_sum_bound(a, b)
+                    ok = bool(torch.isfinite(got).all()) and err <= tol
+                    rule = f"max|d| {err:.3e} <= {tol:.3e}"
+                print(f"  kernel F {label} {name} R={reps}: {rule}: "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError("kernel F disagrees with its plain "
+                                         "version")
+                worst[label] = max(worst[label], err)
+            nbytes = (a2.numel() + b.numel()) * a.element_size() + m * n * 4
+            bms, by = _bound(nbytes, tc_flops=2.0 * m * k * n * ip.R,
+                             tc_rate=peaks[label])
+            times[(name, label)] = {
+                "r_ratio": _work_ratio(ip, lambda r: mma_probe(a2, b, r)),
+                "plain_ms": ip.time_call(
+                    lambda: mma_probe_plain(a2, b, ip.R)),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": ip.R * ip.time_call(lib)}
+
+    # the probe's own run: what python -m ...probes.int8_probe prints
+    counters = _zero_counters()
+    rows_b = ip.run()
+    rows_a = ip.run_library()
+    torch.cuda.synchronize()
+    n10 = {k: f.launches for k, f in counters.items()}
+    ip.print_report(rows_b, rows_a, smi)
+    print(f"  phase 10 launch counts (the probe's run): {n10}", flush=True)
+    if n10["F"] <= 0 or any(v for k, v in n10.items() if k != "F"):
+        raise AssertionError(f"the probe's run did not launch kernel F "
+                             f"alone: {n10}")
+    for r in rows_b:
+        for label in ("bf16", "int8"):
+            t = times[(r["name"], label)]
+            t["ms"] = r[f"{label}_ms"]
+            ratio = t.pop("r_ratio")
+            share = r[f"{label}_peak_share"]
+            call = "_int_mm" if label == "int8" else "bf16 matmul"
+            print(f"  kernel F {label} {r['name']} R={ip.R}: kernel "
+                  f"{t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
+                  f"{t['bound_by']}; {100 * share:.1f}% of the dense peak), "
+                  f"plain {t['plain_ms']:.3f} ms, library (R x one {call}) "
+                  f"{t['library_ms']:.4f} ms (median, CUDA events); "
+                  f"t(R) / t(R/2) {ratio:.4f}", flush=True)
+            if share > 1.05:
+                raise AssertionError(f"kernel F {label} {r['name']}: rate "
+                                     "above 1.05x the peak, the work was "
+                                     "skipped")
+            if not 1.8 <= ratio <= 2.2:
+                raise AssertionError(f"kernel F {label} {r['name']}: "
+                                     f"t(R) / t(R/2) = {ratio:.4f}, outside "
+                                     "1.8-2.2: the time does not follow "
+                                     "the number of products")
+    ideal = ip.SHAPES[0][0]
+    report["F"] = dict(times[(ideal, "int8")], max_abs_err=worst["int8"],
+                       **{f"bf16_{k}": v
+                          for k, v in times[(ideal, "bf16")].items()},
+                       bf16_max_abs_err=worst["bf16"],
+                       gate_pursue_int8=ip.gate(rows_b))
+    return n10
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     torch = _require_cuda()
@@ -809,6 +931,8 @@ def main() -> int:
     n8 = phase_kernels_de(torch, report)
     print("phase 9 packed-x main path:", flush=True)
     n9 = phase_packed_x(torch, smi, report, out5)
+    print("phase 10 kernel F (int8/bf16 mma probe) vs plain:", flush=True)
+    n10 = phase_kernel_f(torch, smi, report)
 
     src = "waifu2x_tensorrt_tpu_torch/ops/csrc/"
     main_run = ("phase 5: main path, fused_block=True, bf16, tile 256, "
@@ -819,6 +943,9 @@ def main() -> int:
              "package API), BW 4096, nh 3, bf16, shift 4")
     px_run = ("phase 9: WAIFU2X_PACK_X=1, otherwise as phase 5: 720p "
               "render + 10 streamed frames")
+    f_run = ("phase 10: the probe's run (int8_probe.run and run_library), "
+             "4 shapes x 2 types x 12 calls of R = 2048 products; times at "
+             "the ideal shape (512, 1024, 512), int8 and bf16_*")
     meta = {
         "A": ("window_attention_qkv", src + "window_attention.cu",
               "waifu2x_tensorrt_tpu/ops/window_attention.py:212",
@@ -834,6 +961,8 @@ def main() -> int:
         "E": ("window_attention_heads", src + "window_attention.cu",
               "waifu2x_tensorrt_tpu/ops/window_attention.py:267", n8["E"],
               e_run),
+        "F": ("mma_probe", src + "mma_probe.cu",
+              "probes/int8_pallas_probe.py:71", n10["F"], f_run),
     }
     kernels = [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                 "replaces": meta[k][2], "launches": meta[k][3],
@@ -841,10 +970,10 @@ def main() -> int:
                 **{key: report[k][key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")},
-                **{key: report[k][key] for key in (
-                    "library_chain_ms", "fp32_ms", "fp32_bound_ms")
-                   if key in report[k]}}
-               for k in ("A", "B", "C", "D", "E")]
+                **{key: value for key, value in report[k].items()
+                   if key.startswith(("library_chain", "fp32_", "bf16_",
+                                      "gate_"))}}
+               for k in ("A", "B", "C", "D", "E", "F")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

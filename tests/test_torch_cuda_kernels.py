@@ -12,7 +12,9 @@ counts of 1, 37 and full CTAs, on prepared operands (the same bytes as
 per-call ones, one launch counted), and with logits beyond 100 under the
 shift mask; kernel C byte-identical
 to the scan, with whole chunks and TileStream pieces; kernel D equal to
-its plain twin and to the clamped pixel shuffle, byte for byte.
+its plain twin and to the clamped pixel shuffle, byte for byte; kernel F
+(the int8/bf16 probe) at the probe's four shapes, int8 equal to its plain
+twin and bf16 within the float32 sum bound ``fp32_sum_bound``.
 """
 
 import numpy as np
@@ -261,3 +263,100 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         hp.pack_head_x16(z.half(), r=4)
     with pytest.raises(ValueError):
         hp.pack_head_x16(z.transpose(1, 2), r=4)
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 1024, 512), (2048, 96, 288),
+                                   (2048, 96, 384), (2048, 384, 96)])
+def test_kernel_f_matches_plain(m, k, n):
+    """The probe's shapes at R = 3: int8 equal, bf16 within the bound of
+    two float32 sums of the same exact products."""
+    from waifu2x_tensorrt_tpu_torch.ops.mma_probe import (
+        fp32_sum_bound,
+        mma_probe,
+        mma_probe_plain,
+    )
+    from waifu2x_tensorrt_tpu_torch.probes.int8_probe import (
+        make_inputs,
+        stack2,
+    )
+
+    a8, b8, abf, bbf = make_inputs(m, k, n, np.random.default_rng(m + n),
+                                   "cuda")
+    for a, b in ((a8, b8), (abf, bbf)):
+        before = mma_probe.launches
+        got = mma_probe(stack2(a), b, 3)
+        assert mma_probe.launches == before + 1
+        want = mma_probe_plain(stack2(a), b, 3)
+        if a.dtype == torch.int8:
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+        else:
+            assert got.dtype == torch.float32
+            err = (got - want).abs().max().item()
+            assert err <= fp32_sum_bound(a, b), err
+
+
+@pytest.mark.parametrize("reps", [0, 1, 2, 7])
+def test_kernel_f_extreme_int8(reps):
+    """-128 entries (whole rows and columns of them, the largest |D|) at
+    both CTA tilings (M 64: 32-row tiles; M 4096 x N 64: 64-row tiles)."""
+    from waifu2x_tensorrt_tpu_torch.ops.mma_probe import (
+        mma_probe,
+        mma_probe_plain,
+    )
+
+    rng = np.random.default_rng(reps)
+    for m, k, n in ((64, 2048, 32), (4096, 96, 64)):
+        a = torch.from_numpy(rng.integers(-128, 128, (m, k), np.int8))
+        b = torch.from_numpy(rng.integers(-128, 128, (k, n), np.int8))
+        a[0], a[-1], b[:, 0], b[:, -1] = -128, -128, -128, 127
+        a2, b = torch.stack([a, a]).cuda(), b.cuda()
+        got = mma_probe(a2, b, reps)
+        assert torch.equal(got, mma_probe_plain(a2, b, reps))
+        assert got[0, 0].item() == (128 * 128 * k if reps else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_kernel_f_reads_the_first_copy(dtype):
+    """With a2[1] unlike a2[0], the kernel and its plain twin both take
+    every product from a2[0]: bf16 at R 2 returns a2[0] @ b, not
+    a2[1] @ b."""
+    from waifu2x_tensorrt_tpu_torch.ops.mma_probe import (
+        fp32_sum_bound,
+        mma_probe,
+        mma_probe_plain,
+    )
+    from waifu2x_tensorrt_tpu_torch.probes.int8_probe import make_inputs
+
+    a8, b8, abf, bbf = make_inputs(2048, 96, 288, np.random.default_rng(5),
+                                   "cuda")
+    a, b = (a8, b8) if dtype == torch.int8 else (abf, bbf)
+    a2 = torch.stack([a, -a if dtype == torch.bfloat16 else a.flip(0)])
+    for reps in (1, 2, 3):
+        got, want = mma_probe(a2, b, reps), mma_probe_plain(a2, b, reps)
+        if dtype == torch.int8:
+            assert torch.equal(got, want)
+        else:
+            tol = fp32_sum_bound(a, b)
+            assert (got - want).abs().max().item() <= tol
+            exact = a.double() @ b.double()
+            assert (got.double() - exact).abs().max().item() <= tol
+
+
+def test_kernel_f_wrapper_checks():
+    from waifu2x_tensorrt_tpu_torch.ops.mma_probe import mma_probe
+
+    a2 = torch.zeros(2, 64, 96, dtype=torch.int8, device="cuda")
+    b = torch.zeros(96, 32, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):  # b not contiguous
+        mma_probe(a2, torch.zeros(32, 96, dtype=torch.int8,
+                                  device="cuda").t(), 1)
+    with pytest.raises(TypeError):  # float16 is not a probe type
+        mma_probe(a2.half(), b.half(), 1)
+    with pytest.raises(ValueError):  # one operand on the CPU
+        mma_probe(a2, b.cpu(), 1)
+    shifted = torch.zeros(2 * 64 * 96 + 8, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        mma_probe(shifted[8:].view(2, 64, 96), b, 1)
+    b_shifted = torch.zeros(96 * 32 + 8, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):  # b not 16-byte aligned
+        mma_probe(a2, b_shifted[8:].view(96, 32), 1)

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "w2x_finalize_gather": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "w2x_head_pack": [_P, _P, _I, _I, _I, _I, _I, _P],
     "w2x_window_attention_heads": [_P] * 6 + [_I] * 4 + [_P],
+    "w2x_mma_probe": [_P, _P, _P] + [_I] * 5 + [_P],
 }
 
 _lib = None

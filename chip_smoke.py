@@ -14,10 +14,12 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      bf16 by the rule |k16 - p32| <= max(2 |p16 - p32|, 0.02), and B on
      prepared operands (``block_operands``, built once) equal byte for
      byte to B on per-call ones; median times: B on prepared operands in
-     bf16 and fp32, A beside ``scaled_dot_product_attention`` with the
-     bias and shift mask as one float mask, B beside a yardstick chain of
-     bf16 library calls (layer_norm, linear, SDPA, gelu) that the port
-     never calls
+     bf16 and fp32, A in bf16 and fp32 beside
+     ``scaled_dot_product_attention`` with the bias and shift mask as one
+     float mask (bf16 A's share of its bound and its ratio to SDPA, and
+     the registers and resident warps of its tensor-core kernel), B beside
+     a yardstick chain of bf16 library calls (layer_norm, linear, SDPA,
+     gelu) that the port never calls
   4. kernel C (finalize) against the plain scan on the 720p -> 4x plan,
      chunk outputs split [16, 2] and in a TileStream split: byte-identical
   5. main path: swin_unet/art 4x noise 3, tile 256, batch 16, fp16 (bf16):
@@ -33,14 +35,16 @@ the port through its library entry points (``Upscaler.load`` / ``render``
         max |plain|, the bf16 main path by the bf16 rule against plain
         fp32, and the Swin blocks' share of the output >= 1e-2 of
         max |plain|, so that the check can see them
-  7. one 720p frame at the phase-5 config with fused_block=False (the
-     configuration that runs kernel A)
+  7. the phase-5 config with fused_block=False (the configuration that
+     runs kernel A): one 720p frame, then 4 streamed frames, their output
+     MP/s beside phase 5's; the stream must launch A 10 times per chunk
   8. kernels D (packed-x head) and E (window attention on unpacked heads)
      against their plain PyTorch twins: D at r=4 (16, 256, 256, 48) and
      r=2 (16, 256, 256, 12), bf16 and fp32, equal to the twin and, byte
      for byte, to clamp + pixel shuffle; E at (BW 4096, nh 3),
      (BW 1024, nh 6) and BW 37, shifts 0 and 4, by phase 3's rules;
-     median times; then one call of E through the ``ops`` package API
+     times as in phase 3 (bf16 E's share of its bound and its ratio to
+     SDPA, fp32 E); then one call of E through the ``ops`` package API
   9. the packed-x main path: phase 5's config with WAIFU2X_PACK_X=1 (set
      for this phase only): the 720p geometry must route through the
      packed twin, one 720p frame must be byte-identical to phase 5's
@@ -58,20 +62,23 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      is not 1.8-2.2x the time at R/2 (the products were not all run).
      The kernel times are those of the probe's run
 
-Every kernel's time is printed beside its bound: the larger of its bytes
-(each input read once, each output written once) over 3.35 TB/s and its
-operations over the peak rate of their type (989 TFLOP/s for bf16 matrix
-products, 1,979 TOP/s for int8 ones, 67 TFLOP/s for fp32 work), computed
-from the shapes of the run; and beside the one PyTorch call that computes
-the same function where there is one (SDPA for A and E; none for B, C and
-D; for F, R times one ``torch._int_mm`` or bf16 ``torch.matmul``, since no
-call runs R serialized products).
+Times are per call: the median over 10 samples, each the CUDA-event time
+of 10 calls in a row divided by 10 (kernel F's probe times its own
+calls). Every kernel's time is printed beside its bound: the larger of
+its bytes (each input read once, each output written once) over 3.35
+TB/s and its operations over the peak rate of their type (989 TFLOP/s
+for bf16 matrix products, 1,979 TOP/s for int8 ones, 67 TFLOP/s for fp32
+work), computed from the shapes of the run; and beside the one PyTorch
+call that computes the same function where there is one (SDPA for A and
+E; none for B, C and D; for F, R times one ``torch._int_mm`` or bf16
+``torch.matmul``, since no call runs R serialized products).
 
 Phase 5 runs with WAIFU2X_PACK_X unset (the default path). Launch counters
-are set to 0 just before phases 5, 7, 9, E's API call of phase 8 and the
-probe's run of phase 10, and read just after each (phase 5: kernels B and
-C; phase 7: A; phase 8: E; phase 9: D, B and C; phase 10: F); each kernel
-must have launched in its run. Any failed check raises, so the script
+are set to 0 just before phases 5, 7 and 9, phase 7's stream, E's API call
+of phase 8 and the probe's run of phase 10, and read just after each
+(phase 5: kernels B and C; phase 7: A; phase 8: E; phase 9: D, B and C;
+phase 10: F); each kernel must have launched in its run. The ``kernels``
+line counts A in phase 7's stream. Any failed check raises, so the script
 exits non-zero; the last line is the JSON device record, printed only
 when every phase passed. Without a CUDA
 device it exits non-zero before printing any result.
@@ -97,7 +104,14 @@ def _require_cuda():
     return torch
 
 
+CALLS_PER_SAMPLE = 10
+
+
 def _median_ms(fn, iters=10, warmup=2):
+    """ms per call of ``fn``: the median over ``iters`` samples, each the
+    CUDA-event time of CALLS_PER_SAMPLE calls in a row divided by their
+    number, so that the host's work between launches hides behind the
+    device's queue."""
     import torch
 
     for _ in range(warmup):
@@ -107,10 +121,11 @@ def _median_ms(fn, iters=10, warmup=2):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(CALLS_PER_SAMPLE):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / CALLS_PER_SAMPLE)
     times.sort()
     return times[len(times) // 2]
 
@@ -276,14 +291,18 @@ def phase_kernels_ab(torch, report):
                     mask = _sdpa_mask(torch, bias, flags, 4, torch.bfloat16)
                     if name == "A":
                         km = _median_ms(lambda: kern(*a16, **kw))
+                        km32 = _median_ms(lambda: kern(*args, **kw))
                         q, k, v = (x16.view(bw, 64, 3, nh, 32)
                                    .permute(2, 0, 3, 1, 4))
                         lm = _median_ms(
                             lambda: F.scaled_dot_product_attention(
                                 q, k, v, attn_mask=mask))
                         work = _attention_work(bw, nh, 2)
-                        extra = {"library_ms": lm}
-                        label = f"SDPA with a float mask {lm:.3f} ms"
+                        extra = {"library_ms": lm, "fp32_ms": km32}
+                        label = (f"SDPA with a float mask {lm:.3f} ms "
+                                 f"(kernel / SDPA {km / lm:.2f}x); fp32 "
+                                 f"kernel {km32:.3f} ms; "
+                                 + _occupancy_label(wa.tc_occupancy()))
                     else:
                         km = _median_ms(lambda: sb.swin_block_prepared(
                             x16, ops16, flags, shift=4))
@@ -309,12 +328,20 @@ def phase_kernels_ab(torch, report):
                           f"{km:.3f} ms (bound {bms:.4f} ms by {by}, "
                           f"{100 * bms / km:.1f}% of it), plain {pm:.3f} "
                           f"ms; {label} (median, CUDA events)", flush=True)
-    report["A"] = dict(times[("A", 96)], max_abs_err=worst["A"])
+    report["A"] = dict(times[("A", 96)], max_abs_err=worst["A"],
+                       **{f"c192_{k}": v for k, v in times[("A", 192)].items()})
     report["B"] = dict(times[("B", 96)], max_abs_err=worst["B"])
     return times
 
 
-def phase_kernel_c(torch, report):
+def _occupancy_label(occ):
+    return (f"tensor-core kernel: {occ['registers']} registers a thread, "
+            f"{occ['ctas_per_sm']} CTAs = {occ['warps_per_sm']} warps per SM")
+
+
+def _finalize_case(torch):
+    """Kernel C's case: the finalize of the flagship config's 720p -> 4x
+    plan, its plan and seeded bf16 chunk outputs split [16, 2]."""
     import numpy as np
 
     from waifu2x_tensorrt_tpu_torch.engine.config import (
@@ -323,7 +350,6 @@ def phase_kernel_c(torch, report):
     )
     from waifu2x_tensorrt_tpu_torch.engine.renderer import make_chunked_fns
     from waifu2x_tensorrt_tpu_torch.models.registry import get_spec
-    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import finalize_scan
 
     spec = get_spec("swin_unet/art", 4, 3)
     cfg = RenderConfig(precision=Precision.FP16, batch_size=16, height=256,
@@ -334,6 +360,27 @@ def phase_kernel_c(torch, report):
     rng = np.random.default_rng(4)
     outs = [torch.from_numpy(rng.random((n, oh, ow, 3), np.float32))
             .to("cuda", torch.bfloat16) for n in sizes]
+    return fin, plan, outs
+
+
+def _finalize_work(outs, n_out):
+    """(bytes, product FLOPs, fp32 FLOPs) of kernel C: each tile value read
+    once, each of the n_out u8 outputs written once; a multiply and an add
+    per tile value."""
+    n_in = sum(o.numel() for o in outs)
+    return 2 * n_in + n_out, 0.0, 2.0 * n_in
+
+
+def _head_pack_work(z):
+    """(bytes, product FLOPs, fp32 FLOPs) of kernel D on z: z read once,
+    as many bytes written once; no arithmetic."""
+    return 2 * z.numel() * z.element_size(), 0.0, 0.0
+
+
+def phase_kernel_c(torch, report):
+    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import finalize_scan
+
+    fin, plan, outs = _finalize_case(torch)
     got = fin(*outs)
     want = finalize_scan(outs, plan)
     # TileStream split: the frame's 18 tiles as the tail of one chunk and
@@ -353,10 +400,7 @@ def phase_kernel_c(torch, report):
           f"{pm:.3f} ms (median, CUDA events)", flush=True)
     if not same:
         raise AssertionError("kernel C is not byte-identical to the scan")
-    # each tile value read once, each u8 output written once; a multiply
-    # and an add per tile value
-    n_in = sum(o.numel() for o in outs)
-    bms, by = _bound(2 * n_in + got.numel(), fp32_flops=2 * n_in)
+    bms, by = _bound(*_finalize_work(outs, got.numel()))
     print(f"  kernel C bound {bms:.4f} ms by {by} ({100 * bms / km:.1f}% "
           "of it)", flush=True)
     report["C"] = {"max_abs_err": float(err), "ms": km, "plain_ms": pm,
@@ -476,17 +520,17 @@ def _phase5_frames():
                    for _ in range(10)]
 
 
-def phase_fused_block_false(torch):
-    """Phase 7: the phase-5 config with fused_block=False, one 720p frame;
-    returns the launch counts of this run alone."""
+def phase_fused_block_false(torch, smi, report):
+    """Phase 7: the phase-5 config with fused_block=False, one 720p frame,
+    then 4 streamed frames; returns the launch counts of the stream."""
     import numpy as np
 
     from waifu2x_tensorrt_tpu_torch.engine.config import Precision
 
     counters = _zero_counters()
     up = _load(torch, Precision.FP16, fused_block=False)
-    frame = np.random.default_rng(7).integers(0, 256, (720, 1280, 3),
-                                              np.uint8)
+    rng = np.random.default_rng(7)
+    frame = rng.integers(0, 256, (720, 1280, 3), np.uint8)
     out = up.render(frame)
     n7 = {k: f.launches for k, f in counters.items()}
     if out.shape != (2880, 5120, 3) or out.dtype != np.uint8:
@@ -495,7 +539,40 @@ def phase_fused_block_false(torch):
           f"counts of this run {n7}", flush=True)
     if n7["A"] <= 0 or n7["B"] != 0:
         raise AssertionError(f"phase 7 did not run kernel A alone: {n7}")
-    return n7
+
+    frames = [rng.integers(0, 256, (720, 1280, 3), np.uint8)
+              for _ in range(4)]
+    stream = up.open_stream((720, 1280))
+    stream.warm()
+    torch.cuda.synchronize()
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    outs = []
+    for f in frames:
+        outs.extend(stream.submit(f))
+    outs.extend(stream.flush())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n7s = {k: f.launches for k, f in counters.items()}
+    if len(outs) != 4 or any(tuple(o.shape) != (2880, 5120, 3)
+                             for o in outs):
+        raise AssertionError("phase 7 stream returned wrong outputs")
+    tiles = up._pipeline.get((720, 1280))[2].tile_count
+    chunks = -(-len(frames) * tiles // 16)  # full chunks + the flushed tail
+    mps = len(frames) / dt * 2880 * 5120 / 1e6
+    print(f"  phase 7 fused_block=False stream: 4 frames in {dt:.3f} s = "
+          f"{mps:.2f} output MP/s; fused_block=True (phase 5, same call) "
+          f"{report['stream']['output_mp_per_s']:.2f} output MP/s, on {smi};"
+          f" launch counts of the stream {n7s} over {chunks} chunks",
+          flush=True)
+    if n7s["A"] != 10 * chunks or any(v for k, v in n7s.items()
+                                      if k not in ("A", "C")):
+        raise AssertionError(f"phase 7 stream: not 10 launches of kernel A "
+                             f"per chunk: {n7s}")
+    report["stream_fused_block_false"] = {
+        "frames_per_s": len(frames) / dt, "output_mp_per_s": mps,
+        "seconds_4_frames": dt}
+    return n7s
 
 
 @contextlib.contextmanager
@@ -651,7 +728,7 @@ def phase_kernels_de(torch, report):
                 pm = _median_ms(lambda: hp.pack_head_plain(z, 4))
                 print(f"  kernel D bf16 r=4: kernel {km:.3f} ms, plain "
                       f"{pm:.3f} ms (median, CUDA events)", flush=True)
-                bms, by = _bound(2 * z.numel() * 2)  # read and write once
+                bms, by = _bound(*_head_pack_work(z))
                 print(f"  kernel D bound {bms:.4f} ms by {by} "
                       f"({100 * bms / km:.1f}% of it)", flush=True)
                 report["D"] = {"max_abs_err": 0.0, "ms": km, "plain_ms": pm,
@@ -690,6 +767,8 @@ def phase_kernels_de(torch, report):
             if shift == 4 and bw == 4096:
                 km = _median_ms(lambda: wa.fused_window_attention(
                     *a16, shift=4))
+                km32 = _median_ms(lambda: wa.fused_window_attention(
+                    *args, shift=4))
                 pm = _median_ms(lambda: wa.window_attention_plain(
                     *a16, shift=4))
                 mask = _sdpa_mask(torch, bias, flags, 4, torch.bfloat16)
@@ -700,10 +779,13 @@ def phase_kernels_de(torch, report):
                 print(f"  kernel E bf16 BW={bw} nh={nh}: kernel {km:.3f} "
                       f"ms (bound {bms:.4f} ms by {by}, "
                       f"{100 * bms / km:.1f}% of it), plain {pm:.3f} ms, "
-                      f"SDPA with a float mask {lm:.3f} ms (median, CUDA "
-                      "events)", flush=True)
+                      f"SDPA with a float mask {lm:.3f} ms (kernel / SDPA "
+                      f"{km / lm:.2f}x); fp32 kernel {km32:.3f} ms; "
+                      + _occupancy_label(wa.tc_occupancy())
+                      + " (median, CUDA events)", flush=True)
                 report["E"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
-                               "bound_by": by, "library_ms": lm}
+                               "bound_by": by, "library_ms": lm,
+                               "fp32_ms": km32}
                 api_args = a16
     report["E"]["max_abs_err"] = worst_e
     # E's run: one call through the ops package's public API
@@ -926,7 +1008,7 @@ def main() -> int:
     print("phase 6 network, kernel path vs plain path:", flush=True)
     phase_network_gate(torch)
     print("phase 7 fused_block=False:", flush=True)
-    n7 = phase_fused_block_false(torch)
+    n7 = phase_fused_block_false(torch, smi, report)
     print("phase 8 kernels D and E vs plain:", flush=True)
     n8 = phase_kernels_de(torch, report)
     print("phase 9 packed-x main path:", flush=True)
@@ -937,8 +1019,8 @@ def main() -> int:
     src = "waifu2x_tensorrt_tpu_torch/ops/csrc/"
     main_run = ("phase 5: main path, fused_block=True, bf16, tile 256, "
                 "batch 16, 720p render + 10 streamed frames")
-    a_run = ("phase 7: fused_block=False, bf16, tile 256, batch 16, one "
-             "720p render")
+    a_run = ("phase 7: fused_block=False, bf16, tile 256, batch 16, 4 "
+             "streamed 720p frames (5 chunks)")
     e_run = ("phase 8: one call of ops.fused_window_attention (the ops "
              "package API), BW 4096, nh 3, bf16, shift 4")
     px_run = ("phase 9: WAIFU2X_PACK_X=1, otherwise as phase 5: 720p "
@@ -972,7 +1054,7 @@ def main() -> int:
                     "library_ms")},
                 **{key: value for key, value in report[k].items()
                    if key.startswith(("library_chain", "fp32_", "bf16_",
-                                      "gate_"))}}
+                                      "c192_", "gate_"))}}
                for k in ("A", "B", "C", "D", "E", "F")]
     print(smi)
     print(json.dumps({"kernels": kernels}))

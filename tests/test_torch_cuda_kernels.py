@@ -6,7 +6,10 @@ machine with one, run
 conftest sets up JAX, which such a machine need not have).
 Same checks as phases 3, 4 and 8 of ``chip_smoke.py``, at smaller
 shapes: kernels A, B and E within fp32 max |d| <= 1e-4 (TF32 off) and the
-bf16 rule |k16 - p32| <= max(2 |p16 - p32|, 0.02); kernel B's bf16
+bf16 rule |k16 - p32| <= max(2 |p16 - p32|, 0.02); the bf16 tensor-core
+kernel of A and E at every C it takes, with one (window, head) unit, with
+fewer units than resident CTAs and with more (each CTA walks several),
+under each flags value and with logits beyond 100; kernel B's bf16
 tensor-core kernel also at C 96 / 3 heads and C 192 / 6 heads with window
 counts of 1, 37 and full CTAs, on prepared operands (the same bytes as
 per-call ones, one launch counted), and with logits beyond 100 under the
@@ -170,10 +173,104 @@ def test_kernel_e_matches_plain(bw, nh, shift):
     from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
 
     _x, qkv, _p, bias, flags = _inputs(bw, nh * 32, nh, bw + shift + 2)
-    q, k, v = (t.reshape(bw, 64, nh, 32).permute(0, 2, 1, 3).contiguous()
-               for t in qkv.chunk(3, dim=-1))
     _check(wa.fused_window_attention, wa.window_attention_plain,
-           (q, k, v, bias, flags), {"shift": shift}, n_act=3)
+           (*_unpacked(qkv, nh), bias, flags), {"shift": shift}, n_act=3)
+
+
+def _unpacked(qkv, nh):
+    """Kernel E's q, k, v (BW, nh, 64, 32) from packed qkv."""
+    bw = qkv.shape[0]
+    return tuple(t.reshape(bw, 64, nh, 32).permute(0, 2, 1, 3).contiguous()
+                 for t in qkv.chunk(3, dim=-1))
+
+
+@pytest.mark.parametrize("bw,c,nh", [
+    (1, 96, 3), (1, 192, 6), (600, 96, 3), (300, 192, 6), (37, 32, 1),
+    (37, 128, 4), (37, 160, 5),
+])
+def test_kernel_a_tensor_core_shapes(bw, c, nh):
+    """Every C from 32 to 192; one window, and more (window, head) units
+    than resident CTAs (each CTA walks several through its ring, some one
+    more than others); shift 4, flags of every kind."""
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    _x, qkv, _p, bias, _f = _inputs(bw, c, nh, bw + c)
+    flags = torch.arange(bw, dtype=torch.int32, device="cuda") % 4
+    _check(wa.fused_window_attention_qkv, wa.window_attention_qkv_plain,
+           (qkv, bias, flags), {"num_heads": nh, "shift": 4})
+
+
+@pytest.mark.parametrize("bw,nh", [(1, 1), (1, 3), (5, 1), (37, 2),
+                                   (500, 3), (200, 6)])
+def test_kernel_e_tensor_core_shapes(bw, nh):
+    """One (window, head) unit, fewer units than resident CTAs, and more
+    (1500 and 1200: each CTA walks several, some one more than others)."""
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    _x, qkv, _p, bias, _f = _inputs(bw, nh * 32, nh, bw + nh + 3)
+    flags = torch.arange(bw, dtype=torch.int32, device="cuda") % 4
+    _check(wa.fused_window_attention, wa.window_attention_plain,
+           (*_unpacked(qkv, nh), bias, flags), {"shift": 4}, n_act=3)
+
+
+@pytest.mark.parametrize("fl", range(4))
+def test_kernels_a_e_every_flag(fl):
+    """Every window with the same flags value under shift 4: no mask,
+    the row seam, the column seam, both."""
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    _x, qkv, _p, bias, flags = _inputs(64, 96, 3, 20 + fl)
+    flags = torch.full_like(flags, fl)
+    _check(wa.fused_window_attention_qkv, wa.window_attention_qkv_plain,
+           (qkv, bias, flags), {"num_heads": 3, "shift": 4})
+    _check(wa.fused_window_attention, wa.window_attention_plain,
+           (*_unpacked(qkv, 3), bias, flags), {"shift": 4}, n_act=3)
+
+
+@pytest.mark.parametrize("c,nh", [(96, 3), (192, 6)])
+def test_kernels_a_e_large_logits(c, nh):
+    """q and k scaled by 6 (logits beyond 100, where exp without the
+    max-subtraction overflows fp32) under the shift mask in every window:
+    the max-subtraction and the masked zeros must hold. v keeps its
+    scale, so the output stays near unit size and the fp32 limit keeps
+    its meaning."""
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    _x, qkv, _p, bias, flags = _inputs(64, c, nh, 9 + c)
+    qk_scale = torch.ones(3 * c, device="cuda")
+    qk_scale[:2 * c] = 6
+    qkv = (qkv * qk_scale).contiguous()
+    flags = torch.full_like(flags, 3)
+    logits = (qkv[..., :32] * 32 ** -0.5) @ qkv[..., c:c + 32].transpose(1, 2)
+    assert logits.abs().max().item() > 100
+    _check(wa.fused_window_attention_qkv, wa.window_attention_qkv_plain,
+           (qkv, bias, flags), {"num_heads": nh, "shift": 4})
+    _check(wa.fused_window_attention, wa.window_attention_plain,
+           (*_unpacked(qkv, nh), bias, flags), {"shift": 4}, n_act=3)
+    for out in (wa.fused_window_attention_qkv(qkv.bfloat16(), bias, flags,
+                                              num_heads=nh, shift=4),
+                wa.fused_window_attention(
+                    *(t.bfloat16() for t in _unpacked(qkv, nh)), bias, flags,
+                    shift=4)):
+        assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("bw,c,nh", [(300, 96, 3), (100, 192, 6)])
+def test_kernels_a_e_fp32(bw, c, nh):
+    """The fp32 instantiations (attention_core on the CUDA cores) against
+    the plain twin, max |d| <= 1e-4 with TF32 off, shift 4."""
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    _x, qkv, _p, bias, flags = _inputs(bw, c, nh, bw + c + 5)
+    got = wa.fused_window_attention_qkv(qkv, bias, flags, num_heads=nh,
+                                        shift=4)
+    want = wa.window_attention_qkv_plain(qkv, bias, flags, num_heads=nh,
+                                         shift=4)
+    assert (got - want).abs().max().item() <= 1e-4
+    q, k, v = _unpacked(qkv, nh)
+    got = wa.fused_window_attention(q, k, v, bias, flags, shift=4)
+    want = wa.window_attention_plain(q, k, v, bias, flags, shift=4)
+    assert (got - want).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("r,w,dtype", [
@@ -255,6 +352,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     qc = q.contiguous()
     with pytest.raises(TypeError):
         wa.fused_window_attention(qc, qc.bfloat16(), qc, bias, flags)
+    shifted = torch.empty(qkv.numel() + 1, dtype=torch.bfloat16,
+                          device="cuda")
+    shifted = shifted[1:].view(qkv.shape)
+    shifted.copy_(qkv)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        wa.fused_window_attention_qkv(shifted, bias, flags, num_heads=3)
 
     from waifu2x_tensorrt_tpu_torch.ops import head_pack as hp
 

@@ -32,6 +32,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points (argument order of the csrc launchers)
 _SIGNATURES = {
     "w2x_window_attention_qkv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -39,6 +40,7 @@ _SIGNATURES = {
     "w2x_finalize_gather": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "w2x_head_pack": [_P, _P, _I, _I, _I, _I, _I, _P],
     "w2x_window_attention_heads": [_P] * 6 + [_I] * 4 + [_P],
+    "w2x_attention_tc_info": [_IP, _IP],
     "w2x_mma_probe": [_P, _P, _P] + [_I] * 5 + [_P],
 }
 

@@ -16,7 +16,10 @@ kernel of ``csrc/window_attention.cu`` (the port of the TPU kernel
 q, k, v (BW, nh, 64, 32) -> (BW, nh, 64, 32) in q's dtype.
 
 Both take bias (nh, 64, 64) fp32 and flags (BW,) int32 shift-boundary bits
-(bit0 bottom, bit1 right).
+(bit0 bottom, bit1 right). On the card, bf16 runs one tensor-core kernel
+for both (``attention_tc_kernel``: (window, head) units through a
+cp.async ring, scores in registers), fp32 the CUDA-core ones; both want
+their tensors 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -95,6 +98,8 @@ def _check_device(x, bias, flags, **tensors):
             raise ValueError(f"{name} must be contiguous on {x.device}")
         if name in tensors and t.dtype != x.dtype:
             raise TypeError(f"{name} must be {x.dtype}")
+        if name != "flags" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _check(qkv, bias, flags, num_heads, shift, ws):
@@ -174,3 +179,17 @@ def fused_window_attention(q, k, v, bias, flags, *, shift: int = 0,
 
 
 fused_window_attention.launches = 0
+
+
+def tc_occupancy() -> dict:
+    """Registers per thread, resident CTAs and warps per SM of the bf16
+    tensor-core kernel (one kernel serves A and E). Needs the card."""
+    import ctypes
+
+    lib = build.load_library()
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    build.check(lib.w2x_attention_tc_info(ctypes.byref(regs),
+                                          ctypes.byref(ctas)),
+                "attention kernel info")
+    return {"registers": regs.value, "ctas_per_sm": ctas.value,
+            "warps_per_sm": 4 * ctas.value}

@@ -21,7 +21,14 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      a yardstick chain of bf16 library calls (layer_norm, linear, SDPA,
      gelu) that the port never calls
   4. kernel C (finalize) against the plain scan on the 720p -> 4x plan,
-     chunk outputs split [16, 2] and in a TileStream split: byte-identical
+     chunk outputs split [16, 2] and in a TileStream split, and kernel C
+     alone (``finalize_gather`` on a tile table built once):
+     byte-identical; times of kernel C alone, of the wrapper per call
+     (table upload included) and of the plain scan, with the spread of
+     each one's samples, and of kernel C alone and the wrapper with the
+     device's queue filled ahead (device time only), beside C's bound
+     (the covering values, not every tile value); the host time of a call
+     of each; kernel C alone on fp32 copies of the tiles (the same bytes)
   5. main path: swin_unet/art 4x noise 3, tile 256, batch 16, fp16 (bf16):
      one 720p frame -> (2880, 5120, 3) u8, then 10 streamed frames, one
      of them held against its single-frame render (max <= 2 LSB, <= 1e-3
@@ -105,19 +112,27 @@ def _require_cuda():
 
 
 CALLS_PER_SAMPLE = 10
+# ~10 ms of the device's clock: longer than the host takes to enqueue a
+# sample's calls of any kernel here
+QUEUE_CYCLES = 20_000_000
 
 
-def _median_ms(fn, iters=10, warmup=2):
-    """ms per call of ``fn``: the median over ``iters`` samples, each the
+def _samples_ms(fn, iters=10, warmup=2, queued=False):
+    """Sorted ms per call of ``fn`` over ``iters`` samples, each the
     CUDA-event time of CALLS_PER_SAMPLE calls in a row divided by their
     number, so that the host's work between launches hides behind the
-    device's queue."""
+    device's queue. With ``queued`` the device first spins QUEUE_CYCLES
+    (``torch.cuda._sleep``) while the host enqueues the sample's calls, so
+    the sample holds device time only, also for a call whose host work
+    outlasts its device work."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -126,7 +141,12 @@ def _median_ms(fn, iters=10, warmup=2):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / CALLS_PER_SAMPLE)
-    times.sort()
+    return sorted(times)
+
+
+def _median_ms(fn, iters=10, warmup=2, queued=False):
+    """ms per call of ``fn``: the median of ``_samples_ms``."""
+    times = _samples_ms(fn, iters, warmup, queued)
     return times[len(times) // 2]
 
 
@@ -363,18 +383,79 @@ def _finalize_case(torch):
     return fin, plan, outs
 
 
-def _finalize_work(outs, n_out):
-    """(bytes, product FLOPs, fp32 FLOPs) of kernel C: each tile value read
-    once, each of the n_out u8 outputs written once; a multiply and an add
-    per tile value."""
-    n_in = sum(o.numel() for o in outs)
-    return 2 * n_in + n_out, 0.0, 2.0 * n_in
+def _finalize_work(plan, elem):
+    """(bytes, product FLOPs, fp32 FLOPs) of kernel C on ``plan``'s tiles
+    of ``elem`` bytes a value: each tile value that covers the frame read
+    once, each u8 output written once; two multiplies and an add per
+    covering value, a multiply, a rounding and two clamps per output. The
+    covering values are (covered rows) x (covered columns) x 3, each
+    counted once per tile that covers it: at 720p -> 4x (3 x 6 tiles of
+    1024, stride 960) 3008 x 5440 x 3 = 49.1 M, 98.2 MB in bf16, and with
+    the 44.2 MB frame 142.4 MB, 0.0425 ms at 3.35 TB/s."""
+    import numpy as np
+
+    oh, ow = plan.output_tile
+    out_h, out_w = plan.output_size
+
+    def covered(origins, size, n):
+        return sum(min(int(o) + size, n) - int(o) for o in np.unique(origins)
+                   if o < n)
+
+    n_cover = 3 * (covered(plan.output_origins[:, 0], oh, out_h)
+                   * covered(plan.output_origins[:, 1], ow, out_w))
+    n_out = out_h * out_w * 3
+    return elem * n_cover + n_out, 0.0, 3.0 * n_cover + 4.0 * n_out
+
+
+def _finalize_alone(torch, plan, outs):
+    """(call, out): one launch of kernel C through ``finalize_gather`` on
+    a tile table, ramps and an output built once here, as ``finalize``
+    builds them per call."""
+    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
+        finalize_gather,
+        grid_geometry,
+    )
+
+    oh, ow = plan.output_tile
+    step = oh * ow * 3 * outs[0].element_size()
+    ptrs = [o.data_ptr() + i * step for o in outs for i in range(o.shape[0])]
+    table = torch.tensor(ptrs[:plan.tile_count], dtype=torch.int64,
+                         device="cuda")
+    rw = torch.from_numpy(plan.row_weights).cuda()
+    cw = torch.from_numpy(plan.col_weights).cuda()
+    out = torch.empty((*plan.output_size, 3), dtype=torch.uint8,
+                      device="cuda")
+    geom = (*grid_geometry(plan), oh, ow)
+    bf16 = outs[0].dtype == torch.bfloat16
+
+    def call():
+        return finalize_gather(table, rw, cw, out, geom, bf16)
+
+    return call, out
 
 
 def _head_pack_work(z):
     """(bytes, product FLOPs, fp32 FLOPs) of kernel D on z: z read once,
     as many bytes written once; no arithmetic."""
     return 2 * z.numel() * z.element_size(), 0.0, 0.0
+
+
+def _spread(times):
+    """The range of a sample list as a share of its median, in percent."""
+    return 100 * (times[-1] - times[0]) / times[len(times) // 2]
+
+
+def _host_us(torch, fn, n=50):
+    """µs of host time per call of ``fn`` over ``n`` calls in a row (the
+    device's work is not waited for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def phase_kernel_c(torch, report):
@@ -389,22 +470,55 @@ def phase_kernel_c(torch, report):
                      torch.zeros_like(outs[0][:5])], 0)
     a, b = big[:16], big[16:]
     got_s = fin(a[9:], b[:11])
+    alone, got_k = _finalize_alone(torch, plan, outs)
+    alone()
     torch.cuda.synchronize()
-    same = torch.equal(got, want) and torch.equal(got_s, want)
-    err = max((g.int() - want.int()).abs().max().item() for g in (got, got_s))
+    frames = (got, got_s, got_k)
+    same = all(torch.equal(g, want) for g in frames)
+    err = max((g.int() - want.int()).abs().max().item() for g in frames)
     assert tuple(got.shape) == (2880, 5120, 3) and got.dtype == torch.uint8
-    km = _median_ms(lambda: fin(*outs))
-    pm = _median_ms(lambda: finalize_scan(outs, plan), iters=5)
-    print(f"  kernel C 720p->4x (T={plan.tile_count}, [16, 2] and stream "
-          f"split): byte-identical={same}; kernel {km:.3f} ms, plain scan "
-          f"{pm:.3f} ms (median, CUDA events)", flush=True)
-    if not same:
+
+    def wrapper():
+        return fin(*outs)
+
+    ks, ws = _samples_ms(alone), _samples_ms(wrapper)
+    kq, wq = _samples_ms(alone, queued=True), _samples_ms(wrapper, queued=True)
+    ps = _samples_ms(lambda: finalize_scan(outs, plan), iters=5)
+    km, wm, kqm, wqm, pm = (t[len(t) // 2] for t in (ks, ws, kq, wq, ps))
+    bms, by = _bound(*_finalize_work(plan, outs[0].element_size()))
+    print(f"  kernel C 720p->4x (T={plan.tile_count}, [16, 2], stream split "
+          f"and kernel alone): byte-identical={same}", flush=True)
+    print(f"  kernel C alone {km:.4f} ms (spread {_spread(ks):.1f}%), "
+          f"wrapper per call {wm:.4f} ms (spread {_spread(ws):.1f}%), plain "
+          f"scan {pm:.3f} ms (spread {_spread(ps):.1f}%); median per call "
+          "over 10 calls in a row, CUDA events", flush=True)
+    print(f"  kernel C device time, queue filled ahead: alone {kqm:.4f} ms "
+          f"(spread {_spread(kq):.1f}%), wrapper {wqm:.4f} ms (spread "
+          f"{_spread(wq):.1f}%)", flush=True)
+    print(f"  kernel C bound {bms:.4f} ms by {by}: kernel alone "
+          f"{100 * bms / km:.1f}% of it ({100 * bms / kqm:.1f}% queued), "
+          f"wrapper {100 * bms / wm:.1f}% ({100 * bms / wqm:.1f}% queued)",
+          flush=True)
+    print(f"  kernel C host time a call: alone {_host_us(torch, alone):.1f} "
+          f"µs, wrapper {_host_us(torch, wrapper):.1f} µs", flush=True)
+    # fp32 tiles (the CLI's tf32) of the same values: the same bytes
+    outs32 = [o.float() for o in outs]
+    alone32, got32 = _finalize_alone(torch, plan, outs32)
+    alone32()
+    same32 = torch.equal(got32, want)
+    f32m = _median_ms(alone32)
+    f32q = _median_ms(alone32, queued=True)
+    b32, _ = _bound(*_finalize_work(plan, 4))
+    print(f"  kernel C fp32 tiles: byte-identical={same32}; alone {f32m:.4f} "
+          f"ms, {f32q:.4f} ms queued ({100 * b32 / f32q:.1f}% of its bound "
+          f"{b32:.4f} ms)", flush=True)
+    if not (same and same32):
         raise AssertionError("kernel C is not byte-identical to the scan")
-    bms, by = _bound(*_finalize_work(outs, got.numel()))
-    print(f"  kernel C bound {bms:.4f} ms by {by} ({100 * bms / km:.1f}% "
-          "of it)", flush=True)
     report["C"] = {"max_abs_err": float(err), "ms": km, "plain_ms": pm,
-                   "bound_ms": bms, "bound_by": by, "library_ms": None}
+                   "bound_ms": bms, "bound_by": by, "library_ms": None,
+                   "wrapper_ms": wm, "queued_ms": kqm,
+                   "queued_wrapper_ms": wqm, "fp32_ms": f32m,
+                   "fp32_queued_ms": f32q, "fp32_bound_ms": b32}
 
 
 def _counters():
@@ -1054,7 +1168,8 @@ def main() -> int:
                     "library_ms")},
                 **{key: value for key, value in report[k].items()
                    if key.startswith(("library_chain", "fp32_", "bf16_",
-                                      "c192_", "gate_"))}}
+                                      "c192_", "gate_", "wrapper_",
+                                      "queued_"))}}
                for k in ("A", "B", "C", "D", "E", "F")]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -14,7 +14,11 @@ tensor-core kernel also at C 96 / 3 heads and C 192 / 6 heads with window
 counts of 1, 37 and full CTAs, on prepared operands (the same bytes as
 per-call ones, one launch counted), and with logits beyond 100 under the
 shift mask; kernel C byte-identical
-to the scan, with whole chunks and TileStream pieces; kernel D equal to
+to the scan, with whole chunks and TileStream pieces that start
+mid-chunk, at scale 2 and 4, in bf16 and fp32, on a single tile, 1-row
+and 1-column grids, rows whose bytes are not a multiple of 16 and T up to
+576, with a frame and tiles that are not 16-byte aligned, and with no
+synchronizing call in ``finalize`` (``set_sync_debug_mode("error")``); kernel D equal to
 its plain twin and to the clamped pixel shuffle, byte for byte; kernel F
 (the int8/bf16 probe) at the probe's four shapes, int8 equal to its plain
 twin and bf16 within the float32 sum bound ``fp32_sum_bound``.
@@ -297,22 +301,13 @@ def test_kernel_d_equals_plain(r, w, dtype):
     assert torch.equal(hp.pack_head_x16(shifted, r=r), got)
 
 
-@pytest.mark.parametrize("frame_hw,scale,batch,dtype", [
-    ((100, 110), 2, 3, torch.float32),
-    ((150, 260), 2, 5, torch.bfloat16),
-    ((180, 330), 4, 16, torch.bfloat16),
-])
-def test_kernel_c_byte_identical_to_scan(frame_hw, scale, batch, dtype):
+def _finalize_case(frame_hw, scale, batch, dtype, seed=0):
     from waifu2x_tensorrt_tpu_torch.engine.config import (
         Precision,
         RenderConfig,
     )
     from waifu2x_tensorrt_tpu_torch.engine.renderer import make_chunked_fns
     from waifu2x_tensorrt_tpu_torch.models.registry import get_spec
-    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
-        finalize_gather,
-        finalize_scan,
-    )
 
     cfg = RenderConfig(precision=Precision.FP16, batch_size=batch,
                        height=64, width=64, scaling=scale,
@@ -320,18 +315,101 @@ def test_kernel_c_byte_identical_to_scan(frame_hw, scale, batch, dtype):
     _p, fin, plan, sizes = make_chunked_fns(
         get_spec("swin_unet/art", scale, -1), cfg, frame_hw, "cuda")
     oh, ow = plan.output_tile
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     outs = [torch.from_numpy(rng.random((n, oh, ow, 3), np.float32))
             .to("cuda", dtype) for n in sizes]
+    return fin, plan, outs
+
+
+@pytest.mark.parametrize("frame_hw,scale,batch,dtype", [
+    ((100, 110), 2, 3, torch.float32),
+    ((150, 260), 2, 5, torch.bfloat16),
+    ((180, 330), 4, 16, torch.bfloat16),
+    ((70, 90), 4, 3, torch.float32),       # scale 4, 2 x 2 tiles
+    ((61, 131), 2, 3, torch.bfloat16),     # rows of 786 bytes (not 16k)
+    ((37, 53), 2, 2, torch.float32),       # one tile, rows of 318 bytes
+    ((40, 200), 2, 3, torch.bfloat16),     # 1-row grid
+    ((200, 40), 2, 3, torch.float32),      # 1-column grid
+    ((540, 960), 2, 16, torch.bfloat16),   # T 144
+    ((1080, 1920), 2, 64, torch.bfloat16),  # T 576 > 256
+    ((1080, 1920), 2, 64, torch.float32),
+])
+def test_kernel_c_byte_identical_to_scan(frame_hw, scale, batch, dtype):
+    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
+        finalize_gather,
+        finalize_scan,
+    )
+
+    fin, plan, outs = _finalize_case(frame_hw, scale, batch, dtype)
     want = finalize_scan(outs, plan)
     before = finalize_gather.launches
     assert torch.equal(fin(*outs), want)
     assert finalize_gather.launches == before + 1
     whole = torch.cat(outs, 0)
-    padded = torch.cat([whole[:3], whole, whole[:2]], 0)
-    cut = plan.tile_count // 2
-    pieces = (padded[3:3 + cut], padded[3 + cut:3 + plan.tile_count])
-    assert torch.equal(fin(*pieces), want)
+    pad = torch.zeros((3, *whole.shape[1:]), dtype=dtype, device="cuda")
+    padded = torch.cat([pad, whole, pad[:2]], 0)
+    T = plan.tile_count
+    # pieces that start mid-chunk, cut at several points
+    for cuts in ([T // 2], [1, T - 1] if T > 1 else [1], [T // 3, T // 2]):
+        pieces, start = [], 3
+        for end in [3 + c for c in cuts] + [3 + T]:
+            if end > start:
+                pieces.append(padded[start:end])
+                start = end
+        assert torch.equal(fin(*pieces), want), cuts
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_c_unaligned_frame_and_tiles(dtype):
+    """A frame whose base is not 16-byte aligned (partial windows at both
+    ends of every row) and tiles that are not (the scalar loads)."""
+    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
+        finalize_gather,
+        finalize_scan,
+        grid_geometry,
+    )
+
+    fin, plan, outs = _finalize_case((100, 110), 2, 3, dtype, seed=1)
+    want = finalize_scan(outs, plan)
+    oh, ow = plan.output_tile
+    T = plan.tile_count
+    whole = torch.cat(outs, 0)[:T]
+    buf = torch.empty(whole.numel() + 1, dtype=dtype, device="cuda")
+    shifted = buf[1:].view(whole.shape)
+    shifted.copy_(whole)
+    step = oh * ow * 3 * whole.element_size()
+    for tiles in (whole, shifted):
+        table = torch.tensor([tiles.data_ptr() + t * step for t in range(T)],
+                             dtype=torch.int64, device="cuda")
+        rw = torch.from_numpy(plan.row_weights).cuda()
+        cw = torch.from_numpy(plan.col_weights).cuda()
+        frame = torch.zeros(want.numel() + 5, dtype=torch.uint8,
+                            device="cuda")
+        out = frame[5:].view(want.shape)
+        finalize_gather(table, rw, cw, out, (*grid_geometry(plan), oh, ow),
+                        dtype == torch.bfloat16)
+        assert torch.equal(out, want)
+        assert not frame[:5].any()
+
+
+def test_kernel_c_finalize_makes_no_synchronizing_call():
+    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
+        finalize_scan,
+    )
+
+    fin, plan, outs = _finalize_case((150, 260), 2, 5, torch.bfloat16)
+    want = finalize_scan(outs, plan)
+    fin(*outs)  # builds the kernels, warms the allocators
+    torch.cuda.synchronize()
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            got.append(fin(*outs))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g in got:
+        assert torch.equal(g, want)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

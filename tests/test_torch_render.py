@@ -219,3 +219,28 @@ def test_cuda_device_without_card_raises():
     up = Upscaler(allow_random_init=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         up.load("swin_unet/art", 2, -1, _cfg())
+
+
+def test_small_checkpoint_loads_and_renders(tmp_path):
+    """A swin .npz of another width and depth than the flagship's: the
+    port builds its module from the file and renders what the JAX package
+    renders from the same weights, through the golden gate."""
+    arch = {"base_dim": 32, "depths": (1, 1, 2, 1, 1)}
+    module, _ = jreg.create_model("swin_unet/art", 2, -1, **arch)
+    params = jreg.init_params(module, tile=64, seed=2)
+    jreg.save_params(jreg.weights_path(tmp_path, "swin_unet/art", 2, -1),
+                     params)
+    frame = np.random.default_rng(1).integers(0, 256, (53, 70, 3), np.uint8)
+    spec = jreg.get_spec("swin_unet/art", 2, -1)
+    jcfg = JRenderConfig(precision=JPrecision.TF32, batch_size=2, height=64,
+                         width=64, scaling=2, overlap=(1 / 16, 1 / 16))
+    want = np.asarray(JChunkedPipeline(module, spec, jcfg).render(
+        params, jnp.array(frame)))
+    up = Upscaler(models_dir=tmp_path, device="cpu")
+    up.load("swin_unet/art", 2, -1, _cfg())
+    assert treg.checkpoint_arch(
+        treg.weights_path(tmp_path, "swin_unet/art", 2, -1)) == arch
+    got = up.render(frame)
+    assert got.shape == want.shape == (106, 140, 3)
+    ok, msg = _gate(got, want)
+    assert ok, msg

@@ -13,7 +13,9 @@ shapes, each beside its bound and its share of it:
   one bf16 float mask (a yardstick the port never calls);
 - E in bf16 and fp32 at (BW 4096, nh 3) on the same values, beside SDPA;
 - B in bf16 on prepared operands at both shapes;
-- C on the 720p -> 4x plan; D in bf16 at r 4, (16, 256, 256, 48).
+- C on the 720p -> 4x plan, alone (``finalize_gather`` on a table built
+  once) and through the wrapper per call (table upload included); D in
+  bf16 at r 4, (16, 256, 256, 48).
 
 It goes through the wrappers only, so ``--root DIR`` can import
 ``waifu2x_tensorrt_tpu_torch`` from an unpacked other version (``git
@@ -101,8 +103,11 @@ def main() -> int:
              cs._block_work(bw, c, nh, 2))
 
     fin, plan, outs = cs._finalize_case(torch)
-    show(f"kernel C 720p -> 4x (T {plan.tile_count})", lambda: fin(*outs),
-         cs._finalize_work(outs, 2880 * 5120 * 3))
+    work = cs._finalize_work(plan, outs[0].element_size())
+    show(f"kernel C alone 720p -> 4x (T {plan.tile_count})",
+         cs._finalize_alone(torch, plan, outs)[0], work)
+    show(f"kernel C wrapper per call 720p -> 4x (T {plan.tile_count})",
+         lambda: fin(*outs), work)
     z = (torch.rand((16, 256, 256, 48), device="cuda") * 1.6
          - 0.3).bfloat16()
     show("kernel D bf16 r 4 (16, 256, 256, 48)",

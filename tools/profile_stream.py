@@ -4,9 +4,16 @@
 
 Loads swin_unet/art 4x noise 3, tile 256, batch 16, bf16 (the CLI's fp16)
 with seeded random weights through ``Upscaler`` (kernel B on every Swin
-block), opens a stream for 720p frames, runs its warm cycle, then submits
-``--frames`` seeded 720p frames and flushes under ``torch.profiler`` (CPU
-and CUDA activities). Prints, after the card's name and power limit:
+block), opens a stream for 720p frames and runs its warm cycle. It first
+renders phase 5's first frame and streams ``chip_smoke.py`` phase 5's 10
+frames twice by phase 5's method (unprofiled, outputs kept, host clock
+ending in a synchronize; the method and frames are this checkout's, so
+``--root`` compares two versions by one method), then submits ``--frames`` seeded 720p frames and flushes under
+``torch.profiler`` (CPU and CUDA activities). Prints, after the card's
+name and power limit:
+
+- phase 5's streamed rate, two passes: ms for the 10 frames and output
+  MP/s;
 
 - wall ms of the profiled window (host clock, ending in a synchronize),
   device busy ms (union of the intervals of every device event) and the
@@ -68,6 +75,9 @@ def main() -> int:
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parents[1])
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs  # this checkout's phase-5 frames
+
     sys.path.insert(0, str(args.root.resolve()))
 
     import numpy as np
@@ -99,6 +109,25 @@ def main() -> int:
     stream = up.open_stream((720, 1280))
     stream.warm()
     torch.cuda.synchronize()
+
+    first, rate_frames = cs._phase5_frames()
+    up.render(first)  # as phase 5, which renders a frame before its stream
+    for rep in range(2):
+        t0 = time.perf_counter()
+        kept = []
+        for f in rate_frames:
+            kept.extend(stream.submit(f))
+        kept.extend(stream.flush())
+        torch.cuda.synchronize()
+        rate_s = time.perf_counter() - t0
+        if len(kept) != len(rate_frames):
+            raise AssertionError(f"{len(kept)} outputs for "
+                                 f"{len(rate_frames)} frames")
+        print(f"phase 5's stream, unprofiled, pass {rep + 1}: "
+              f"{len(rate_frames)} frames in {rate_s * 1e3:.1f} ms, "
+              f"{len(rate_frames) * 2880 * 5120 / rate_s / 1e6:.2f} output "
+              "MP/s", flush=True)
+        del kept
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

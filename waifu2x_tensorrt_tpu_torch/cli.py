@@ -4,10 +4,17 @@ reference's flags (src/main.cpp:17-154).
 Ported: --model --scale --noise --batchSize --tileSize (64, 128, 256, 400,
 640) --blend --precision --device (an index, or ``cpu``) --models-dir
 --allow-random-weights, and ``render -i ... [-o DIR] [--recursive]
-[--nosuffix]`` of image files. Every other flag or input of the JAX
-package's CLI (``--tta``, ``--tileSize 0``/``auto``, ``--dp``,
-``--multihost``, ``--alpha auto``, video inputs, ``build``, ...) is parsed
-and rejected with a non-zero exit saying "not yet ported".
+[--nosuffix]`` of image files. The video flags ``--codec``, ``--pix_fmt``
+and ``--crf`` are parsed with the reference's defaults and accepted on
+still images, where they change nothing (the reference hands ``--crf`` to
+its PNG writer, which does not use it). The arguments are validated as
+the JAX package's CLI validates them, in its order and with its exit code
+-1 (model, --batchSize, --dp < 0, --tileSize auto with ``build``,
+--blend, --crf in [0, 51], the -o directory). Every other flag or input
+of that CLI (``--tta``, ``--tileSize 0``/``auto``, ``--dp``,
+``--multihost``, ``--alpha auto``, ``--continue-on-error``, video inputs,
+``build``, ...) is parsed and rejected with exit code 2 saying "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -103,6 +110,11 @@ def build_parser() -> argparse.ArgumentParser:
     render.add_argument("--nosuffix", action="store_true")
     render.add_argument("--blend", type=float, default=1 / 16)
     render.add_argument("--tta", action="store_true")
+    render.add_argument("--codec", default="libx264")
+    render.add_argument("--pix_fmt", default="yuv420p")
+    render.add_argument("--crf", type=int, default=23)
+    render.add_argument("--continue-on-error", action="store_true",
+                        dest="continue_on_error")
     render.add_argument("--alpha", choices=("ignore", "auto"),
                         default="ignore")
     render.add_argument("--bucket", type=int, default=0)
@@ -130,6 +142,7 @@ def _unported(args) -> str | None:
         (args.bucket != 0, "--bucket"),
         (args.segment_frames != 0, "--segment-frames"),
         (args.resume, "--resume"),
+        (args.continue_on_error, "--continue-on-error"),
         (args.profile is not None, "--profile"),
         (args.metrics_json is not None, "--metrics-json"),
         (args.model.startswith("cunet"), "cunet"),
@@ -161,16 +174,32 @@ def resolve_output_path(input_path: Path, output_dir: Path | None,
     return out.with_suffix(".png")
 
 
+def _validate(args) -> None:
+    """The JAX package's argument checks (its ``cli._validate``), in its
+    order; each raises ValueError."""
+    validate_model(args.model, args.scale, args.noise)
+    if args.batch_size <= 0:
+        raise ValueError("batchSize must be positive")
+    if args.dp < 0:
+        raise ValueError("--dp must be >= 0 (0 = all devices)")
+    if args.tile_size == "auto" and args.command == "build":
+        raise ValueError(
+            "--tileSize auto requires the render subcommand (build "
+            "compiles one concrete geometry; pass a numeric tile size)")
+    if args.command == "render":
+        if not any(abs(args.blend - c) < 1e-12 for c in BLEND_CHOICES):
+            raise ValueError(
+                f"--blend must be one of 1/8, 1/16, 1/32, 0; got {args.blend}")
+        if not (0 <= args.crf <= 51):
+            raise ValueError("--crf must be in [0, 51]")
+        if args.output is not None and not Path(args.output).is_dir():
+            raise ValueError(f"output directory does not exist: {args.output}")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        validate_model(args.model, args.scale, args.noise)
-        if args.batch_size <= 0:
-            raise ValueError("batchSize must be positive")
-        if args.command == "render" and not any(
-                abs(args.blend - c) < 1e-12 for c in BLEND_CHOICES):
-            raise ValueError(
-                f"--blend must be one of 1/8, 1/16, 1/32, 0; got {args.blend}")
+        _validate(args)
     except ValueError as e:
         print(e, file=sys.stderr)
         return -1
@@ -178,10 +207,6 @@ def main(argv=None) -> int:
     if feature is not None:
         print(f"{feature}: {NOT_PORTED}", file=sys.stderr)
         return 2
-    if args.output is not None and not Path(args.output).is_dir():
-        print(f"output directory does not exist: {args.output}",
-              file=sys.stderr)
-        return -1
 
     message_cb = console_message_callback()
     files = find_files_by_extension(args.inputs, DEFAULT_EXTENSIONS,

@@ -83,8 +83,10 @@ class Upscaler:
              config: RenderConfig,
              fused_block: Optional[bool] = None) -> None:
         """Build the model for (family, scale, noise) at ``config``'s
-        precision, load its weights and prepare the pipeline.
-        ``fused_block`` defaults to True on CUDA."""
+        precision, load its weights and prepare the pipeline. A weight
+        file gives the module its width and depths
+        (``registry.checkpoint_arch``); random weights take the flagship
+        architecture. ``fused_block`` defaults to True on CUDA."""
         registry.validate(family, scale, noise)
         if config.tta:
             raise NotImplementedError("TTA: not yet ported")
@@ -94,9 +96,12 @@ class Upscaler:
         device = self._select_device(config.device_id)
         if fused_block is None:
             fused_block = device.type == "cuda"
+        path = registry.weights_path(self.models_dir, family, scale, noise)
+        arch = (registry.checkpoint_arch(path)
+                if path.exists() and family.startswith("swin_unet") else {})
         module, spec = registry.create_model(
             family, scale, noise, dtype=config.precision.dtype,
-            fused_block=fused_block, device=device)
+            fused_block=fused_block, device=device, **arch)
         flat, from_file = registry.load_or_init_params(
             module, self.models_dir, family, scale, noise,
             warn=lambda m: self.logger.log(Severity.warn, m),

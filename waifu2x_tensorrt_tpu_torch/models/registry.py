@@ -175,6 +175,20 @@ def weights_path(models_dir: str | Path, family: str, scale: int,
     return Path(models_dir) / family / f"{model_file_stem(scale, noise)}.npz"
 
 
+def checkpoint_arch(path: str | Path) -> dict:
+    """``create_model``'s ``base_dim`` and ``depths`` for the swin_unet
+    weight file at ``path``: the depths counted from its block keys, the
+    width twice ``patch_conv1``'s output channels (flax kernel (3, 3, 3,
+    base_dim / 2)). Reads the keys and that one array only."""
+    from waifu2x_tensorrt_tpu_torch.models.convert import (
+        swin_depths_from_flax,
+    )
+
+    with np.load(Path(path)) as data:
+        return {"base_dim": 2 * int(data["patch_conv1/kernel"].shape[-1]),
+                "depths": swin_depths_from_flax(dict.fromkeys(data.files))}
+
+
 def load_or_init_params(module, models_dir: Optional[str | Path],
                         family: str, scale: int, noise: int, warn=None,
                         allow_random: bool = False):

@@ -13,6 +13,9 @@ the same order, so the two are byte-identical.
 ``make_finalize_epilogue(plan, device)`` builds the per-geometry
 ``finalize(*outs)``: the ramps are uploaded once, and each call takes the
 model's chunk outputs (or TileStream's pieces of them) where they are.
+Each call's table of tile addresses goes to the card from pinned memory
+without a synchronize, so finalize never makes the host wait for the
+chunks it reads.
 """
 
 from __future__ import annotations
@@ -99,10 +102,15 @@ def finalize_gather(tile_ptrs, row_w, col_w, out, geom, is_bf16: bool):
             raise ValueError(f"{name} must be a contiguous CUDA tensor")
     if tile_ptrs.dtype != torch.int64 or tile_ptrs.shape != (R * C,):
         raise ValueError("tile_ptrs must be (T,) int64")
-    if tuple(row_w.shape) != (R * C, oh) or tuple(col_w.shape) != (R * C, ow):
+    if (tuple(row_w.shape) != (R * C, oh) or tuple(col_w.shape) != (R * C, ow)
+            or row_w.dtype != torch.float32 or col_w.dtype != torch.float32):
         raise ValueError("ramps must be (T, oh) and (T, ow) float32")
     if out.dtype != torch.uint8 or out.dim() != 3 or out.shape[2] != 3:
         raise ValueError("out must be (H, W, 3) uint8")
+    if out_h < 1 or out_w < 1 or max(oh * ow * 3, R * C * max(oh, ow),
+                                     out_w * 3) >= 2 ** 31:
+        raise ValueError("kernel C indexes a tile, the ramps and a row of "
+                         "the frame in 32 bits")
     lib = build.load_library()
     code = lib.w2x_finalize_gather(
         tile_ptrs.data_ptr(), row_w.data_ptr(), col_w.data_ptr(),
@@ -155,7 +163,10 @@ def make_finalize_epilogue(plan, device):
             ptrs.extend(base + i * step for i in range(int(c.shape[0])))
         if len(ptrs) < T:
             raise ValueError(f"finalize got {len(ptrs)} tiles, plan has {T}")
-        table = torch.tensor(np.asarray(ptrs[:T], np.int64), device=device)
+        # pinned host memory and an asynchronous copy: no synchronize (the
+        # caching host allocator keeps the block until the copy has run)
+        table = torch.tensor(ptrs[:T], dtype=torch.int64,
+                             pin_memory=True).to(device, non_blocking=True)
         out = torch.empty((out_h, out_w, 3), dtype=torch.uint8, device=device)
         return finalize_gather(table, row_w, col_w, out, geom,
                                dt == torch.bfloat16)

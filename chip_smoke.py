@@ -48,10 +48,12 @@ the port through its library entry points (``Upscaler.load`` / ``render``
   8. kernels D (packed-x head) and E (window attention on unpacked heads)
      against their plain PyTorch twins: D at r=4 (16, 256, 256, 48) and
      r=2 (16, 256, 256, 12), bf16 and fp32, equal to the twin and, byte
-     for byte, to clamp + pixel shuffle; E at (BW 4096, nh 3),
-     (BW 1024, nh 6) and BW 37, shifts 0 and 4, by phase 3's rules;
-     times as in phase 3 (bf16 E's share of its bound and its ratio to
-     SDPA, fp32 E); then one call of E through the ``ops`` package API
+     for byte, to clamp + pixel shuffle and to a chain of library calls
+     (``_head_pack_chain``, D's yardstick, timed beside it); E at
+     (BW 4096, nh 3), (BW 1024, nh 6) and BW 37, shifts 0 and 4, by
+     phase 3's rules; times as in phase 3 (bf16 E's share of its bound
+     and its ratio to SDPA, fp32 E); then one call of E through the
+     ``ops`` package API
   9. the packed-x main path: phase 5's config with WAIFU2X_PACK_X=1 (set
      for this phase only): the 720p geometry must route through the
      packed twin, one 720p frame must be byte-identical to phase 5's
@@ -438,6 +440,16 @@ def _head_pack_work(z):
     """(bytes, product FLOPs, fp32 FLOPs) of kernel D on z: z read once,
     as many bytes written once; no arithmetic."""
     return 2 * z.numel() * z.element_size(), 0.0, 0.0
+
+
+def _head_pack_chain(z, r):
+    """Kernel D's function as a chain of library calls the port never
+    calls (clamp, ``pixel_shuffle`` on the NCHW view, the permute back and
+    a copy): a yardstick whose bytes equal D's output."""
+    import torch
+
+    return torch.pixel_shuffle(z.clamp(0, 1).permute(0, 3, 1, 2),
+                               r).permute(0, 2, 3, 1).contiguous()
 
 
 def _spread(times):
@@ -835,20 +847,27 @@ def phase_kernels_de(torch, report):
                   f"{tuple(k.shape)}: equal to plain and bytes equal to "
                   f"clamp + pixel shuffle: {same} (max|d| {err:.1e})",
                   flush=True)
-            if not same:
-                raise AssertionError("kernel D differs from its plain twin")
+            chain = _head_pack_chain(z, r)
+            if not (same and torch.equal(k.reshape(-1).view(torch.uint8),
+                                         chain.reshape(-1).view(
+                                             torch.uint8))):
+                raise AssertionError("kernel D differs from its plain twin "
+                                     "or from the library chain")
             if r == 4 and z.dtype == torch.bfloat16:
                 km = _median_ms(lambda: hp.pack_head_x16(z, r=4))
                 pm = _median_ms(lambda: hp.pack_head_plain(z, 4))
-                print(f"  kernel D bf16 r=4: kernel {km:.3f} ms, plain "
-                      f"{pm:.3f} ms (median, CUDA events)", flush=True)
+                lm = _median_ms(lambda: _head_pack_chain(z, 4))
+                print(f"  kernel D bf16 r=4: kernel {km:.4f} ms, plain "
+                      f"{pm:.3f} ms, yardstick (library chain: clamp, "
+                      f"pixel_shuffle, permutes; never called by the port) "
+                      f"{lm:.4f} ms (median, CUDA events)", flush=True)
                 bms, by = _bound(*_head_pack_work(z))
                 print(f"  kernel D bound {bms:.4f} ms by {by} "
                       f"({100 * bms / km:.1f}% of it)", flush=True)
                 report["D"] = {"max_abs_err": 0.0, "ms": km, "plain_ms": pm,
                                "bound_ms": bms, "bound_by": by,
-                               "library_ms": None}
-        del z32, z, k, p, pix
+                               "library_ms": None, "library_chain_ms": lm}
+        del z32, z, k, p, pix, chain
     report["D"]["max_abs_err"] = worst_d
 
     worst_e = 0.0

@@ -19,9 +19,12 @@ mid-chunk, at scale 2 and 4, in bf16 and fp32, on a single tile, 1-row
 and 1-column grids, rows whose bytes are not a multiple of 16 and T up to
 576, with a frame and tiles that are not 16-byte aligned, and with no
 synchronizing call in ``finalize`` (``set_sync_debug_mode("error")``); kernel D equal to
-its plain twin and to the clamped pixel shuffle, byte for byte; kernel F
-(the int8/bf16 probe) at the probe's four shapes, int8 equal to its plain
-twin and bf16 within the float32 sum bound ``fp32_sum_bound``.
+its plain twin and to the clamped pixel shuffle, byte for byte, also with
+item counts that leave the last CTA partly idle and with NaN, infinities
+and -0.0 among the values; kernel F (the int8/bf16 probe) at the probe's
+four shapes, at the smallest tile (M 32), at N 96 and 288 and with A in
+registers and in shared memory, int8 equal to its plain twin and bf16
+within the float32 sum bound ``fp32_sum_bound``.
 """
 
 import numpy as np
@@ -301,6 +304,30 @@ def test_kernel_d_equals_plain(r, w, dtype):
     assert torch.equal(hp.pack_head_x16(shifted, r=r), got)
 
 
+@pytest.mark.parametrize("r,shape,dtype", [
+    (4, (1, 1, 4), torch.bfloat16), (4, (2, 3, 20), torch.bfloat16),
+    (4, (1, 7, 12), torch.float32), (2, (2, 3, 24), torch.bfloat16),
+    (2, (1, 5, 8), torch.float32), (4, (3, 37, 132), torch.bfloat16),
+])
+def test_kernel_d_ragged_work_units(r, shape, dtype):
+    """Item counts that are not a multiple of a CTA's threads x items
+    (the last CTA partly idle), single rows and widths down to one item,
+    and NaN, infinities and -0.0 among the values (NaN passes the clamp)."""
+    from waifu2x_tensorrt_tpu_torch.ops import head_pack as hp
+
+    rng = np.random.default_rng(sum(shape) + r)
+    z = torch.from_numpy(rng.uniform(-0.3, 1.3, (*shape, 3 * r * r))
+                         .astype(np.float32)).to("cuda", dtype)
+    flat = z.view(-1)
+    flat[::7] = float("nan")
+    flat[1::11] = float("inf")
+    flat[2::13] = -float("inf")
+    flat[3::17] = -0.0
+    got = hp.pack_head_x16(z, r=r)
+    want = hp.pack_head_plain(z, r)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
 def _finalize_case(frame_hw, scale, batch, dtype, seed=0):
     from waifu2x_tensorrt_tpu_torch.engine.config import (
         Precision,
@@ -541,3 +568,35 @@ def test_kernel_f_wrapper_checks():
     b_shifted = torch.zeros(96 * 32 + 8, dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError):  # b not 16-byte aligned
         mma_probe(a2, b_shifted[8:].view(96, 32), 1)
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 32, 32), (32, 96, 96),
+                                   (32, 1024, 288), (96, 160, 96),
+                                   (64, 64, 288), (32, 224, 64)])
+def test_kernel_f_small_tiles(m, k, n):
+    """The smallest tile (M 32: half of wgmma's 64 rows are zero padding
+    and not stored), N 96 and 288, and K on both sides of the register-A
+    limit of 512 bytes a row (A in registers up to bf16 K 224 and int8 K
+    160 here, from shared memory at bf16 K 1024), with 1 to 64 k steps a
+    product, at R 0, 1, 2 and 5."""
+    from waifu2x_tensorrt_tpu_torch.ops.mma_probe import (
+        fp32_sum_bound,
+        mma_probe,
+        mma_probe_plain,
+    )
+    from waifu2x_tensorrt_tpu_torch.probes.int8_probe import (
+        make_inputs,
+        stack2,
+    )
+
+    a8, b8, abf, bbf = make_inputs(m, k, n, np.random.default_rng(m * k + n),
+                                   "cuda")
+    for a, b in ((a8, b8), (abf, bbf)):
+        for reps in (0, 1, 2, 5):
+            got = mma_probe(stack2(a), b, reps)
+            want = mma_probe_plain(stack2(a), b, reps)
+            if a.dtype == torch.int8:
+                assert torch.equal(got, want)
+            else:
+                err = (got - want).abs().max().item()
+                assert err <= fp32_sum_bound(a, b), err

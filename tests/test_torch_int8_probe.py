@@ -213,3 +213,138 @@ def test_probe_main_needs_a_gpu(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert int8_probe.main([]) != 0
     assert "no CUDA device" in capsys.readouterr().err
+
+
+# kernel F's CTA tile and shared-memory layout (csrc/mma_probe.cu,
+# csrc/wgmma.cuh): 64 x 32 tiles, K-major operands in 128-byte-swizzled
+# column blocks of 128 bytes of K; A in registers up to REG_A_KBYTES bytes
+# of K a row
+BM, BN = 64, 32
+REG_A_KBYTES = 512
+
+
+def _sw128_offset(row, kbyte, rows):
+    """wgmma.cuh ``sw128_offset``: where the kernel stores (row, kbyte)."""
+    return ((kbyte >> 7) * rows * 128 + row * 128
+            + ((((kbyte >> 4) & 7) ^ (row & 7)) << 4) + (kbyte & 15))
+
+
+def _wgmma_read(smem, base, rows, kb):
+    """The operand (rows x kb bytes) that wgmma reads, k step by k step,
+    through the descriptors of csrc/mma_probe.cu: step s starts at
+    base + (s // 4) * rows * 128 + (s % 4) * 32; row r's 32 bytes lie at
+    start + (r // 8) * 1024 (SBO) + (r % 8) * 128, and the hardware's
+    128-byte swizzle XORs address bits 7-9 into bits 4-6."""
+    out = np.zeros((rows, kb), np.uint8)
+    r = np.arange(rows)[:, None]
+    j = np.arange(32)[None, :]
+    for s in range(kb // 32):
+        start = base + (s // 4) * rows * 128 + (s % 4) * 32
+        addr = start + (r // 8) * 1024 + (r % 8) * 128 + j
+        out[:, 32 * s:32 * s + 32] = smem[addr ^ (((addr >> 7) & 7) << 4)]
+    return out
+
+
+def _fragment_map():
+    """wgmma.cuh's m64n32 accumulator map: (thread, value) -> (row, col)."""
+    t, i = np.meshgrid(np.arange(128), np.arange(BM * BN // 128),
+                       indexing="ij")
+    warp, g, q = t // 32, (t % 32) // 4, t % 4
+    return 16 * warp + g + 8 * ((i // 2) % 2), 8 * (i // 4) + 2 * q + i % 2
+
+
+def _register_a(slab_a):
+    """A's register fragments (wgmma.cuh ``MmaRegA``): thread t (warp w,
+    lane 4 g + q), k step s, register j holds the 4 bytes at 32 s +
+    16 (j // 2) + 4 q of row 16 w + g + 8 (j % 2). Returns the 64 x kb
+    operand they hold; each byte must be held exactly once."""
+    kb = slab_a.shape[1]
+    got = np.zeros_like(slab_a)
+    held = np.zeros(slab_a.shape, np.int32)
+    t, s, j, i = np.meshgrid(np.arange(128), np.arange(kb // 32),
+                             np.arange(4), np.arange(4), indexing="ij")
+    row = 16 * (t // 32) + (t % 32) // 4 + 8 * (j % 2)
+    col = 32 * s + 16 * (j // 2) + 4 * (t % 4) + i
+    got[row, col] = slab_a[row, col]
+    np.add.at(held, (row.reshape(-1), col.reshape(-1)), 1)
+    assert (held == 1).all()
+    return got
+
+
+def _tile_emulation(a, b, reps):
+    """numpy replay of kernel F on a (M, K) and b (K, N), int8 or bf16 (as
+    torch tensors): each 64 x 32 CTA tile stages its B^T slab, and its A
+    slab (rows past M zero) unless A fits in registers, at the kernel's
+    swizzled addresses, which must all differ; wgmma reads them back by
+    the descriptors (A otherwise from its register fragments); the tile's
+    product (exact, in float64) goes through the carry R times and out by
+    the fragment map, which must cover the output exactly once."""
+    m, k = a.shape
+    n = b.shape[1]
+    itemsize = a.element_size()
+    raw_a = a.contiguous().view(torch.uint8).numpy().reshape(m, -1)
+    raw_b = b.contiguous().view(torch.uint8).numpy().reshape(k, n, itemsize)
+    kb = k * itemsize
+    kpad = -(-kb // 128) * 128
+    out = np.zeros((m, n), np.float64)
+    hits = np.zeros((m, n), np.int32)
+    rows, cols = _fragment_map()
+    kbyte = np.arange(kb)
+    for m0 in range(0, m, BM):
+        for n0 in range(0, n, BN):
+            smem = np.zeros((BM + BN) * kpad, np.uint8)
+            owner = np.zeros(smem.shape, np.int32)
+            slab_a = np.zeros((BM, kb), np.uint8)
+            slab_a[:min(BM, m - m0)] = raw_a[m0:m0 + BM]
+            addr = _sw128_offset(np.arange(BM)[:, None], kbyte[None, :], BM)
+            smem[addr] = slab_a
+            np.add.at(owner, addr.reshape(-1), 1)
+            # B^T: (n, kbyte) holds byte kbyte % itemsize of b[kbyte // is, n]
+            bt = raw_b[:, n0:n0 + BN].transpose(1, 0, 2).reshape(BN, kb)
+            addr = BM * kpad + _sw128_offset(np.arange(BN)[:, None],
+                                             kbyte[None, :], BN)
+            smem[addr] = bt
+            np.add.at(owner, addr.reshape(-1), 1)
+            assert owner.max() == 1 and owner.sum() == (BM + BN) * kb
+            ra = (_register_a(slab_a) if kb <= REG_A_KBYTES
+                  else _wgmma_read(smem, 0, BM, kb))
+            rb = _wgmma_read(smem, BM * kpad, BN, kb)
+            assert np.array_equal(ra, slab_a) and np.array_equal(rb, bt)
+            to = torch.int8 if itemsize == 1 else torch.bfloat16
+            ta = torch.from_numpy(ra.copy()).view(to).double().numpy()
+            tb = torch.from_numpy(rb.copy()).view(to).double().numpy()
+            d = ta @ tb.T  # the tile's product, exact in float64
+            acc = np.zeros_like(d)
+            for _ in range(reps):
+                acc = (d + np.floor(acc / 2.0 ** 31) if itemsize == 1
+                       else d + acc * 0)
+            keep = m0 + rows < m
+            out[m0 + rows[keep], n0 + cols[keep]] = acc[rows[keep],
+                                                        cols[keep]]
+            np.add.at(hits, (m0 + rows[keep], n0 + cols[keep]), 1)
+    assert (hits == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(32, 32, 32), (64, 96, 96), (96, 160, 64),
+                                   (128, 64, 96), (32, 96, 64),
+                                   (64, 320, 32), (32, 640, 64)])
+def test_kernel_layout_and_fragments_match_plain(dtype, m, k, n):
+    """Kernel F's shared-memory layout, descriptor reads, register
+    fragments of A and accumulator map, replayed in numpy
+    (``_tile_emulation``), give the plain twin's result: int8 equal, bf16
+    within ``fp32_sum_bound`` (the replay sums exactly); M = 32 leaves half
+    a tile of zero rows, K 160 in int8 steps across a 128-byte column
+    block, and K 320 and 640 in bf16 (640 in int8) put A in shared
+    memory."""
+    a8, b8, abf, bbf = int8_probe.make_inputs(m, k, n,
+                                              np.random.default_rng(m + k))
+    a, b = (a8, b8) if dtype == "int8" else (abf, bbf)
+    for reps in (1, 3):
+        got = _tile_emulation(a, b, reps)
+        want = mma_probe_plain(int8_probe.stack2(a), b, reps).double().numpy()
+        if dtype == "int8":
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert np.abs(got - want).max() <= fp32_sum_bound(a, b)

@@ -1,4 +1,4 @@
-"""Times of kernels A to E through their wrappers on one NVIDIA GPU, by
+"""Times of kernels A to F through their wrappers on one NVIDIA GPU, by
 ``chip_smoke.py``'s method, from this or another version of the package.
 
     python3 tools/kernel_times.py [--root DIR]
@@ -15,7 +15,13 @@ shapes, each beside its bound and its share of it:
 - B in bf16 on prepared operands at both shapes;
 - C on the 720p -> 4x plan, alone (``finalize_gather`` on a table built
   once) and through the wrapper per call (table upload included); D in
-  bf16 at r 4, (16, 256, 256, 48).
+  bf16 at r 4, (16, 256, 256, 48), beside the chain of library calls
+  ``chip_smoke._head_pack_chain`` (clamp, ``pixel_shuffle`` and two
+  permutes, D's exact bytes; a yardstick the port never calls);
+- F (the int8/bf16 probe) at the probe's ideal and qkv shapes, R 2048,
+  bf16 and int8, by the probe's method (``int8_probe.time_call``), each
+  with its share of the dense peak, beside R x one bf16 ``matmul`` / one
+  ``_int_mm`` (``int8_probe.library_calls``).
 
 It goes through the wrappers only, so ``--root DIR`` can import
 ``waifu2x_tensorrt_tpu_torch`` from an unpacked other version (``git
@@ -62,14 +68,15 @@ def main() -> int:
     print(f"card: {smi}; package from {Path(pkg.__file__).parents[1]}",
           flush=True)
 
-    def show(label, fn, work, yardstick=None):
+    def show(label, fn, work, yardstick=None, yard_name="SDPA"):
         ms = cs._median_ms(fn)
         bms, by = cs._bound(*work)
         line = (f"{label}: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
                 f"{100 * bms / ms:.1f}% of it)")
         if yardstick is not None:
             lm = cs._median_ms(yardstick)
-            line += f"; SDPA {lm:.4f} ms, kernel / SDPA {ms / lm:.2f}x"
+            line += (f"; {yard_name} {lm:.4f} ms, kernel / {yard_name} "
+                     f"{ms / lm:.2f}x")
         print(line, flush=True)
 
     for bw, c, nh in ((4096, 96, 3), (1024, 192, 6)):
@@ -111,7 +118,28 @@ def main() -> int:
     z = (torch.rand((16, 256, 256, 48), device="cuda") * 1.6
          - 0.3).bfloat16()
     show("kernel D bf16 r 4 (16, 256, 256, 48)",
-         lambda: hp.pack_head_x16(z, r=4), cs._head_pack_work(z))
+         lambda: hp.pack_head_x16(z, r=4), cs._head_pack_work(z),
+         lambda: cs._head_pack_chain(z, 4), "library chain")
+
+    import numpy as np
+    from waifu2x_tensorrt_tpu_torch.ops.mma_probe import mma_probe
+    from waifu2x_tensorrt_tpu_torch.probes import int8_probe as ip
+
+    rng = np.random.default_rng(0)  # the probe's draws, in its order
+    for name, m, k, n in ip.SHAPES[:2]:
+        a8, b8, abf, bbf = ip.make_inputs(m, k, n, rng, "cuda")
+        int_mm, mm = ip.library_calls(a8, b8, abf, bbf)
+        ops = 2.0 * m * k * n * ip.R
+        for label, a, b, lib, peak in (("bf16", abf, bbf, mm, ip.BF16_PEAK),
+                                       ("int8", a8, b8, int_mm,
+                                        ip.INT8_PEAK)):
+            a2 = ip.stack2(a)
+            ms = ip.time_call(lambda: mma_probe(a2, b, ip.R))
+            lm = ip.R * ip.time_call(lib)
+            print(f"kernel F {label} {name} R {ip.R}: {ms:.4f} ms "
+                  f"(bound {1e3 * ops / peak:.4f} ms by operations, "
+                  f"{100 * ops / (ms * 1e-3) / peak:.1f}% of the dense "
+                  f"peak); R x one library call {lm:.4f} ms", flush=True)
     return 0
 
 

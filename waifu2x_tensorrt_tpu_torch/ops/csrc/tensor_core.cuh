@@ -1,7 +1,8 @@
 // Warp-level tensor-core and async-copy primitives for sm_80+ (used by
-// kernel B's bf16 path and kernel F): ldmatrix fragment loads, mma.sync
-// m16n8k16 with bf16 operands and fp32 accumulators, mma.sync m16n8k32
-// with s8 operands and s32 accumulators, and 16-byte cp.async copies.
+// the bf16 paths of kernels A, B and E): ldmatrix fragment loads,
+// mma.sync m16n8k16 with bf16 operands and fp32 accumulators, and 16-byte
+// cp.async copies. The warpgroup (wgmma) primitives of sm_90a are in
+// wgmma.cuh.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), lane = 4 * g + t:
 //   A (16 x 16, row-major), 4 regs of 2 bf16: a0 = (row g, k 2t..2t+1),
@@ -50,22 +51,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b on the tensor cores (s8 operands, s32 accumulate), m16n8k32.
-// Fragments hold four s8 per register and cover the same bytes as the
-// bf16 ones above (PTX ISA, mma.m16n8k32 .s8): a0 = (row g, k 4t..4t+3),
-// a1 = row g+8, a2 = (row g, k 16+4t..), a3 = (row g+8, k 16+4t..);
-// b0 = (k 4t..4t+3, col g), b1 = (k 16+4t.., col g); C/D as for bf16. So
-// ldsm_x4 on a 32-byte k step of row-major A, or of B stored n-major (K
-// contiguous per column), gives them with the bf16 addressing.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -70,6 +70,34 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      its type fails (the work was skipped), and so does a time at R that
      is not 1.8-2.2x the time at R/2 (the products were not all run).
      The kernel times are those of the probe's run
+ 11. cunet/art at full width (the upstream architecture), with seeded
+     unit-scale weights read from a weight file (``_cunet_weights``; the
+     seed-0 init leaves the frame within 2 LSB of black), kernel C
+     finalizing every frame:
+     a. 2x noise 1, tile 256, batch 4, bf16 (bench.py config 1b): one
+        512 x 512 render, one launch of C; the bf16 frame within 0.02 x
+        255 of the card's fp32 frame (the bf16 rule's floor: the model
+        has no kernel with a plain twin), the card's fp32 frame against
+        the port's CPU fp32 render through the golden gate;
+     b. the whole frame as one 548 x 548 tile, batch 16, bf16, 32
+        streamed 512 x 512 frames (config 1c), output MP/s;
+     c. 1080p, tile 256, batch 16, bf16, 8 streamed frames (config 1d),
+        output MP/s; in (b) and (c) one launch of C a frame and one
+        streamed frame within 0.02 x 255 of its single-frame render;
+     d. the noise-only scale-1 CUNet, tile 256: one render, bf16 within
+        0.02 x 255 of fp32
+ 12. 8-way TTA and whole-frame swin_unet at full width, seed-0 weights:
+     a. swin_unet/art_scan 4x noise 3, tile 128, batch 8, bf16, TTA, 512 x
+        512 stills (config 3): one frame through B and C; the frame in
+        tf32 through B and C against the all-plain path (golden gate, as
+        6a); 8 streamed frames (200 steps each), output MP/s, B's and C's
+        launches, one frame held against its render as in phase 5;
+     b. rect TTA: the whole of a 136 x 200 frame, swin 2x, bf16, through
+        B and C; ``open_stream`` returns None for it;
+     c. the whole of a 200 x 136 frame (tile 0), swin 2x, tf32, against
+        the all-plain path (golden gate);
+     d. the dihedral transforms on card tensors: exact round trips, the
+        CPU's bytes
 
 Times are per call: the median over 10 samples, each the CUDA-event time
 of 10 calls in a row divided by 10 (kernel F's probe times its own
@@ -84,13 +112,15 @@ E; none for B, C and D; for F, R times one ``torch._int_mm`` or bf16
 
 Phase 5 runs with WAIFU2X_PACK_X unset (the default path). Launch counters
 are set to 0 just before phases 5, 7 and 9, phase 7's stream, E's API call
-of phase 8 and the probe's run of phase 10, and read just after each
-(phase 5: kernels B and C; phase 7: A; phase 8: E; phase 9: D, B and C;
-phase 10: F); each kernel must have launched in its run. The ``kernels``
-line counts A in phase 7's stream. Any failed check raises, so the script
-exits non-zero; the last line is the JSON device record, printed only
-when every phase passed. Without a CUDA
-device it exits non-zero before printing any result.
+of phase 8, the probe's run of phase 10 and each render or stream of
+phases 11 and 12, and read just after each (phase 5: kernels B and C;
+phase 7: A; phase 8: E; phase 9: D, B and C; phase 10: F; phase 11: C;
+phase 12: B and C); each kernel must have launched in its run. The
+``kernels`` line counts A in phase 7's stream, and B's and C's rows carry
+the counts of phases 11 and 12 as ``launches_*`` keys. Any failed check
+raises, so the script exits non-zero; the last line is the JSON device
+record, printed only when every phase passed. Without a CUDA device it
+exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -551,15 +581,27 @@ def _counters():
             "E": fused_window_attention, "F": mma_probe}
 
 
-def _load(torch, precision, fused_block=None, batch=16):
+def _upscaler(family, scale, noise, precision, tile, batch, tta=False,
+              models_dir=None, device="cuda:0", fused_block=None):
+    """An ``Upscaler`` loaded through its public ``load``: weights from
+    ``models_dir`` when given, else the seeded random init (seed 0)."""
     from waifu2x_tensorrt_tpu_torch.engine.config import RenderConfig
     from waifu2x_tensorrt_tpu_torch.engine.upscaler import Upscaler
 
-    up = Upscaler(allow_random_init=True, device="cuda:0")
-    cfg = RenderConfig(precision=precision, batch_size=batch, height=256,
-                       width=256, scaling=4, overlap=(1 / 16, 1 / 16))
-    up.load("swin_unet/art", 4, 3, cfg, fused_block=fused_block)
+    up = Upscaler(models_dir=models_dir or "models",
+                  allow_random_init=models_dir is None, device=device)
+    cfg = RenderConfig(precision=precision, batch_size=batch, height=tile,
+                       width=tile, scaling=scale, overlap=(1 / 16, 1 / 16),
+                       tta=tta)
+    up.load(family, scale, noise, cfg, fused_block=fused_block)
     return up
+
+
+def _load(torch, precision, fused_block=None, batch=16):
+    """The flagship cell's ``Upscaler`` (swin_unet/art 4x noise 3, tile
+    256), seeded random weights."""
+    return _upscaler("swin_unet/art", 4, 3, precision, 256, batch,
+                     fused_block=fused_block)
 
 
 def _golden_gate(got, want, max_frac=1e-4):
@@ -1108,6 +1150,266 @@ def phase_kernel_f(torch, smi, report):
     return n10
 
 
+def _cunet_weights(scale, noise, seed):
+    """A models directory under build/ holding seeded unit-scale cunet
+    weights (``_unit_scale_params``: kernels N(0, 1/fan_in), biases
+    N(0, 0.1)) as the ``.npz`` file ``Upscaler.load`` reads. The seed-0
+    init keeps cunet's frame within 2 LSB of black; these weights give it
+    content."""
+    import numpy as np
+
+    from waifu2x_tensorrt_tpu_torch.models import registry
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_models")
+    module, _ = registry.create_model("cunet/art", scale, noise)
+    path = registry.weights_path(root, "cunet/art", scale, noise)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **_unit_scale_params(module, seed))
+    return root
+
+
+def _stream_run(torch, up, frames):
+    """Warm a stream of the frames' geometry, zero the counters, stream
+    the frames; returns (outputs, seconds, launch counts)."""
+    stream = up.open_stream(frames[0].shape[:2])
+    stream.warm()
+    torch.cuda.synchronize()
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    outs = []
+    for f in frames:
+        outs.extend(stream.submit(f))
+    outs.extend(stream.flush())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return outs, dt, {k: f.launches for k, f in counters.items()}
+
+
+def _check_stream(label, up, outs, frames, k, out_hw, bf16_rule=False):
+    """Every streamed output has the frame's output shape, and frame k's
+    equals its single-frame render within the phase-5 gate (max 2 LSB, at
+    most 1e-3 of the values changed), or with ``bf16_rule`` within the bf16
+    rule's floor, 0.02 x 255 in u8: with weights that give the frame its
+    full range, the other bf16 convolution algorithms cuDNN picks for the
+    render's remainder chunk move many values by an LSB or two, while a
+    misplaced tile moves whole regions by far more."""
+    if len(outs) != len(frames) or any(tuple(o.shape) != (*out_hw, 3)
+                                       for o in outs):
+        raise AssertionError(f"{label} stream returned wrong outputs")
+    got, want = outs[k].cpu().numpy(), up.render(frames[k])
+    ok, dmax, frac = _golden_gate(got, want, max_frac=1e-3)
+    tol = "2, changed fraction tol 1e-03"
+    if bf16_rule:
+        ok, tol = dmax <= 0.02 * 255, "0.02 x 255"
+    print(f"  {label} streamed frame {k} vs its single-frame render: max "
+          f"{dmax} (tol {tol}), changed fraction {frac:.2e}: "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: streamed frame differs from its "
+                             "render")
+
+
+def phase_cunet(torch, smi, report):
+    """Phase 11: cunet/art at full width (the upstream architecture) on
+    512 x 512 stills and 1080p frames; returns kernel C's launch counts
+    of (a)-(d)."""
+    import numpy as np
+
+    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
+
+    rng = np.random.default_rng(11)
+    frame = rng.integers(0, 256, (512, 512, 3), np.uint8)
+    root = _cunet_weights(2, 1, seed=11)
+    counts = {}
+
+    # a. tile 256, batch 4, bf16 (bench.py config 1b): one render, one
+    # launch of kernel C; the bf16 frame against the card's fp32 frame (TF32
+    # off), the card's fp32 frame against the port's CPU fp32 render
+    up16 = _upscaler("cunet/art", 2, 1, Precision.FP16, 256, 4,
+                     models_dir=root)
+    counters = _zero_counters()
+    out16 = up16.render(frame)
+    n = {k: f.launches for k, f in counters.items()}
+    counts["a"] = n["C"]
+    out32 = _upscaler("cunet/art", 2, 1, Precision.TF32, 256, 4,
+                      models_dir=root).render(frame)
+    t0 = time.perf_counter()
+    cpu32 = _upscaler("cunet/art", 2, 1, Precision.TF32, 256, 4,
+                      models_dir=root, device="cpu").render(frame)
+    cpu_s = time.perf_counter() - t0
+    e16 = int(np.abs(out16.astype(int) - out32.astype(int)).max())
+    ok32, dmax, frac = _golden_gate(out32, cpu32)
+    print(f"  phase 11a cunet 2x t256 b4 bf16 render 512^2 -> {out16.shape} "
+          f"(mean {out16.mean():.3f}, std {out16.std():.3f}): launch counts "
+          f"{n}; bf16 vs card fp32 max {e16} LSB (tol 0.02 x 255); card fp32 "
+          f"vs CPU fp32 ({cpu_s:.1f} s) max {dmax} (tol 2), changed "
+          f"fraction {frac:.2e} (tol 1e-04): "
+          f"{'ok' if ok32 and e16 <= 0.02 * 255 else 'FAIL'}", flush=True)
+    if n["C"] != 1 or any(n[k] for k in "ABDEF"):
+        raise AssertionError(f"phase 11a: not one launch of kernel C: {n}")
+    if out16.shape != (1024, 1024, 3) or e16 > 0.02 * 255 or not ok32:
+        raise AssertionError("phase 11a: the cunet frame disagrees")
+
+    # b. the whole frame as one tile (548 x 548 in, 1024 x 1024 out),
+    # batch 16, bf16, 32 streamed frames (config 1c)
+    up = _upscaler("cunet/art", 2, 1, Precision.FP16, 0, 16,
+                   models_dir=root)
+    frames = [rng.integers(0, 256, (512, 512, 3), np.uint8)
+              for _ in range(32)]
+    outs, dt, n = _stream_run(torch, up, frames)
+    counts["b"] = n["C"]
+    mps_b = len(frames) * 1024 * 1024 / dt / 1e6
+    print(f"  phase 11b cunet 2x whole-frame b16 bf16 stream: 32 frames of "
+          f"512^2 in {dt:.3f} s = {mps_b:.2f} output MP/s on {smi}; launch "
+          f"counts {n}", flush=True)
+    if n["C"] != len(frames):
+        raise AssertionError(f"phase 11b: not one launch of C a frame: {n}")
+    _check_stream("phase 11b", up, outs, frames, 5, (1024, 1024),
+                  bf16_rule=True)
+
+    # c. 1080p, tile 256, batch 16, bf16, 8 streamed frames (config 1d)
+    up = _upscaler("cunet/art", 2, 1, Precision.FP16, 256, 16,
+                   models_dir=root)
+    frames = [rng.integers(0, 256, (1080, 1920, 3), np.uint8)
+              for _ in range(8)]
+    outs, dt, n = _stream_run(torch, up, frames)
+    counts["c"] = n["C"]
+    tiles = up._pipeline.get((1080, 1920))[2].tile_count
+    mps_c = len(frames) * 2160 * 3840 / dt / 1e6
+    print(f"  phase 11c cunet 2x 1080p t256 b16 bf16 stream ({tiles} tiles "
+          f"a frame): 8 frames in {dt:.3f} s = {mps_c:.2f} output MP/s on "
+          f"{smi}; launch counts {n}", flush=True)
+    if n["C"] != len(frames):
+        raise AssertionError(f"phase 11c: not one launch of C a frame: {n}")
+    _check_stream("phase 11c", up, outs, frames, 3, (2160, 3840),
+                  bf16_rule=True)
+
+    # d. noise-only scale-1 CUNet, tile 256
+    root1 = _cunet_weights(1, 1, seed=12)
+    counters = _zero_counters()
+    o16 = _upscaler("cunet/art", 1, 1, Precision.FP16, 256, 4,
+                    models_dir=root1).render(frame)
+    n = {k: f.launches for k, f in counters.items()}
+    counts["d"] = n["C"]
+    o32 = _upscaler("cunet/art", 1, 1, Precision.TF32, 256, 4,
+                    models_dir=root1).render(frame)
+    e16 = int(np.abs(o16.astype(int) - o32.astype(int)).max())
+    print(f"  phase 11d cunet 1x t256 b4 bf16 render 512^2 -> {o16.shape} "
+          f"(mean {o16.mean():.3f}): launch counts {n}; bf16 vs fp32 max "
+          f"{e16} LSB (tol 0.02 x 255)", flush=True)
+    if o16.shape != (512, 512, 3) or n["C"] != 1 or e16 > 0.02 * 255:
+        raise AssertionError("phase 11d: the scale-1 cunet frame disagrees")
+    report["cunet"] = {"whole_frame_b16_output_mp_per_s": mps_b,
+                       "t256_1080p_b16_output_mp_per_s": mps_c}
+    return counts
+
+
+def phase_tta_whole_frame(torch, smi, report):
+    """Phase 12: 8-way TTA and whole-frame swin at full width; returns the
+    launch counts of B and C in (a)'s stream, (b) and (c)."""
+    import numpy as np
+
+    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
+    from waifu2x_tensorrt_tpu_torch.tiling import (
+        DIHEDRAL_SIZE,
+        dihedral_apply,
+        dihedral_inverse,
+    )
+
+    rng = np.random.default_rng(12)
+    counts = {}
+
+    # a. swin_unet/art_scan 4x noise 3, tile 128, batch 8, bf16, TTA
+    # (bench.py config 3): one 512^2 frame through B and C; in fp32 (as
+    # phase 6a) the same frame through B and C against the all-plain path
+    frame = rng.integers(0, 256, (512, 512, 3), np.uint8)
+    args = ("swin_unet/art_scan", 4, 3)
+    up = _upscaler(*args, Precision.FP16, 128, 8, tta=True)
+    counters = _zero_counters()
+    out = up.render(frame)
+    n = {k: f.launches for k, f in counters.items()}
+    print(f"  phase 12a art_scan 4x t128 b8 bf16 TTA render 512^2 -> "
+          f"{out.shape}: launch counts {n}", flush=True)
+    if out.shape != (2048, 2048, 3) or n["B"] <= 0 or n["C"] != 1:
+        raise AssertionError(f"phase 12a: render did not run B and C: {n}")
+    got = _upscaler(*args, Precision.TF32, 128, 8, tta=True).render(frame)
+    with _swin_block_as(_plain_prepared, plain_finalize=True):
+        want = _upscaler(*args, Precision.TF32, 128, 8,
+                         tta=True).render(frame)
+    ok, dmax, frac = _golden_gate(got, want)
+    print(f"  phase 12a tf32 TTA frame, kernel path vs all-plain path: max "
+          f"{dmax} (tol 2), changed fraction {frac:.2e} (tol 1e-04), mean "
+          f"{got.mean():.3f}: {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("phase 12a: TTA golden gate failed")
+    frames = [rng.integers(0, 256, (512, 512, 3), np.uint8)
+              for _ in range(8)]
+    outs, dt, n = _stream_run(torch, up, frames)
+    counts["a"] = n
+    steps = 8 * up._pipeline.get((512, 512))[2].tile_count
+    mps = len(frames) * 2048 * 2048 / dt / 1e6
+    print(f"  phase 12a TTA stream: 8 frames ({steps} steps a frame) in "
+          f"{dt:.3f} s = {mps:.2f} output MP/s on {smi}; launch counts {n}",
+          flush=True)
+    if n["B"] <= 0 or n["C"] != len(frames):
+        raise AssertionError(f"phase 12a stream did not run B and C: {n}")
+    _check_stream("phase 12a", up, outs, frames, 2, (2048, 2048))
+    report["tta"] = {"output_mp_per_s": mps, "seconds_8_frames": dt}
+
+    # b. rect TTA: whole frame of a non-square frame, swin 2x (two tile
+    # orientations a frame, so no stream)
+    rect = rng.integers(0, 256, (136, 200, 3), np.uint8)
+    up = _upscaler("swin_unet/art", 2, -1, Precision.FP16, 0, 4, tta=True)
+    counters = _zero_counters()
+    out = up.render(rect)
+    n = {k: f.launches for k, f in counters.items()}
+    counts["b"] = n
+    stream = up.open_stream((136, 200))
+    print(f"  phase 12b rect-TTA whole-frame render 136x200 -> {out.shape}: "
+          f"launch counts {n}; open_stream -> {stream}", flush=True)
+    if (out.shape != (272, 400, 3) or n["B"] <= 0 or n["C"] != 1
+            or stream is not None):
+        raise AssertionError("phase 12b: rect-TTA render or stream refusal "
+                             "failed")
+
+    # c. whole frame (tile 0) swin 2x of 200x136, against the plain path
+    tall = rng.integers(0, 256, (200, 136, 3), np.uint8)
+    counters = _zero_counters()
+    got = _upscaler("swin_unet/art", 2, -1, Precision.TF32, 0,
+                    4).render(tall)
+    n = {k: f.launches for k, f in counters.items()}
+    counts["c"] = n
+    with _swin_block_as(_plain_prepared, plain_finalize=True):
+        want = _upscaler("swin_unet/art", 2, -1, Precision.TF32, 0,
+                         4).render(tall)
+    ok, dmax, frac = _golden_gate(got, want)
+    print(f"  phase 12c whole-frame tf32 render 200x136 -> {got.shape}, "
+          f"launch counts {n}; vs all-plain path: max {dmax} (tol 2), "
+          f"changed fraction {frac:.2e} (tol 1e-04): "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if got.shape != (400, 272, 3) or n["B"] <= 0 or n["C"] != 1 or not ok:
+        raise AssertionError("phase 12c: whole-frame render disagrees")
+
+    # d. the dihedral transforms on card tensors: the round trip is exact
+    # and each transform moves the bytes the CPU's does
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((8, 64, 64, 3), (8, 48, 80, 3)):
+            x = torch.randn(shape, generator=torch.Generator().manual_seed(0)
+                            ).to(dtype)
+            xc = x.cuda()
+            for i in range(DIHEDRAL_SIZE):
+                fwd = dihedral_apply(xc, i)
+                if not (torch.equal(dihedral_inverse(fwd, i), xc)
+                        and torch.equal(fwd.cpu(), dihedral_apply(x, i))):
+                    raise AssertionError(f"phase 12d: dihedral {i} on "
+                                         f"{dtype} {shape} is not exact")
+    print("  phase 12d dihedral apply/inverse on card tensors: exact round "
+          "trip, equal to the CPU's, 8 transforms x bf16/fp32 x square/rect",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     torch = _require_cuda()
@@ -1148,6 +1450,19 @@ def main() -> int:
     n9 = phase_packed_x(torch, smi, report, out5)
     print("phase 10 kernel F (int8/bf16 mma probe) vs plain:", flush=True)
     n10 = phase_kernel_f(torch, smi, report)
+    print("phase 11 cunet/art 2x and 1x, full width:", flush=True)
+    n11 = phase_cunet(torch, smi, report)
+    print("phase 12 TTA and whole-frame swin_unet, full width:", flush=True)
+    n12 = phase_tta_whole_frame(torch, smi, report)
+    # launch counts of the new paths, as extra keys on B's and C's rows
+    report["C"].update(
+        launches_cunet_t256_still=n11["a"],
+        launches_cunet_whole_frame=n11["b"], launches_cunet_1080p=n11["c"],
+        launches_cunet_1x=n11["d"], launches_tta=n12["a"]["C"],
+        launches_rect_tta=n12["b"]["C"], launches_whole_frame=n12["c"]["C"])
+    report["B"].update(
+        launches_tta=n12["a"]["B"], launches_rect_tta=n12["b"]["B"],
+        launches_whole_frame=n12["c"]["B"])
 
     src = "waifu2x_tensorrt_tpu_torch/ops/csrc/"
     main_run = ("phase 5: main path, fused_block=True, bf16, tile 256, "
@@ -1188,7 +1503,7 @@ def main() -> int:
                 **{key: value for key, value in report[k].items()
                    if key.startswith(("library_chain", "fp32_", "bf16_",
                                       "c192_", "gate_", "wrapper_",
-                                      "queued_"))}}
+                                      "queued_", "launches_"))}}
                for k in ("A", "B", "C", "D", "E", "F")]
     print(smi)
     print(json.dumps({"kernels": kernels}))

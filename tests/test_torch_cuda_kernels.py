@@ -18,7 +18,14 @@ to the scan, with whole chunks and TileStream pieces that start
 mid-chunk, at scale 2 and 4, in bf16 and fp32, on a single tile, 1-row
 and 1-column grids, rows whose bytes are not a multiple of 16 and T up to
 576, with a frame and tiles that are not 16-byte aligned, and with no
-synchronizing call in ``finalize`` (``set_sync_debug_mode("error")``); kernel D equal to
+synchronizing call in ``finalize`` (``set_sync_debug_mode("error")``);
+kernel C on the plans of cunet (tile 256: stride 408, tile 440, a canvas
+larger than the frame), of whole-frame tiles (T = 1) and of TTA (the fp32
+mean of the 8 inverses), byte-identical to the CPU's finalize of the same
+outputs; a cunet bf16 render on the card against the CPU's fp32 render
+within 0.02 x 255 in u8; swin renders of tiles the model pads inside
+(whole frame, tile 400) on the card against the CPU's, golden gate;
+kernel D equal to
 its plain twin and to the clamped pixel shuffle, byte for byte, also with
 item counts that leave the last CTA partly idle and with NaN, infinities
 and -0.0 among the values; kernel F (the int8/bf16 probe) at the probe's
@@ -417,6 +424,138 @@ def test_kernel_c_unaligned_frame_and_tiles(dtype):
                         dtype == torch.bfloat16)
         assert torch.equal(out, want)
         assert not frame[:5].any()
+
+
+def _slice_case(family, scale, tile, frame_hw, batch, dtype, tta=False,
+                seed=0):
+    """Kernel C's finalize of one geometry of this slice (cunet tiles,
+    whole frame, TTA) on the card and the same finalize on the CPU (the
+    plain scan, after the same TTA mean), with seeded model outputs."""
+    from waifu2x_tensorrt_tpu_torch.engine.config import (
+        Precision,
+        RenderConfig,
+    )
+    from waifu2x_tensorrt_tpu_torch.engine.renderer import make_chunked_fns
+    from waifu2x_tensorrt_tpu_torch.models.registry import get_spec
+
+    cfg = RenderConfig(precision=Precision.FP16, batch_size=batch,
+                       height=tile, width=tile, scaling=scale,
+                       overlap=(1 / 16, 1 / 16), tta=tta)
+    spec = get_spec(family, scale, 1)
+    prep, fin, plan, sizes = make_chunked_fns(spec, cfg, frame_hw, "cuda")
+    _p, fin_cpu, _plan, _s = make_chunked_fns(spec, cfg, frame_hw, "cpu")
+    frame = torch.zeros((*frame_hw, 3), dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(seed)
+    # the chunk shapes prepare gives, as the model's outputs would be
+    # (rect TTA: the transposed group at (ow, oh))
+    oh, ow = plan.output_tile
+    outs = []
+    for c in prep(frame):
+        shape = (oh, ow) if c.shape[1] == plan.input_tile[0] else (ow, oh)
+        outs.append(torch.from_numpy(
+            rng.random((c.shape[0], *shape, 3), np.float32)).to("cuda",
+                                                               dtype))
+    return fin, fin_cpu, plan, outs
+
+
+@pytest.mark.parametrize("family,scale,tile,frame_hw,batch,dtype,tta", [
+    # cunet 2x t256 on 512^2: 3 x 3 tiles, stride 408, tile 440, the
+    # canvas (1256^2) larger than the frame (1024^2)
+    ("cunet/art", 2, 256, (512, 512), 4, torch.bfloat16, False),
+    ("cunet/art", 2, 256, (512, 512), 4, torch.float32, False),
+    ("cunet/art", 1, 256, (300, 500), 4, torch.bfloat16, False),
+    # whole frame (T 1): the output is the canvas at 512^2, cropped from
+    # it at other sizes
+    ("cunet/art", 2, 0, (512, 512), 1, torch.bfloat16, False),
+    ("cunet/art", 2, 0, (301, 203), 1, torch.float32, False),
+    ("swin_unet/art", 2, 0, (40, 56), 1, torch.bfloat16, False),
+    # TTA: the fp32 mean of the 8 inverses as one chunk
+    ("swin_unet/art", 4, 64, (100, 70), 8, torch.bfloat16, True),
+    ("swin_unet/art", 2, 64, (61, 131), 5, torch.float32, True),
+    ("swin_unet/art", 2, 0, (36, 52), 3, torch.bfloat16, True),  # rect
+])
+def test_kernel_c_on_this_slices_plans(family, scale, tile, frame_hw, batch,
+                                       dtype, tta):
+    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
+        finalize_gather,
+    )
+
+    fin, fin_cpu, plan, outs = _slice_case(family, scale, tile, frame_hw,
+                                           batch, dtype, tta)
+    want = fin_cpu(*(o.cpu() for o in outs))
+    before = finalize_gather.launches
+    got = fin(*outs)
+    assert finalize_gather.launches == before + 1
+    assert tuple(got.shape) == (frame_hw[0] * scale, frame_hw[1] * scale, 3)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_cunet_bf16_render_against_cpu_fp32():
+    """A cunet 2x render in bf16 on the card (convs on cuDNN, kernel C)
+    against the port's fp32 render on the CPU, by the bf16 rule's floor:
+    at most 0.02 x 255 in u8 (the model has no kernel whose plain bf16
+    twin could set a tighter bound). Seeded unit-scale weights (kernels
+    N(0, 1/fan_in), biases N(0, 0.1)) give the frame content."""
+    from waifu2x_tensorrt_tpu_torch.engine.config import (
+        Precision,
+        RenderConfig,
+    )
+    from waifu2x_tensorrt_tpu_torch.engine.renderer import ChunkedPipeline
+    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
+        finalize_gather,
+    )
+    from waifu2x_tensorrt_tpu_torch.models import registry
+
+    frame = np.random.default_rng(3).integers(0, 256, (100, 90, 3), np.uint8)
+    flat = None
+    renders = {}
+    for dtype, device in ((torch.bfloat16, "cuda"), (torch.float32, "cpu")):
+        module, spec = registry.create_model("cunet/art", 2, 1, dtype=dtype,
+                                             device=device)
+        if flat is None:
+            flat = {k: (v / (0.02 * np.sqrt(np.prod(v.shape[:-1])))
+                        if k.endswith("/kernel") else 5 * v)
+                    for k, v in registry.init_params(module, 1).items()}
+        registry.load_into(module, flat)
+        cfg = RenderConfig(
+            precision=(Precision.FP16 if dtype == torch.bfloat16
+                       else Precision.TF32),
+            batch_size=4, height=64, width=64, scaling=2,
+            overlap=(1 / 16, 1 / 16))
+        before = finalize_gather.launches
+        renders[device] = ChunkedPipeline(module, spec, cfg, device).render(
+            frame).cpu().numpy().astype(int)
+        assert finalize_gather.launches == before + (device == "cuda")
+    assert renders["cpu"].std() > 10  # the frame has content
+    assert np.abs(renders["cuda"] - renders["cpu"]).max() <= 0.02 * 255
+
+
+@pytest.mark.parametrize("tile,hw", [(0, (40, 56)), (400, (120, 104))])
+def test_swin_padded_tiles_render_on_card(tile, hw):
+    """Tiles that are not a multiple of 32 (whole frame, tile 400): the
+    model pads them inside and crops its output, which kernel C then reads
+    by address. fp32 on the card (kernels B and C) against the CPU render,
+    golden gate (max 2 LSB, at most 1e-4 of the values changed)."""
+    from waifu2x_tensorrt_tpu_torch.engine.config import (
+        Precision,
+        RenderConfig,
+    )
+    from waifu2x_tensorrt_tpu_torch.engine.renderer import ChunkedPipeline
+    from waifu2x_tensorrt_tpu_torch.models import registry
+
+    cfg = RenderConfig(precision=Precision.TF32, batch_size=2, height=tile,
+                       width=tile, scaling=2, overlap=(1 / 16, 1 / 16))
+    frame = np.random.default_rng(5).integers(0, 256, (*hw, 3), np.uint8)
+    renders = []
+    for device, fused in (("cuda", True), ("cpu", False)):
+        module, spec = registry.create_model(
+            "swin_unet/art", 2, -1, fused_block=fused, device=device,
+            base_dim=32, depths=(1, 1, 2, 1, 1))
+        registry.load_into(module, registry.init_params(module, seed=0))
+        renders.append(ChunkedPipeline(module, spec, cfg, device).render(
+            frame).cpu().numpy().astype(int))
+    diff = np.abs(renders[0] - renders[1])
+    assert diff.max() <= 2 and (diff > 0).mean() <= 1e-4
 
 
 def test_kernel_c_finalize_makes_no_synchronizing_call():

@@ -58,3 +58,16 @@ def test_bf16_forward_runs_in_bf16():
         y = module(torch.rand(1, 32, 32, 3))
     assert y.dtype == torch.bfloat16 and y.shape == (1, 64, 64, 3)
     assert bool(torch.isfinite(y.float()).all())
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["pixel", "packed-x"])
+def test_padded_output_is_contiguous(packed):
+    """A tile that is not a multiple of 32 (whole-frame tiles, tile 400) is
+    edge-padded inside the model and cropped after decoding; the cropped
+    output is one contiguous batch, as kernel C's tile table needs."""
+    module, _ = treg.create_model("swin_unet/art", 2, -1,
+                                  packed_x_head=packed, **SMALL)
+    with torch.no_grad():
+        y = module(torch.rand(2, 40, 56, 3))
+    assert y.is_contiguous()
+    assert y.shape == ((2, 80, 7, 48) if packed else (2, 80, 112, 3))

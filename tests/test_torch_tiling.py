@@ -1,5 +1,8 @@
 """The port's tile planner equals the JAX package's, exactly, over the
-geometries of tests/test_tiling.py (and the flagship 720p -> 4x plan)."""
+geometries of tests/test_tiling.py (and the flagship 720p -> 4x plan),
+and so does its whole-frame plan; its dihedral TTA transforms equal the
+JAX package's on numpy for all 8 indices, square and rectangular, and
+round-trip exactly on torch tensors."""
 
 import dataclasses
 
@@ -79,3 +82,62 @@ def test_too_small_tile_raises_named_error():
     with pytest.raises(ValueError, match="too small"):
         torch_tiling.calculate_tiles((200, 200), (200, 200), (60, 60),
                                      (4, 4), 1, (1 / 16, 1 / 16))
+
+
+def test_dihedral_tables_equal_jax():
+    assert torch_tiling.DIHEDRAL_SIZE == jax_tiling.DIHEDRAL_SIZE == 8
+    assert (torch_tiling.DIHEDRAL_SHAPE_PRESERVING
+            == jax_tiling.DIHEDRAL_SHAPE_PRESERVING)
+    assert torch_tiling.DIHEDRAL_TRANSPOSING == jax_tiling.DIHEDRAL_TRANSPOSING
+    assert torch_tiling._DIHEDRAL_FWD == jax_tiling._DIHEDRAL_FWD
+
+
+@pytest.mark.parametrize("shape", [(5, 5, 3), (2, 5, 7, 3)],
+                         ids=["square", "rect-batch"])
+@pytest.mark.parametrize("index", range(8))
+def test_dihedral_equals_jax_and_round_trips_on_torch(shape, index):
+    import torch
+
+    img = np.random.default_rng(index).integers(0, 256, shape).astype(
+        np.float32)
+    want = jax_tiling.dihedral_apply(img, index)
+    got = torch_tiling.dihedral_apply(img, index)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(torch_tiling.dihedral_inverse(got, index),
+                                  jax_tiling.dihedral_inverse(want, index))
+    transposing = index in torch_tiling.DIHEDRAL_TRANSPOSING
+    hw = shape[-3:-1]
+    assert got.shape[-3:-1] == (hw[::-1] if transposing else hw)
+    t = torch.from_numpy(img).to(torch.bfloat16)
+    fwd = torch_tiling.dihedral_apply(t, index)
+    np.testing.assert_array_equal(fwd.float().numpy(), want)
+    back = torch_tiling.dihedral_inverse(fwd, index)
+    assert back.dtype == torch.bfloat16 and torch.equal(back, t)
+
+
+@pytest.mark.parametrize("family,scale,hw", [
+    ("cunet/art", 2, (48, 40)), ("cunet/art", 1, (37, 53)),
+    ("cunet/art", 2, (512, 512)), ("swin_unet/art", 2, (40, 56)),
+    ("swin_unet/art", 4, (33, 17)),
+])
+def test_whole_frame_plan_equals_jax(family, scale, hw):
+    """--tileSize 0: one tile holding the model's context, rounded up to
+    its tile divisor (cunet 2x on 512 x 512: a 548 x 548 tile)."""
+    from waifu2x_tensorrt_tpu.engine.config import RenderConfig as JCfg
+    from waifu2x_tensorrt_tpu.engine.renderer import (
+        resolve_tile_plan as jresolve,
+    )
+    from waifu2x_tensorrt_tpu.models.registry import get_spec as jspec
+    from waifu2x_tensorrt_tpu_torch.engine.config import RenderConfig
+    from waifu2x_tensorrt_tpu_torch.engine.renderer import resolve_tile_plan
+    from waifu2x_tensorrt_tpu_torch.models.registry import get_spec
+
+    kw = dict(height=0, width=0, scaling=scale, overlap=(1 / 16, 1 / 16))
+    got = resolve_tile_plan(get_spec(family, scale, 1), RenderConfig(**kw),
+                            hw)
+    _assert_plans_equal(got, jresolve(jspec(family, scale, 1), JCfg(**kw),
+                                      hw))
+    assert got.tile_count == 1
+    if hw == (512, 512):
+        assert got.input_tile == (548, 548)
+        assert got.output_tile == (1024, 1024) == got.canvas_size

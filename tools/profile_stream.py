@@ -1,28 +1,40 @@
-"""Profile the port's streamed flagship render on one NVIDIA GPU.
+"""Profile the port's streamed render of one cell on one NVIDIA GPU.
 
-    python3 tools/profile_stream.py [--frames 8] [--trace PATH] [--root DIR]
+    python3 tools/profile_stream.py [--cell NAME] [--frames 8]
+                                    [--trace PATH] [--root DIR]
 
-Loads swin_unet/art 4x noise 3, tile 256, batch 16, bf16 (the CLI's fp16)
-with seeded random weights through ``Upscaler`` (kernel B on every Swin
-block), opens a stream for 720p frames and runs its warm cycle. It first
-renders phase 5's first frame and streams ``chip_smoke.py`` phase 5's 10
-frames twice by phase 5's method (unprofiled, outputs kept, host clock
-ending in a synchronize; the method and frames are this checkout's, so
-``--root`` compares two versions by one method), then submits ``--frames`` seeded 720p frames and flushes under
-``torch.profiler`` (CPU and CUDA activities). Prints, after the card's
-name and power limit:
+Cells (``--cell``, bf16 (the CLI's fp16), seeded random weights, loaded
+through ``Upscaler``):
 
-- phase 5's streamed rate, two passes: ms for the 10 frames and output
+- ``flagship`` (default): swin_unet/art 4x noise 3, tile 256, batch 16,
+  720p frames (kernel B on every Swin block);
+- ``cunet-whole-frame``: cunet/art 2x noise 1, the whole 512 x 512 frame
+  as one tile, batch 16 (``chip_smoke.py`` phase 11b, bench.py config 1c);
+- ``cunet-1080p``: cunet/art 2x noise 1, tile 256, batch 16, 1080p
+  frames (phase 11c, config 1d);
+- ``art-scan-tta``: swin_unet/art_scan 4x noise 3, tile 128, batch 8,
+  8-way TTA, 512 x 512 frames (phase 12a, config 3).
+
+Opens a stream for the cell's frames and runs its warm cycle. It first
+reads the unprofiled streamed rate twice (outputs kept, host clock ending
+in a synchronize): for the flagship, of ``chip_smoke.py`` phase 5's first
+frame rendered and its 10 frames streamed, by phase 5's method (the
+method and frames are this checkout's, so ``--root`` compares two versions
+by one method); for the other cells, of the ``--frames`` frames. Then it
+submits ``--frames`` seeded frames and flushes under ``torch.profiler``
+(CPU and CUDA activities). Prints, after the card's name and power limit:
+
+- the unprofiled streamed rate, two passes: ms for the frames and output
   MP/s;
 
 - wall ms of the profiled window (host clock, ending in a synchronize),
   device busy ms (union of the intervals of every device event) and the
   device's idle share;
-- device time by group (kernel B, kernel C, roll, copies, convolutions
-  and GEMMs, host-to-device copies, the rest), and the 20 device kernels
-  with the most time;
-- per 16-tile chunk: kernel launches (``cudaLaunchKernel`` calls) and the
-  aten operators called most often.
+- device time by group (kernel B, kernel C, roll, TTA flips, copies,
+  convolutions and GEMMs, host-to-device copies, the rest), and the 20
+  device kernels with the most time;
+- per chunk of the cell's batch: kernel launches (``cudaLaunchKernel``
+  calls) and the aten operators called most often.
 
 ``--root DIR`` imports ``waifu2x_tensorrt_tpu_torch`` from DIR (an
 unpacked other commit, to compare two versions in one call). ``--trace``
@@ -42,11 +54,21 @@ GROUPS = (  # (label, substrings of the device event name), first match
     ("kernel B swin_block", ("swin_block",)),
     ("kernel C finalize_gather", ("finalize_gather",)),
     ("roll", ("roll",)),
+    ("TTA flips", ("flip",)),
     ("copies (layout, dtype)", ("copy", "Copy")),
     ("host-to-device copies", ("HtoD",)),
     ("convolutions and GEMMs", ("conv", "xmma", "cutlass", "cudnn", "gemm",
                                 "sm90_", "nchw", "nhwc")),
 )
+
+
+# name: (family, scale, noise, tile, batch, tta, frame (H, W))
+CELLS = {
+    "flagship": ("swin_unet/art", 4, 3, 256, 16, False, (720, 1280)),
+    "cunet-whole-frame": ("cunet/art", 2, 1, 0, 16, False, (512, 512)),
+    "cunet-1080p": ("cunet/art", 2, 1, 256, 16, False, (1080, 1920)),
+    "art-scan-tta": ("swin_unet/art_scan", 4, 3, 128, 8, True, (512, 512)),
+}
 
 
 def _group(name: str) -> str:
@@ -70,6 +92,7 @@ def _busy_us(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cell", choices=tuple(CELLS), default="flagship")
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--trace", type=Path, default=None)
     ap.add_argument("--root", type=Path,
@@ -98,20 +121,29 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(f"card: {smi}; package from {args.root}", flush=True)
+    family, scale, noise, tile, batch, tta, hw = CELLS[args.cell]
+    out_px = hw[0] * scale * hw[1] * scale
+    print(f"card: {smi}; package from {args.root}; cell {args.cell}: "
+          f"{family} {scale}x noise {noise}, tile {tile or 'whole frame'}, "
+          f"batch {batch}, tta {tta}, {hw[0]}x{hw[1]} frames", flush=True)
     up = Upscaler(allow_random_init=True, device="cuda:0")
-    cfg = RenderConfig(precision=Precision.FP16, batch_size=16, height=256,
-                       width=256, scaling=4, overlap=(1 / 16, 1 / 16))
-    up.load("swin_unet/art", 4, 3, cfg)
+    cfg = RenderConfig(precision=Precision.FP16, batch_size=batch,
+                       height=tile, width=tile, scaling=scale,
+                       overlap=(1 / 16, 1 / 16), tta=tta)
+    up.load(family, scale, noise, cfg)
     rng = np.random.default_rng(5)
-    frames = [rng.integers(0, 256, (720, 1280, 3), np.uint8)
+    frames = [rng.integers(0, 256, (*hw, 3), np.uint8)
               for _ in range(args.frames)]
-    stream = up.open_stream((720, 1280))
+    stream = up.open_stream(hw)
     stream.warm()
     torch.cuda.synchronize()
 
-    first, rate_frames = cs._phase5_frames()
-    up.render(first)  # as phase 5, which renders a frame before its stream
+    if args.cell == "flagship":
+        first, rate_frames = cs._phase5_frames()
+        up.render(first)  # as phase 5, which renders a frame first
+        label = "phase 5's stream"
+    else:
+        rate_frames, label = frames, "stream"
     for rep in range(2):
         t0 = time.perf_counter()
         kept = []
@@ -123,9 +155,9 @@ def main() -> int:
         if len(kept) != len(rate_frames):
             raise AssertionError(f"{len(kept)} outputs for "
                                  f"{len(rate_frames)} frames")
-        print(f"phase 5's stream, unprofiled, pass {rep + 1}: "
+        print(f"{label}, unprofiled, pass {rep + 1}: "
               f"{len(rate_frames)} frames in {rate_s * 1e3:.1f} ms, "
-              f"{len(rate_frames) * 2880 * 5120 / rate_s / 1e6:.2f} output "
+              f"{len(rate_frames) * out_px / rate_s / 1e6:.2f} output "
               "MP/s", flush=True)
         del kept
 
@@ -140,7 +172,8 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     if len(outs) != args.frames:
         raise AssertionError(f"{len(outs)} outputs for {args.frames} frames")
-    chunks = -(-args.frames * 18 // 16)  # 720p plans to 18 tiles a frame
+    steps = up._pipeline.get(hw)[2].tile_count * (8 if tta else 1)
+    chunks = -(-args.frames * steps // batch)
 
     dev = collections.defaultdict(lambda: [0.0, 0])
     host = collections.Counter()
@@ -154,11 +187,11 @@ def main() -> int:
         else:
             host[e.name] += 1
     busy_ms = _busy_us(intervals) / 1e3
-    print(f"{args.frames} streamed 720p frames ({chunks} chunks of 16 "
-          f"tiles): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+    print(f"{args.frames} streamed frames ({chunks} chunks of {batch} "
+          f"steps): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
           f"idle {wall_ms - busy_ms:.1f} ms "
           f"({100 * (1 - busy_ms / wall_ms):.1f}% of wall), "
-          f"{args.frames * 2880 * 5120 / wall_ms / 1e3:.2f} output MP/s "
+          f"{args.frames * out_px / wall_ms / 1e3:.2f} output MP/s "
           "under the profiler", flush=True)
     groups = collections.defaultdict(lambda: [0.0, 0])
     for name, (us, n) in dev.items():

@@ -15,7 +15,7 @@ import enum
 import torch
 
 # CLI tileSize choices (reference src/main.cpp:62-64) plus 0 = whole-frame
-# (an extension of the JAX package; not ported yet, the CLI rejects it).
+# (the frame as one tile, an extension of the JAX package).
 TILE_CHOICES = (0, 64, 128, 256, 400, 640)
 
 

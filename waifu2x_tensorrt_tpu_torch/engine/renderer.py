@@ -1,17 +1,28 @@
 """The chunked render pipeline and cross-frame tile streaming.
 
-The port of ``waifu2x_tensorrt_tpu.engine.renderer`` (non-TTA, unpacked
-head):
+The port of ``waifu2x_tensorrt_tpu.engine.renderer``:
 
     uint8 frame -> [0,1] fp32 -> edge-pad + tile gather -> compute dtype
-      -> model at batch-size chunks -> finalize (kernel C: blend,
-         overlap-add in fp32 in ascending tile order, round-half-even x255,
-         saturate to u8)
+      -> (x8 dihedral TTA) -> model at batch-size chunks
+      -> (inverse-TTA fp32 mean) -> finalize (kernel C: blend, overlap-add
+         in fp32 in ascending tile order, round-half-even x255, saturate
+         to u8)
 
 - ``ChunkedPipeline`` renders single frames: full batch-size chunks plus
   one exact-size remainder chunk;
 - ``TileStream`` carries each frame's leftover tiles into the next frame's
   first chunk, so every model call in steady state is a full batch.
+
+Tile plans are square tiles of ``config.height``, or with
+``config.height == 0`` the whole frame as one (rectangular) tile that
+includes the model's context (``resolve_tile_plan``). Under TTA each tile
+runs as its 8 dihedral variants, variant-major (step ``i * T + t``); the
+finalize inverts each variant in the compute dtype, casts to fp32, sums
+in ascending variant order and scales by 1/8, then hands that fp32 mean
+to kernel C as one chunk. A rectangular tile under TTA (whole-frame on a
+non-square frame) batches its shape-preserving and its transposing
+variants as two groups of chunks at two orientations; such a geometry has
+no cross-frame stream.
 
 With a packed-x twin of the model (``WAIFU2X_PACK_X=1``, kernel D), every
 geometry whose output x-origins are 16-aligned renders through it; its
@@ -21,8 +32,10 @@ pixel path does.
 
 Everything runs eagerly on the pipeline's device: prepare is one gather,
 the model one ``nn.Module`` call per chunk, finalize one kernel-C launch
-per frame (its plain scan twin on CPU). TTA, whole-frame tiles, the
-executable store and sharding are not ported yet.
+per frame (its plain scan twin on CPU); the TTA permutes and mean are
+plain torch ops, as they are XLA-fused work in the JAX package. The
+monolithic per-frame program (``make_render_fn``/``RendererCache``), the
+executable store and sharding are not ported.
 """
 
 from __future__ import annotations
@@ -39,64 +52,127 @@ from waifu2x_tensorrt_tpu_torch.models.registry import ModelSpec
 from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
     make_finalize_epilogue,
 )
-from waifu2x_tensorrt_tpu_torch.tiling import plan_tiles
+from waifu2x_tensorrt_tpu_torch.tiling import (
+    DIHEDRAL_SHAPE_PRESERVING,
+    DIHEDRAL_SIZE,
+    DIHEDRAL_TRANSPOSING,
+    dihedral_apply,
+    dihedral_inverse,
+    plan_tiles,
+)
 from waifu2x_tensorrt_tpu_torch.utils.logging import Logger, Severity
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def resolve_tile_plan(spec: ModelSpec, config: RenderConfig,
                       frame_hw: tuple[int, int]):
-    """Tile plan for a frame (square tiles of ``config.height``)."""
+    """Tile plan for a frame: square tiles of ``config.height``, or with
+    ``config.height == 0`` WHOLE-FRAME mode, the frame as one (rectangular)
+    tile with no blend. An offset model (cunet's valid convs) loses
+    2 * offset output pixels a tile, so the whole-frame tile includes
+    ceil(2 * offset / scale) input pixels of context, rounded up to the
+    model's tile divisor: one tile covers the whole output."""
     tile = config.height
     if tile == 0:
-        raise NotImplementedError(
-            "whole-frame rendering (--tileSize 0): not yet ported")
-    if config.width != tile:
-        raise ValueError("square tiles only (CLI parity)")
-    out_tile = spec.output_tile(tile)
-    return plan_tiles(frame_hw, (tile, tile), (out_tile, out_tile),
-                      spec.scale, config.overlap)
+        d = spec.tile_divisor
+        ctx = -(-2 * spec.offset // spec.scale)  # input space, both sides
+        tile_hw = (_ceil_to(frame_hw[0] + ctx, d),
+                   _ceil_to(frame_hw[1] + ctx, d))
+    else:
+        if config.width != tile:
+            raise ValueError("square tiles only (CLI parity)")
+        tile_hw = (tile, tile)
+    out_tile_hw = (spec.output_tile(tile_hw[0]),
+                   spec.output_tile(tile_hw[1]))
+    return plan_tiles(frame_hw, tile_hw, out_tile_hw, spec.scale,
+                      config.overlap)
+
+
+def _tile_gather(plan, frame_hw, device):
+    """``gather(frame_u8) -> (T, th, tw, 3)`` fp32 tiles in [0, 1]: the
+    edge-replicate pad and the tile gather as ONE index gather (padded row
+    r is source row clamp(r - pad_t, 0, h - 1))."""
+    h, w = frame_hw
+    pad_t, _pad_b, pad_l, _pad_r = plan.pad
+    th, tw = plan.input_tile
+    rows = (plan.input_origins[:, 0:1] + np.arange(th)[None] - pad_t)
+    cols = (plan.input_origins[:, 1:2] + np.arange(tw)[None] - pad_l)
+    rows_t = torch.from_numpy(np.clip(rows, 0, h - 1)).to(device)
+    cols_t = torch.from_numpy(np.clip(cols, 0, w - 1)).to(device)
+
+    def gather(frame_u8: torch.Tensor) -> torch.Tensor:
+        x = frame_u8.to(torch.float32) * np.float32(1.0 / 255.0)
+        return x[rows_t[:, :, None], cols_t[:, None, :]]
+
+    return gather
+
+
+def _inverse_sum(y: torch.Tensor, idxs) -> torch.Tensor:
+    """sum over k, in order, of dihedral_inverse(y[k], idxs[k]) in fp32:
+    each inverse in the compute dtype, cast at the accumulate (exact
+    permutations commute with the cast)."""
+    acc = dihedral_inverse(y[0], idxs[0]).float()
+    for k in range(1, len(idxs)):
+        acc = acc + dihedral_inverse(y[k], idxs[k]).float()
+    return acc
+
+
+def _chunk_sizes(n_steps: int, chunk: int) -> list[int]:
+    """Full chunks plus one exact-size remainder."""
+    n_full, rem = divmod(n_steps, chunk)
+    return [chunk] * n_full + ([rem] if rem else [])
 
 
 def make_chunked_fns(spec: ModelSpec, config: RenderConfig,
                      frame_hw: tuple[int, int], device):
     """The model-independent halves of the chunked render for one frame
     geometry: ``prepare(frame_u8) -> chunks`` (with ``prepare.flat``, the
-    unsplit (T, th, tw, 3) tiles), ``finalize(*outs) -> (H*s, W*s, 3) u8``,
-    the plan and the chunk sizes. ``finalize`` runs kernel C on CUDA
-    tensors and the plain scan on CPU tensors. With ``spec.pack_x > 1``
-    it takes packed-x (n, oh, ow/pack_x, 3*pack_x) chunk outputs."""
-    if config.tta:
-        raise NotImplementedError("TTA: not yet ported")
+    unsplit (steps, th, tw, 3) tiles, or None for a rect-TTA geometry),
+    ``finalize(*outs) -> (H*s, W*s, 3) u8``, the plan and the chunk
+    sizes. ``finalize`` runs kernel C on CUDA tensors and the plain scan
+    on CPU tensors. With ``spec.pack_x > 1`` it takes packed-x
+    (n, oh, ow/pack_x, 3*pack_x) chunk outputs (not under TTA)."""
     device = torch.device(device)
     plan = resolve_tile_plan(spec, config, frame_hw)
-    n_steps = plan.tile_count
-    chunk = config.batch_size
-    n_full, rem = divmod(n_steps, chunk)
-    chunk_sizes = [chunk] * n_full + ([rem] if rem else [])
+    if spec.pack_x > 1 and config.tta:
+        raise ValueError(
+            "packed heads are incompatible with TTA (dihedral inverses act "
+            "in pixel space); create the model without head packing")
+    if config.tta and plan.input_tile[0] != plan.input_tile[1]:
+        return _make_rect_tta_chunked_fns(plan, config, frame_hw, device)
+    T = plan.tile_count
+    n_steps = T * (DIHEDRAL_SIZE if config.tta else 1)
+    chunk_sizes = _chunk_sizes(n_steps, config.batch_size)
     dtype = config.precision.dtype
-
-    h, w = frame_hw
-    pad_t, _pad_b, pad_l, _pad_r = plan.pad
-    th, tw = plan.input_tile
-    # edge-replicate pad + tile gather as ONE index gather: padded row r is
-    # source row clamp(r - pad_t, 0, h - 1)
-    rows = (plan.input_origins[:, 0:1] + np.arange(th)[None] - pad_t)
-    cols = (plan.input_origins[:, 1:2] + np.arange(tw)[None] - pad_l)
-    rows_t = torch.from_numpy(np.clip(rows, 0, h - 1)).to(device)
-    cols_t = torch.from_numpy(np.clip(cols, 0, w - 1)).to(device)
+    gather = _tile_gather(plan, frame_hw, device)
 
     def prepare_flat(frame_u8: torch.Tensor) -> torch.Tensor:
-        """(H, W, 3) u8 -> (T, th, tw, 3) compute-dtype tiles."""
-        x = frame_u8.to(torch.float32) * np.float32(1.0 / 255.0)
-        tiles = x[rows_t[:, :, None], cols_t[:, None, :]]
-        return tiles.to(dtype)
+        """(H, W, 3) u8 -> (n_steps, th, tw, 3) compute-dtype tiles; under
+        TTA variant-major (the permutes commute with the cast)."""
+        tiles = gather(frame_u8).to(dtype)
+        if config.tta:
+            tiles = torch.cat([dihedral_apply(tiles, i)
+                               for i in range(DIHEDRAL_SIZE)])
+        return tiles
 
     def prepare(frame_u8: torch.Tensor):
         return prepare_flat(frame_u8).split(chunk_sizes)
 
     prepare.flat = prepare_flat
     finalize = make_finalize_epilogue(plan, device)
-    if spec.pack_x > 1:
+    if config.tta:
+        finalize_tiles = finalize
+        oh, ow = plan.output_tile
+
+        def finalize(*outs):
+            y = torch.cat(outs)[:n_steps].reshape(DIHEDRAL_SIZE, T, oh, ow, 3)
+            acc = _inverse_sum(y, range(DIHEDRAL_SIZE))
+            return finalize_tiles(  # kernel C reads tiles by address
+                (acc * np.float32(1.0 / DIHEDRAL_SIZE)).contiguous())
+    elif spec.pack_x > 1:
         if not pack_x_applicable(plan, spec.pack_x):
             raise ValueError("output x-origins are not pack_x-aligned "
                              "(gate with pack_x_applicable)")
@@ -107,6 +183,50 @@ def make_chunked_fns(spec: ModelSpec, config: RenderConfig,
             # the packed-x layout's bytes are the pixel layout's: a view
             return finalize_pixels(*(o.view(o.shape[0], oh, ow, 3)
                                      for o in outs))
+    return prepare, finalize, plan, chunk_sizes
+
+
+def _make_rect_tta_chunked_fns(plan, config: RenderConfig, frame_hw,
+                               device):
+    """Chunked prepare/finalize for TTA over a RECTANGULAR tile
+    (whole-frame on a non-square frame). The shape-preserving variants
+    (identity, both flips, rot180) batch at (th, tw), the rot90 family at
+    (tw, th); each group chunks on its own, and finalize inverts every
+    variant back to (oh, ow) before the 1/8 mean, summing each group in
+    its variant order and then the two group sums, as the JAX package
+    does. ``prepare.flat`` is None: two orientations cannot ride one
+    cross-frame carry."""
+    dtype = config.precision.dtype
+    half = DIHEDRAL_SIZE // 2
+    T = plan.tile_count
+    g_steps = T * half
+    g_sizes = _chunk_sizes(g_steps, config.batch_size)
+    chunk_sizes = g_sizes + g_sizes
+    n_group = len(g_sizes)
+    oh, ow = plan.output_tile
+    gather = _tile_gather(plan, frame_hw, device)
+
+    def prepare(frame_u8: torch.Tensor):
+        tiles = gather(frame_u8).to(dtype)
+        pieces = []
+        for idxs in (DIHEDRAL_SHAPE_PRESERVING, DIHEDRAL_TRANSPOSING):
+            g = torch.cat([dihedral_apply(tiles, i) for i in idxs])
+            pieces.extend(g.split(g_sizes))
+        return tuple(pieces)
+
+    prepare.flat = None
+    finalize_tiles = make_finalize_epilogue(plan, device)
+
+    def group_sum(outs, idxs, shape):
+        y = torch.cat(outs)[:g_steps].reshape(half, T, *shape, 3)
+        return _inverse_sum(y, idxs)
+
+    def finalize(*outs):
+        acc = (group_sum(outs[:n_group], DIHEDRAL_SHAPE_PRESERVING, (oh, ow))
+               + group_sum(outs[n_group:], DIHEDRAL_TRANSPOSING, (ow, oh)))
+        return finalize_tiles(  # kernel C reads tiles by address
+            (acc * np.float32(1.0 / DIHEDRAL_SIZE)).contiguous())
+
     return prepare, finalize, plan, chunk_sizes
 
 
@@ -173,7 +293,7 @@ class ChunkedPipeline:
         if entry is None:
             spec_used = self._spec
             use_px = False
-            if self._spec_px is not None:
+            if self._spec_px is not None and not self._config.tta:
                 plan = resolve_tile_plan(self._spec, self._config, key)
                 use_px = pack_x_applicable(plan, self._spec_px.pack_x)
                 if use_px:
@@ -218,7 +338,9 @@ class TileStream:
 
     Leftover tiles of each frame ride in the next frame's first chunk; a
     frame's output is ready at most one chunk later and ``flush()`` drains
-    the tail with one exact-size model call. One geometry per stream."""
+    the tail with one exact-size model call. One geometry per stream; under
+    TTA a frame is 8 * T steps. A rect-TTA geometry (two tile
+    orientations) cannot stream and raises ValueError."""
 
     def __init__(self, pipeline: ChunkedPipeline, frame_hw: tuple[int, int],
                  progress=None) -> None:
@@ -227,9 +349,16 @@ class TileStream:
         self._hw = (int(frame_hw[0]), int(frame_hw[1]))
         prep, fin, plan, _ = pipeline.get(self._hw)
         self._prep_flat = prep.flat
+        if self._prep_flat is None:
+            raise ValueError(
+                "TileStream unavailable for this geometry: rectangular-TTA "
+                "whole-frame renders batch two tile orientations per frame "
+                "and cannot ride one cross-frame carry; render per frame "
+                "(ChunkedPipeline.render) instead")
         self._use_px = prep.use_pack_x
         self._fin = fin
-        self._n_steps = plan.tile_count
+        self._n_steps = plan.tile_count * (
+            DIHEDRAL_SIZE if pipeline.config.tta else 1)
         self._chunk = pipeline.config.batch_size
         self._carry: Optional[torch.Tensor] = None  # (r, th, tw, 3) tiles
         self._outs: list = []        # [model output, rows consumed]
@@ -308,3 +437,33 @@ class TileStream:
             throwaway.submit(frame)
         throwaway.flush()
         return cycle
+
+
+def bucket_hw(frame_hw, bucket: int) -> tuple[int, int]:
+    """(H, W) rounded up to multiples of ``bucket`` (unchanged for
+    ``bucket <= 1``)."""
+    h, w = int(frame_hw[0]), int(frame_hw[1])
+    if bucket <= 1:
+        return h, w
+    return _ceil_to(h, bucket), _ceil_to(w, bucket)
+
+
+def bucket_frame(frame_u8, bucket: int):
+    """Edge-pad an (H, W, 3) frame (numpy array or torch tensor) at the
+    bottom and right up to the next multiple of ``bucket``; returns
+    (padded frame, original (H, W)). Mixed-size renders then meet a bounded
+    number of geometries, at the cost of a thin strip of blend-boundary
+    pixels near the padded edges (they blend with replicated content)."""
+    h, w = int(frame_u8.shape[0]), int(frame_u8.shape[1])
+    bh, bw = bucket_hw((h, w), bucket)
+    ph, pw = bh - h, bw - w
+    if not (ph or pw):
+        return frame_u8, (h, w)
+    if isinstance(frame_u8, np.ndarray):
+        padded = np.pad(frame_u8, ((0, ph), (0, pw), (0, 0)), mode="edge")
+    else:
+        dev = frame_u8.device
+        rows = torch.arange(h + ph, device=dev).clamp_(max=h - 1)
+        cols = torch.arange(w + pw, device=dev).clamp_(max=w - 1)
+        padded = frame_u8[rows][:, cols]
+    return padded, (h, w)

@@ -5,7 +5,9 @@ src/tensorrt/img2img.h:14-50), the port of
 Owns the model module, the chunked pipeline and the message/progress
 callback seams: ``load()``, ``render()``, ``open_stream()``,
 ``set_message_callback()``, ``set_progress_callback()``.
-Errors raise (the CLI turns them into exit codes).
+Errors raise (the CLI turns them into exit codes). ``load(...,
+bucket=N)`` edge-pads every frame up to a multiple of N before it renders
+and crops the output back.
 
 No fallback hides the device or a kernel: without a CUDA device a CUDA
 render raises, the CPU serves only when asked for by name, and a kernel
@@ -30,6 +32,8 @@ from waifu2x_tensorrt_tpu_torch.engine.config import RenderConfig
 from waifu2x_tensorrt_tpu_torch.engine.renderer import (
     ChunkedPipeline,
     TileStream,
+    bucket_frame,
+    bucket_hw,
 )
 from waifu2x_tensorrt_tpu_torch.models import registry
 from waifu2x_tensorrt_tpu_torch.utils.logging import Logger, Severity
@@ -51,6 +55,7 @@ class Upscaler:
         self._device: Optional[torch.device] = None
         self._spec: Optional[registry.ModelSpec] = None
         self._pipeline: Optional[ChunkedPipeline] = None
+        self._bucket = 0
 
     def _select_device(self, device_id: int) -> torch.device:
         dev = torch.device(self._device_arg if self._device_arg is not None
@@ -81,18 +86,17 @@ class Upscaler:
     # -- load: weights + pipeline (img2img_load.cpp) -----------------------
     def load(self, family: str, scale: int, noise: int,
              config: RenderConfig,
-             fused_block: Optional[bool] = None) -> None:
+             fused_block: Optional[bool] = None, bucket: int = 0) -> None:
         """Build the model for (family, scale, noise) at ``config``'s
-        precision, load its weights and prepare the pipeline. A weight
-        file gives the module its width and depths
+        precision, load its weights and prepare the pipeline. A swin_unet
+        weight file gives the module its width and depths
         (``registry.checkpoint_arch``); random weights take the flagship
-        architecture. ``fused_block`` defaults to True on CUDA."""
+        architecture. ``fused_block`` (swin_unet) defaults to True on
+        CUDA. ``config.tta`` renders the 8 dihedral variants of every
+        tile, ``config.height == 0`` the whole frame as one tile;
+        ``bucket > 1`` pads frames to multiples of ``bucket``
+        (``bucket_frame``)."""
         registry.validate(family, scale, noise)
-        if config.tta:
-            raise NotImplementedError("TTA: not yet ported")
-        if config.height == 0:
-            raise NotImplementedError(
-                "whole-frame rendering (--tileSize 0): not yet ported")
         device = self._select_device(config.device_id)
         if fused_block is None:
             fused_block = device.type == "cuda"
@@ -112,11 +116,14 @@ class Upscaler:
                 f"tile size {config.height} is not a multiple of "
                 f"{spec.tile_divisor} (required by this model)")
         self._spec = spec
+        self._bucket = int(bucket)
         # packed-x-head twin (same parameters): pack-aligned geometries
-        # render through kernel D, with no separate depth-to-space
+        # render through kernel D, with no separate depth-to-space (not
+        # under TTA, whose inverses act in pixel space)
         module_px = spec_px = None
         if (os.environ.get("WAIFU2X_PACK_X") == "1"
-                and spec.arch == "swin_unet" and scale > 1):
+                and spec.arch == "swin_unet" and scale > 1
+                and not config.tta):
             module_px, spec_px = registry.packed_x_twin(module, spec)
         self._pipeline = ChunkedPipeline(
             module, spec, config, device, module_pack_x=module_px,
@@ -124,7 +131,11 @@ class Upscaler:
         self.logger.log(
             Severity.info,
             f"loaded {family} scale={scale} noise={noise} on {device} "
-            f"({config.precision.cache_tag}, fused_block={fused_block}, "
+            f"({config.precision.cache_tag}, "
+            + (f"fused_block={fused_block}, " if spec.arch == "swin_unet"
+               else "")
+            + f"tta={'on' if config.tta else 'off'}, "
+            f"tile={config.height or 'whole frame'}, bucket={bucket}, "
             f"packed_x={'on' if module_px is not None else 'off'}, "
             f"weights={'file' if from_file else 'random'})")
 
@@ -134,19 +145,69 @@ class Upscaler:
         Fires the progress callback per model chunk."""
         if self._pipeline is None:
             raise RuntimeError("load() must be called before render()")
+        frame_u8, (h, w) = bucket_frame(frame_u8, self._bucket)
         out = self._pipeline.render(frame_u8, progress=self.logger.progress)
-        return out.cpu().numpy()
+        s = self._spec.scale
+        return out[:h * s, :w * s].cpu().numpy()
 
-    def open_stream(self, frame_hw) -> TileStream:
+    def open_stream(self, frame_hw) -> Optional["_StreamSession"]:
         """A cross-frame streaming session for fixed-size frames: leftover
         tiles of each frame ride in the next frame's model batch, so every
         model call is a full batch. ``submit(frame)`` returns the outputs
-        that became ready (device u8 tensors), ``flush()`` the rest."""
-        if self._pipeline is None:
+        that became ready (device u8 tensors, cropped to the frame's
+        size), ``flush()`` the rest. Returns None for a rect-TTA geometry
+        (whole-frame TTA on a non-square frame, two tile orientations a
+        frame): render such frames one by one."""
+        if not self.can_stream:
             raise RuntimeError("load() must be called before open_stream()")
-        return TileStream(self._pipeline, frame_hw,
-                          progress=self.logger.progress)
+        hw = (int(frame_hw[0]), int(frame_hw[1]))
+        padded = bucket_hw(hw, self._bucket)
+        if self._pipeline.get(padded)[0].flat is None:
+            return None
+        return _StreamSession(
+            TileStream(self._pipeline, padded,
+                       progress=self.logger.progress),
+            hw, self._bucket, self._spec.scale)
+
+    @property
+    def can_stream(self) -> bool:
+        """True once ``load()`` has built the chunked pipeline, whose
+        geometries stream (all but rect-TTA ones, see ``open_stream``)."""
+        return self._pipeline is not None
 
     @property
     def spec(self) -> Optional[registry.ModelSpec]:
         return self._spec
+
+
+class _StreamSession:
+    """``TileStream`` behind ``Upscaler.open_stream``: buckets each frame
+    as ``render`` does and crops the outputs back to the frame's size."""
+
+    def __init__(self, stream: TileStream, frame_hw, bucket: int,
+                 scale: int) -> None:
+        self._stream = stream
+        self._hw = frame_hw
+        self._bucket = bucket
+        self._out_hw = (frame_hw[0] * scale, frame_hw[1] * scale)
+
+    def _crop(self, outs: list) -> list:
+        oh, ow = self._out_hw
+        return [o[:oh, :ow] for o in outs]
+
+    def warm(self) -> int:
+        """One carry cycle of zero frames (``TileStream.warm``)."""
+        return self._stream.warm()
+
+    def submit(self, frame_u8) -> list:
+        """Feed one frame; returns the outputs that became ready (device u8
+        tensors, in submission order)."""
+        if tuple(frame_u8.shape[:2]) != self._hw:
+            raise ValueError(f"stream expects {self._hw} frames, got "
+                             f"{tuple(frame_u8.shape[:2])}")
+        frame_u8, _ = bucket_frame(frame_u8, self._bucket)
+        return self._crop(self._stream.submit(frame_u8))
+
+    def flush(self) -> list:
+        """Run the carried tail and return the remaining outputs."""
+        return self._crop(self._stream.flush())

@@ -1,5 +1,5 @@
-"""The waifu2x ``swin_unet`` family as torch modules, its registry and the
-flax-to-torch weight bridge (``cunet`` is not ported yet)."""
+"""The waifu2x ``swin_unet`` and ``cunet`` families as torch modules, their
+registry and the flax-to-torch weight bridge."""
 
 from waifu2x_tensorrt_tpu_torch.models.registry import (  # noqa: F401
     MODEL_FAMILIES,

@@ -2,14 +2,21 @@
 
 The port reads the same weight files as the JAX package (flat ``.npz`` of
 float32 arrays keyed by '/'-joined flax paths, ``registry.load_params``) and
-maps them onto its ``nn.Module`` names with ``swin_mapping``, a copy of
-``waifu2x_tensorrt_tpu.models.convert.swin_mapping``: the torch names are
-the table's left column (``swin1.block0.attn.qkv``, ...), the flax paths its
-right column.
+maps them onto its ``nn.Module`` names with ``swin_mapping`` and
+``cunet_mapping``, copies of the tables of
+``waifu2x_tensorrt_tpu.models.convert``: the torch names are a table's left
+column (``swin1.block0.attn.qkv``, ``unet1.conv2.conv.4.conv1``, ...,
+upstream's names), the flax paths its right column.
 
 Layout rules (exact inverses of the JAX package's converters):
 - flax Conv kernel (kH, kW, I, O) -> torch Conv2d weight (O, I, kH, kW);
-- flax Dense kernel (I, O)        -> torch Linear weight (O, I);
+- flax ConvTranspose kernel (kH, kW, I, O) -> torch ConvTranspose2d
+  weight (I, O, kH, kW) with the spatial taps flipped (flax applies the
+  kernel unflipped, ``transpose_kernel=False``; torch's transposed conv is
+  the gradient of a conv and applies it flipped);
+- flax Dense kernel (I, O)        -> torch Linear weight (O, I); the cunet
+  squeeze-and-excitation Dense layers are 1x1 Conv2d upstream and in the
+  port, weight (O, I, 1, 1);
 - LayerNorm ``scale`` -> ``weight``; relative-position tables unchanged.
 """
 
@@ -22,8 +29,11 @@ import numpy as np
 import torch
 
 __all__ = [
+    "cunet_mapping",
+    "inv_conv_transpose_weight",
     "inv_conv_weight",
     "inv_dense_weight",
+    "is_cunet_tree",
     "swin_mapping",
     "swin_depths_from_flax",
     "params_from_flax",
@@ -35,9 +45,77 @@ def inv_conv_weight(k: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(k, (3, 2, 0, 1)))
 
 
+def inv_conv_transpose_weight(k: np.ndarray) -> np.ndarray:
+    """flax (kH, kW, I, O) -> torch (I, O, kH, kW), spatial taps flipped."""
+    w = np.transpose(k, (2, 3, 0, 1))
+    return np.ascontiguousarray(w[:, :, ::-1, ::-1])
+
+
 def inv_dense_weight(k: np.ndarray) -> np.ndarray:
     """flax (I, O) -> torch (O, I)."""
     return np.ascontiguousarray(np.asarray(k).T)
+
+
+def _unet_conv_entries(src_prefix: str, dst_prefix: str, se: bool):
+    """UNetConv: nn.Sequential(conv, lrelu, conv, lrelu[, SEBlock])."""
+    entries = [
+        (f"{src_prefix}.conv.0", f"{dst_prefix}/conv0", "conv"),
+        (f"{src_prefix}.conv.2", f"{dst_prefix}/conv1", "conv"),
+    ]
+    if se:
+        entries += [
+            (f"{src_prefix}.conv.4.conv1", f"{dst_prefix}/se/fc1", "dense"),
+            (f"{src_prefix}.conv.4.conv2", f"{dst_prefix}/se/fc2", "dense"),
+        ]
+    return entries
+
+
+def _unet1_entries(prefix: str):
+    return (
+        _unet_conv_entries(f"{prefix}.conv1", f"{prefix}/conv1", se=False)
+        + [(f"{prefix}.conv1_down", f"{prefix}/conv1_down", "conv")]
+        + _unet_conv_entries(f"{prefix}.conv2", f"{prefix}/conv2", se=True)
+        + [
+            (f"{prefix}.conv2_up", f"{prefix}/conv2_up", "deconv"),
+            (f"{prefix}.conv3", f"{prefix}/conv3", "conv"),
+        ]
+    )
+
+
+def _unet2_entries(prefix: str):
+    return (
+        _unet_conv_entries(f"{prefix}.conv1", f"{prefix}/conv1", se=False)
+        + [(f"{prefix}.conv1_down", f"{prefix}/conv1_down", "conv")]
+        + _unet_conv_entries(f"{prefix}.conv2", f"{prefix}/conv2", se=True)
+        + [(f"{prefix}.conv2_down", f"{prefix}/conv2_down", "conv")]
+        + _unet_conv_entries(f"{prefix}.conv3", f"{prefix}/conv3", se=True)
+        + [(f"{prefix}.conv3_up", f"{prefix}/conv3_up", "deconv")]
+        + _unet_conv_entries(f"{prefix}.conv4", f"{prefix}/conv4", se=True)
+        + [
+            (f"{prefix}.conv4_up", f"{prefix}/conv4_up", "deconv"),
+            (f"{prefix}.conv5", f"{prefix}/conv5", "conv"),
+        ]
+    )
+
+
+def cunet_mapping(scale: int) -> list[tuple[str, str, str]]:
+    """(torch_path, flax_path, kind) for CUNet (1x) / UpCUNet (2x).
+    kind: conv | deconv | dense; UNet1's conv_bottom is a deconv for the
+    2x model (k4s2p3 head) and a conv for 1x."""
+    entries = _unet1_entries("unet1")
+    entries.append(
+        ("unet1.conv_bottom", "unet1/conv_bottom",
+         "deconv" if scale == 2 else "conv")
+    )
+    entries += _unet2_entries("unet2")
+    entries.append(("unet2.conv_bottom", "unet2/conv_bottom", "conv"))
+    return entries
+
+
+def is_cunet_tree(flat: Mapping[str, np.ndarray]) -> bool:
+    """True for the flat tree of a cunet model (its keys start with
+    ``unet1/``), False for a swin tree."""
+    return any(k.startswith("unet1/") for k in flat)
 
 
 def swin_mapping(scale: int,
@@ -87,10 +165,13 @@ def swin_depths_from_flax(flat: Mapping[str, np.ndarray]) -> tuple:
 
 def params_from_flax(flat: Mapping[str, np.ndarray],
                      scale: int = 4) -> dict[str, torch.Tensor]:
-    """torch state_dict (float32 CPU tensors) of the port's ``SwinUNet`` from
-    a flat flax param dict (``registry.load_params`` layout) — the port's
-    copy of ``state_from_flax(flat, swin_mapping(...))``."""
-    mapping = swin_mapping(scale, swin_depths_from_flax(flat))
+    """torch state_dict (float32 CPU tensors) of the port's ``SwinUNet`` or
+    ``CUNet``/``UpCUNet`` (by the tree's keys, ``is_cunet_tree``) from a
+    flat flax param dict (``registry.load_params`` layout) — the port's
+    copy of ``state_from_flax(flat, swin_mapping(...))`` and of
+    ``state_from_flax(flat, cunet_mapping(scale))``."""
+    mapping = (cunet_mapping(scale) if is_cunet_tree(flat)
+               else swin_mapping(scale, swin_depths_from_flax(flat)))
     state: dict[str, np.ndarray] = {}
     for src, dst, kind in mapping:
         if kind == "table":
@@ -98,8 +179,14 @@ def params_from_flax(flat: Mapping[str, np.ndarray],
             continue
         if kind == "conv":
             state[f"{src}.weight"] = inv_conv_weight(flat[f"{dst}/kernel"])
+        elif kind == "deconv":
+            state[f"{src}.weight"] = inv_conv_transpose_weight(
+                flat[f"{dst}/kernel"])
         elif kind == "dense":
-            state[f"{src}.weight"] = inv_dense_weight(flat[f"{dst}/kernel"])
+            w = inv_dense_weight(flat[f"{dst}/kernel"])
+            if ".conv.4." in src:  # SE blocks are 1x1 convs upstream
+                w = w[:, :, None, None]
+            state[f"{src}.weight"] = w
         elif kind == "norm":
             state[f"{src}.weight"] = np.asarray(flat[f"{dst}/scale"])
         state[f"{src}.bias"] = np.asarray(flat[f"{dst}/bias"])

@@ -1,0 +1,196 @@
+"""CUNet family: cascaded U-Nets for 1x denoise and 2x upscale.
+
+The port of ``waifu2x_tensorrt_tpu.models.cunet`` (upstream waifu2x
+CUNet/UpCUNet, nagadomi/nunif) as torch ``nn.Module``s. Every convolution
+is VALID, so a tile loses context at its borders:
+
+  CUNet  (scale 1): out = in - 56   (offset 28 a side)
+  UpCUNet(scale 2): out = 2*in - 72 (offset 36 a side, output space)
+
+Layout: NHWC at the module boundary, as in the JAX package; convolutions
+run on ``channels_last`` views of the same memory (cuDNN on the card).
+Parameters are float32 as loaded and cast to the compute dtype per call.
+The numeric choices are the reference's: leaky ReLU as ``max(x, a*x)``
+with ``a = 0.1`` rounded to the compute dtype, the squeeze-and-excitation
+mean accumulated in fp32 and cast back, the skip crops of 4 and 16, the
+cascade crop of 20 and the [0, 1] clamp in the compute dtype.
+
+Parameter names are upstream's (the left column of
+``models/convert.cunet_mapping``): a ``UNetConv`` is
+``nn.Sequential(conv, lrelu, conv, lrelu[, SEBlock])`` and the SE block
+holds two 1x1 ``Conv2d`` (``conv1``, ``conv2``), which run as linear maps
+on the pooled vector.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from waifu2x_tensorrt_tpu_torch.models.swin_unet import _conv
+
+_NEG_SLOPE = 0.1
+
+
+def _lrelu(x):
+    """max(x, a*x) with ``a`` rounded to x's dtype, the reference's form
+    (in bf16 not bit-equal to ``F.leaky_relu``, whose slope stays fp32)."""
+    a = float(torch.tensor(_NEG_SLOPE, dtype=x.dtype))
+    return torch.maximum(x, x * a)
+
+
+def _crop(x, p: int):
+    """Center crop by p on each spatial side (NHWC)."""
+    return x[:, p:-p, p:-p, :]
+
+
+def _conv_t(x, layer: nn.ConvTranspose2d, dtype):
+    """NHWC transposed conv through a channels_last NCHW view."""
+    w = layer.weight.to(dtype).contiguous(memory_format=torch.channels_last)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, layer.bias.to(dtype),
+                           stride=layer.stride, padding=layer.padding)
+    return y.permute(0, 2, 3, 1)
+
+
+class SEBlock(nn.Module):
+    """Squeeze-and-excitation over channels (global-mean pooled)."""
+
+    def __init__(self, features: int, reduction: int = 8, *, device=None):
+        super().__init__()
+        self.conv1 = nn.Conv2d(features, features // reduction, 1,
+                               device=device)
+        self.conv2 = nn.Conv2d(features // reduction, features, 1,
+                               device=device)
+
+    def forward(self, x):
+        dt = x.dtype
+        z = x.mean(dim=(1, 2), dtype=torch.float32).to(dt)
+        for i, layer in enumerate((self.conv1, self.conv2)):
+            w = layer.weight.to(dt).reshape(layer.weight.shape[:2])
+            z = F.linear(z, w, layer.bias.to(dt))
+            z = torch.relu(z) if i == 0 else torch.sigmoid(z)
+        return x * z[:, None, None, :]
+
+
+class UNetConv(nn.Module):
+    """conv3x3 (valid) -> lrelu -> conv3x3 (valid) -> lrelu -> optional SE.
+    ``self.conv`` holds upstream's Sequential (positions 1 and 3 are its
+    activations; forward applies the reference's ``_lrelu`` instead)."""
+
+    def __init__(self, cin: int, mid: int, out: int, se: bool, *,
+                 device=None):
+        super().__init__()
+        layers = [nn.Conv2d(cin, mid, 3, device=device),
+                  nn.LeakyReLU(_NEG_SLOPE),
+                  nn.Conv2d(mid, out, 3, device=device),
+                  nn.LeakyReLU(_NEG_SLOPE)]
+        if se:
+            layers.append(SEBlock(out, device=device))
+        self.conv = nn.Sequential(*layers)
+        self.se = se
+
+    def forward(self, x):
+        dt = x.dtype
+        x = _lrelu(_conv(x, self.conv[0], dt))
+        x = _lrelu(_conv(x, self.conv[2], dt))
+        return self.conv[4](x) if self.se else x
+
+
+class UNet1(nn.Module):
+    """Shallow U-Net; shrinks by 8 a side (conv head) or upscales 2x with
+    the k4s2p3 transposed-conv head (shrinks 16 a side, output space)."""
+
+    def __init__(self, cin: int = 3, out_channels: int = 3,
+                 deconv: bool = False, *, device=None):
+        super().__init__()
+        kw = {"device": device}
+        self.deconv = deconv
+        self.conv1 = UNetConv(cin, 32, 64, se=False, **kw)
+        self.conv1_down = nn.Conv2d(64, 64, 2, stride=2, **kw)
+        self.conv2 = UNetConv(64, 128, 64, se=True, **kw)
+        self.conv2_up = nn.ConvTranspose2d(64, 64, 2, stride=2, **kw)
+        self.conv3 = nn.Conv2d(64, 64, 3, **kw)
+        if deconv:
+            # out = 2*in - 4: the VALID transposed conv (2*in + 2) cropped
+            # by 3 a side, as padding=3 gives it
+            self.conv_bottom = nn.ConvTranspose2d(64, out_channels, 4,
+                                                  stride=2, padding=3, **kw)
+        else:
+            self.conv_bottom = nn.Conv2d(64, out_channels, 3, **kw)
+
+    def forward(self, x):
+        dt = x.dtype
+        x1 = self.conv1(x)
+        x2 = _lrelu(_conv(x1, self.conv1_down, dt))
+        x2 = self.conv2(x2)
+        x2 = _lrelu(_conv_t(x2, self.conv2_up, dt))
+        x3 = _lrelu(_conv(_crop(x1, 4) + x2, self.conv3, dt))
+        if self.deconv:
+            return _conv_t(x3, self.conv_bottom, dt)
+        return _conv(x3, self.conv_bottom, dt)
+
+
+class UNet2(nn.Module):
+    """Deeper U-Net (two downsamples); shrinks by 20 a side."""
+
+    def __init__(self, cin: int = 3, out_channels: int = 3, *, device=None):
+        super().__init__()
+        kw = {"device": device}
+        self.conv1 = UNetConv(cin, 32, 64, se=False, **kw)
+        self.conv1_down = nn.Conv2d(64, 64, 2, stride=2, **kw)
+        self.conv2 = UNetConv(64, 64, 128, se=True, **kw)
+        self.conv2_down = nn.Conv2d(128, 128, 2, stride=2, **kw)
+        self.conv3 = UNetConv(128, 256, 128, se=True, **kw)
+        self.conv3_up = nn.ConvTranspose2d(128, 128, 2, stride=2, **kw)
+        self.conv4 = UNetConv(128, 64, 64, se=True, **kw)
+        self.conv4_up = nn.ConvTranspose2d(64, 64, 2, stride=2, **kw)
+        self.conv5 = nn.Conv2d(64, 64, 3, **kw)
+        self.conv_bottom = nn.Conv2d(64, out_channels, 3, **kw)
+
+    def forward(self, x):
+        dt = x.dtype
+        x1 = self.conv1(x)
+        x2 = _lrelu(_conv(x1, self.conv1_down, dt))
+        x2 = self.conv2(x2)
+        x3 = _lrelu(_conv(x2, self.conv2_down, dt))
+        x3 = self.conv3(x3)
+        x3 = _lrelu(_conv_t(x3, self.conv3_up, dt))
+        x4 = self.conv4(_crop(x2, 4) + x3)
+        x4 = _lrelu(_conv_t(x4, self.conv4_up, dt))
+        x5 = _lrelu(_conv(_crop(x1, 16) + x4, self.conv5, dt))
+        return _conv(x5, self.conv_bottom, dt)
+
+
+class CUNet(nn.Module):
+    """Scale-1 cascade: UNet1 (conv head), then UNet2 refining a residual;
+    out = crop(z1, 20) + UNet2(z1) = in - 56, clamped to [0, 1].
+    Input: NHWC float in [0, 1], cast to ``dtype``, the compute dtype."""
+
+    scale = 1
+    offset = 28  # a side, output space
+
+    def __init__(self, out_channels: int = 3, clamp: bool = True,
+                 dtype: torch.dtype = torch.float32, *, device=None):
+        super().__init__()
+        self.clamp = clamp
+        self.dtype = dtype
+        self.unet1 = UNet1(3, out_channels, deconv=self.scale == 2,
+                           device=device)
+        self.unet2 = UNet2(out_channels, out_channels, device=device)
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        z1 = self.unet1(x)
+        z = _crop(z1, 20) + self.unet2(z1)
+        if self.clamp:
+            z = torch.clamp(z, 0.0, 1.0)
+        return z
+
+
+class UpCUNet(CUNet):
+    """Scale-2 cascade: UNet1 upscales 2x (k4s2p3 head), UNet2 refines a
+    residual; out = 2*in - 72."""
+
+    scale = 2
+    offset = 36

@@ -91,16 +91,21 @@ def create_model(family: str, scale: int, noise: int = -1,
                  device=None, packed_x_head: bool = False):
     """Build the torch module + spec for a (family, scale, noise) choice.
 
-    ``fused_block`` routes every Swin block through kernel B
-    (ops/swin_block.py); otherwise the blocks are dense math around
-    kernel A (ops/window_attention.py). ``base_dim``/``depths`` override
-    the flagship architecture (96, (2, 2, 6, 2, 2)). ``packed_x_head``
-    (scale > 1 only) gives the packed-x head (``packed_x_twin``)."""
+    cunet/art gives ``CUNet`` (scale 1) or ``UpCUNet`` (scale 2); the
+    swin_unet options below do not apply to it. ``fused_block`` routes
+    every Swin block through kernel B (ops/swin_block.py); otherwise the
+    blocks are dense math around kernel A (ops/window_attention.py).
+    ``base_dim``/``depths`` override the flagship architecture (96,
+    (2, 2, 6, 2, 2)). ``packed_x_head`` (scale > 1 only) gives the
+    packed-x head (``packed_x_twin``)."""
+    from waifu2x_tensorrt_tpu_torch.models.cunet import CUNet, UpCUNet
     from waifu2x_tensorrt_tpu_torch.models.swin_unet import SwinUNet
 
     spec = get_spec(family, scale, noise)
     if spec.arch == "cunet":
-        raise NotImplementedError("cunet: not yet ported")
+        module = (CUNet if scale == 1 else UpCUNet)(
+            dtype=dtype or torch.float32, device=device).eval()
+        return module, spec
     kw = {}
     if base_dim is not None:
         kw["base_dim"] = int(base_dim)
@@ -124,21 +129,34 @@ def packed_x_twin(module, spec: ModelSpec):
             dataclasses.replace(spec, pack_x=PACK_X))
 
 
+def _mapping(module) -> list[tuple[str, str, str]]:
+    """The (torch path, flax path, kind) table of the module."""
+    from waifu2x_tensorrt_tpu_torch.models.convert import (
+        cunet_mapping,
+        swin_mapping,
+    )
+    from waifu2x_tensorrt_tpu_torch.models.cunet import CUNet
+
+    if isinstance(module, CUNet):
+        return cunet_mapping(module.scale)
+    return swin_mapping(module.scale, module.depths)
+
+
 def _flax_leaves(module) -> dict[str, tuple]:
     """{flax path: shape} of the module's parameters, in the JAX package's
-    naming (the right column of swin_mapping)."""
-    from waifu2x_tensorrt_tpu_torch.models.convert import swin_mapping
-
+    naming (the right column of its mapping)."""
     state = module.state_dict()
     leaves: dict[str, tuple] = {}
-    for src, dst, kind in swin_mapping(module.scale, module.depths):
+    for src, dst, kind in _mapping(module):
         if kind == "table":
             leaves[dst] = tuple(state[src].shape)
             continue
         w = tuple(state[f"{src}.weight"].shape)
         if kind == "conv":  # torch (O, I, kH, kW) -> flax (kH, kW, I, O)
             leaves[f"{dst}/kernel"] = (w[2], w[3], w[1], w[0])
-        elif kind == "dense":  # torch (O, I) -> flax (I, O)
+        elif kind == "deconv":  # torch (I, O, kH, kW) -> flax (kH, kW, I, O)
+            leaves[f"{dst}/kernel"] = (w[2], w[3], w[0], w[1])
+        elif kind == "dense":  # torch (O, I[, 1, 1]) -> flax (I, O)
             leaves[f"{dst}/kernel"] = (w[1], w[0])
         elif kind == "norm":
             leaves[f"{dst}/scale"] = w

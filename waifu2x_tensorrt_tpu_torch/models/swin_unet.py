@@ -346,11 +346,13 @@ class SwinUNet(nn.Module):
         z = _conv(d1, self.to_image, dt)
         if self.packed_x_head:  # kernel D: clamp + shuffle + pack-x16
             z = pack_head_x16(z.contiguous(), r=r)
-            return z[:, :h * r, :(w * r) // PACK_X] if ph or pw else z
+            return (z[:, :h * r, :(w * r) // PACK_X].contiguous() if ph or pw
+                    else z)
         if self.clamp:
             z = torch.clamp(z, 0.0, 1.0)
         if self.scale > 1:
             z = _pixel_shuffle(z, self.scale)
         if ph or pw:
-            z = z[:, :h * self.scale, :w * self.scale]
+            # contiguous: finalize (kernel C) reads tiles by address
+            z = z[:, :h * self.scale, :w * self.scale].contiguous()
         return z

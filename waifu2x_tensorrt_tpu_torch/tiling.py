@@ -1,8 +1,8 @@
 """Pure tile-geometry math: tile grids and seam blend weights.
 
-A numpy-only copy of ``waifu2x_tensorrt_tpu.tiling`` (the JAX package's
-``__init__`` imports jax, so the port keeps its own). The dihedral TTA
-transforms are not ported yet.
+A copy of ``waifu2x_tensorrt_tpu.tiling`` (the JAX package's ``__init__``
+imports jax, so the port keeps its own): numpy for the plans, and the
+8-way dihedral TTA transforms on numpy arrays and torch tensors.
 
 Reference semantics reproduced here:
 - ``calculate_tiles``  ≙ ``calculateTiles``  (src/tensorrt/img2img_render.cpp:7-66)
@@ -25,9 +25,14 @@ import math
 import numpy as np
 
 __all__ = [
+    "DIHEDRAL_SHAPE_PRESERVING",
+    "DIHEDRAL_SIZE",
+    "DIHEDRAL_TRANSPOSING",
     "Rect",
     "TilePlan",
     "calculate_tiles",
+    "dihedral_apply",
+    "dihedral_inverse",
     "plan_tiles",
     "tile_weight_ramps",
 ]
@@ -287,3 +292,82 @@ def plan_tiles(
         canvas_size=(canvas_h, canvas_w),
         output_size=(out_h, out_w),
     )
+
+
+# ---------------------------------------------------------------------------
+# 8-way dihedral test-time augmentation.
+#
+# Reference enum (img2img_render.cpp:123-132) with OpenCV call semantics:
+#   None                    identity
+#   FlipHorizontal          cv flip code 0  -> flip rows      (np.flipud)
+#   FlipVertical            cv flip code 1  -> flip columns   (np.fliplr)
+#   Rotate90                cv rotate 90 CCW                  (rot90 k=1)
+#   Rotate180                                                  (rot90 k=2)
+#   Rotate270                                                  (rot90 k=3)
+#   FlipHorizontalRotate90  flip rows, then rotate 90
+#   FlipVerticalRotate90    flip cols, then rotate 90
+# The 8 elements are the dihedral group D4: exact permutations, each
+# inverse below round-trips.
+# ---------------------------------------------------------------------------
+
+DIHEDRAL_SIZE = 8
+
+# Partition of D4 by shape action on a rectangular (H, W) image: the first
+# four transforms preserve (H, W); the rot90 family transposes to (W, H).
+# The rect-TTA render path batches each group at its own orientation.
+DIHEDRAL_SHAPE_PRESERVING = (0, 1, 2, 4)
+DIHEDRAL_TRANSPOSING = (3, 5, 6, 7)
+
+# (flip_rows, flip_cols, rot90_k) applied in that order: flips first, then
+# rotation, as applyAugmentation composes them.
+_DIHEDRAL_FWD: tuple[tuple[bool, bool, int], ...] = (
+    (False, False, 0),  # None
+    (True, False, 0),  # FlipHorizontal (row flip)
+    (False, True, 0),  # FlipVertical (col flip)
+    (False, False, 1),  # Rotate90
+    (False, False, 2),  # Rotate180
+    (False, False, 3),  # Rotate270
+    (True, False, 1),  # FlipHorizontalRotate90
+    (False, True, 1),  # FlipVerticalRotate90
+)
+
+
+def _flip(img, axis: int):
+    if isinstance(img, np.ndarray):
+        return np.flip(img, axis=axis)
+    return img.flip(axis)
+
+
+def _rot90(img, k: int):
+    """Rotate the (H, W) axes of an (..., H, W, C) array by k * 90 degrees
+    counter-clockwise (np.rot90's sense on axes (-3, -2))."""
+    if isinstance(img, np.ndarray):
+        return np.rot90(img, k=k, axes=(-3, -2))
+    return img.rot90(k, dims=(-3, -2))
+
+
+def dihedral_apply(img, index: int):
+    """Apply TTA transform ``index`` to an (..., H, W, C) numpy array or
+    torch tensor. ``DIHEDRAL_TRANSPOSING`` indices turn (H, W) into
+    (W, H)."""
+    flip_r, flip_c, k = _DIHEDRAL_FWD[index]
+    if flip_r:
+        img = _flip(img, -3)
+    if flip_c:
+        img = _flip(img, -2)
+    if k:
+        img = _rot90(img, k)
+    return img
+
+
+def dihedral_inverse(img, index: int):
+    """Exact inverse of ``dihedral_apply(., index)``: the rotation undone
+    first, then the flip (reverseAugmentation, img2img_render.cpp:179-222)."""
+    flip_r, flip_c, k = _DIHEDRAL_FWD[index]
+    if k:
+        img = _rot90(img, 4 - k)
+    if flip_c:
+        img = _flip(img, -2)
+    if flip_r:
+        img = _flip(img, -3)
+    return img

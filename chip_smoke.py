@@ -98,6 +98,29 @@ the port through its library entry points (``Upscaler.load`` / ``render``
         the all-plain path (golden gate);
      d. the dihedral transforms on card tensors: exact round trips, the
         CPU's bytes
+ 13. the port's CLI (``cli.main``, seed-0 weights, full width), with
+     ffmpeg / ffprobe stand-ins (``write_ffmpeg_shims``: raw rgb24 clips
+     over pipes) first on PATH for this phase only, decode and encode
+     through the native framepipe (built with g++ into build/framepipe/,
+     its frames counted):
+     a. an 8-frame 720p clip, swin_unet/photo 2x, tile 256, batch 16, bf16
+        (bench.py config4): B 10 launches a chunk and C one a frame, warm
+        cycle included; each output frame against ``Upscaler.render`` of
+        its input as in phase 5; frames/s and output MP/s of the whole
+        CLI call (engine load, warm cycle and the shim's pipes included)
+        beside phase 5's streamed rate;
+     b. the clip with ``--segment-frames 3`` (a stream a segment), then
+        again with ``--resume`` (no launch); the stitched clip against
+        (a)'s, in bf16 and fp32 (--precision tf32): byte-identical, or in
+        bf16 within the golden gate, as printed;
+     c. a folder of 8 512 x 512 stills and one 384 x 640 between them,
+        swin_unet/art 4x noise 3, tile 256, batch 16, bf16 (config6),
+        through the cross-file image stream (three runs); each output
+        against its single render, golden gate; ``--metrics-json`` read
+        back;
+     d. an RGBA still with ``--alpha auto``: 4 channels; RGB against the
+        render of ``fill_transparent``, alpha against the rounded channel
+        mean of the alpha plane's render (golden gate)
 
 Times are per call: the median over 10 samples, each the CUDA-event time
 of 10 calls in a row divided by 10 (kernel F's probe times its own
@@ -115,9 +138,11 @@ are set to 0 just before phases 5, 7 and 9, phase 7's stream, E's API call
 of phase 8, the probe's run of phase 10 and each render or stream of
 phases 11 and 12, and read just after each (phase 5: kernels B and C;
 phase 7: A; phase 8: E; phase 9: D, B and C; phase 10: F; phase 11: C;
-phase 12: B and C); each kernel must have launched in its run. The
-``kernels`` line counts A in phase 7's stream, and B's and C's rows carry
-the counts of phases 11 and 12 as ``launches_*`` keys. Any failed check
+phase 12: B and C), and around each CLI call of phase 13 (B and C, equal
+to the counts its streams and renders imply); each kernel must have
+launched in its run. The ``kernels`` line counts A in phase 7's stream,
+and B's and C's rows carry the counts of phases 11-13 as ``launches_*``
+keys. Any failed check
 raises, so the script exits non-zero; the last line is the JSON device
 record, printed only when every phase passed. Without a CUDA device it
 exits non-zero before printing any result.
@@ -1410,6 +1435,358 @@ def phase_tta_whole_frame(torch, smi, report):
     return counts
 
 
+def _expected_launches(up, runs):
+    """(B, C) launches of the CLI's streams over ``runs``, a list of
+    ((h, w), frames) of same-size frames, each run one stream: a warm cycle
+    (``TileStream.warm``: the fewest frames whose tiles fill whole chunks)
+    and the run's chunks (the flush's remainder included), 10 launches of
+    B a chunk (one a Swin block) and one of C a frame."""
+    import math
+
+    chunk = up._pipeline.config.batch_size
+    b = c = 0
+    for hw, n in runs:
+        t = up._pipeline.get(hw)[2].tile_count
+        warm = 1 if t % chunk == 0 else chunk // math.gcd(t, chunk)
+        b += 10 * (warm * t // chunk + -(-n * t // chunk))
+        c += warm + n
+    return b, c
+
+
+@contextlib.contextmanager
+def _video_shims(root):
+    """The ffmpeg / ffprobe stand-ins first on PATH and the native
+    framepipe's reader and writer counted, for the ``with`` block only."""
+    from waifu2x_tensorrt_tpu_torch.io import native_pipe
+
+    frames = {"read": 0, "written": 0}
+
+    class Reader(native_pipe.NativeFrameReader):
+        def read(self, copy=True):
+            f = super().read(copy)
+            frames["read"] += f is not None
+            return f
+
+    class Writer(native_pipe.NativeFrameWriter):
+        def write(self, frame):
+            super().write(frame)
+            frames["written"] += 1
+
+    saved = (os.environ.get("PATH", ""), os.environ.pop(
+        "W2X_NO_NATIVE_PIPE", None), native_pipe.NativeFrameReader,
+        native_pipe.NativeFrameWriter)
+    os.environ["PATH"] = (f"{write_ffmpeg_shims(root / 'bin')}{os.pathsep}"
+                          f"{saved[0]}")
+    native_pipe.NativeFrameReader, native_pipe.NativeFrameWriter = (
+        Reader, Writer)
+    try:
+        yield frames
+    finally:
+        os.environ["PATH"] = saved[0]
+        if saved[1] is not None:
+            os.environ["W2X_NO_NATIVE_PIPE"] = saved[1]
+        native_pipe.NativeFrameReader, native_pipe.NativeFrameWriter = \
+            saved[2:]
+
+
+def _cli(torch, label, argv):
+    """One call of the port's CLI (``cli.main``) with the launch counters
+    set to 0 just before it; returns (seconds, launch counts). Its console
+    goes to a buffer, printed if the call fails."""
+    import io
+
+    from waifu2x_tensorrt_tpu_torch import cli
+
+    torch.cuda.synchronize()
+    counters = _zero_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = {k: f.launches for k, f in counters.items()}
+    if rc != 0:
+        print(buf.getvalue()[-4000:], file=sys.stderr)
+        raise AssertionError(f"{label}: the CLI exited {rc}")
+    return dt, n
+
+
+def _check_launches(label, n, want):
+    print(f"  {label} launch counts {n}; B {n['B']} = 10 a chunk, C "
+          f"{n['C']} = one a frame, warm cycles included: (B, C) expected "
+          f"{want}", flush=True)
+    if (n["B"], n["C"]) != want or any(n[k] for k in "ADEF"):
+        raise AssertionError(f"{label}: launch counts {n}, expected {want}")
+
+
+def phase_cli(torch, smi, report):
+    """Phase 13: the port's CLI (``cli.main``) on the card, with the ffmpeg
+    / ffprobe stand-ins first on PATH (raw rgb24 clips over pipes through
+    the native framepipe): (a) a 720p clip, swin_unet/photo 2x (bench.py
+    config4), (b) the clip in segments, then resumed, (c) a folder of
+    stills through the cross-file image stream, swin_unet/art 4x noise 3
+    (config6), (d) an RGBA still with ``--alpha auto``. Returns the launch
+    counts of each CLI call."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
+    from waifu2x_tensorrt_tpu_torch.io.image import (
+        fill_transparent,
+        read_image,
+        write_image,
+    )
+    from waifu2x_tensorrt_tpu_torch.utils import native_build
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "in").mkdir(parents=True)
+    rng = np.random.default_rng(13)
+    counts = {}
+
+    def argv(model, scale, noise, precision, src, out, *extra):
+        (root / out).mkdir(exist_ok=True)
+        return ["--model", model, "--scale", str(scale), "--noise",
+                str(noise), "--batchSize", "16", "--tileSize", "256",
+                "--precision", precision, "--models-dir",
+                str(root / "no_weights"), "--allow-random-weights",
+                "render", "-i", str(src), "-o", str(root / out), *extra]
+
+    # a. video (bench.py config4): swin_unet/photo 2x, t256, b16, bf16
+    clip = rng.integers(0, 256, (8, 720, 1280, 3), np.uint8)
+    src = write_raw_clip(root / "in" / "clip.mp4", clip)
+    name = "clip(swin_unet_photo)(scale2).mp4"
+    photo = ("swin_unet/photo", 2, -1)
+    with _video_shims(root) as piped:
+        dt, n = _cli(torch, "phase 13a",
+                     argv(*photo, "fp16", src, "a_bf16"))
+        lib = native_build.load_framepipe()
+        if lib is None or piped != {"read": 8, "written": 8}:
+            raise AssertionError(f"phase 13a: the native framepipe was not "
+                                 f"used: library {lib}, frames {piped}")
+        out_a = read_raw_clip(root / "a_bf16" / name, 1440, 2560)
+        fps = len(clip) / dt
+        mps = fps * 1440 * 2560 / 1e6
+        print(f"  phase 13a CLI video, photo 2x t256 b16 bf16, 8 frames of "
+              f"720p through the native framepipe ({Path(lib._name).name}, "
+              f"{piped['read']} frames read, {piped['written']} written): "
+              f"whole CLI call {dt:.3f} s = {fps:.3f} frames/s, {mps:.2f} "
+              f"output MP/s (includes the shim's pipes, the engine's load "
+              f"and its warm cycle); phase 5's streamed rate in this call "
+              f"{report['stream']['output_mp_per_s']:.2f} output MP/s, on "
+              f"{smi}", flush=True)
+        up = _upscaler(*photo, Precision.FP16, 256, 16)
+        _check_launches("phase 13a", n,
+                        _expected_launches(up, [((720, 1280), 8)]))
+        counts["video"] = n
+        if out_a.shape != (8, 1440, 2560, 3):
+            raise AssertionError(f"phase 13a: output {out_a.shape}")
+        worst = (0, 0.0)
+        for i, frame in enumerate(clip):
+            ok, dmax, frac = _golden_gate(out_a[i], up.render(frame),
+                                          max_frac=1e-3)
+            worst = max(worst, (dmax, frac))
+            if not ok:
+                raise AssertionError(f"phase 13a: frame {i} differs from its "
+                                     f"render: max {dmax}, changed {frac}")
+        print(f"  phase 13a each output frame vs Upscaler.render of its "
+              f"input: worst max {worst[0]} (tol 2), changed fraction "
+              f"{worst[1]:.2e} (tol 1e-03), mean {out_a.mean():.3f}: ok",
+              flush=True)
+
+        # b. the clip in segments of 3 frames (a stream each), stitched;
+        # then --resume renders nothing. bf16, and fp32 (--precision tf32)
+        seg = ("--segment-frames", "3")
+        dt, n = _cli(torch, "phase 13b",
+                     argv(*photo, "fp16", src, "b_bf16", *seg))
+        _check_launches("phase 13b segments of 3", n, _expected_launches(
+            up, [((720, 1280), 3), ((720, 1280), 3), ((720, 1280), 2)]))
+        counts["video_segmented"] = n
+        _, n = _cli(torch, "phase 13b resume",
+                    argv(*photo, "fp16", src, "b_bf16", *seg, "--resume"))
+        if any(n.values()):
+            raise AssertionError(f"phase 13b: --resume rendered: {n}")
+        counts["video_resume"] = n
+        out_b = read_raw_clip(root / "b_bf16" / name, 1440, 2560)
+        ok, dmax, frac = _golden_gate(out_b, out_a)
+        same16 = np.array_equal(out_b, out_a)
+        _cli(torch, "phase 13b fp32", argv(*photo, "tf32", src, "a_fp32"))
+        _cli(torch, "phase 13b fp32 segments",
+             argv(*photo, "tf32", src, "b_fp32", *seg))
+        same32 = (root / "a_fp32" / name).read_bytes() == \
+            (root / "b_fp32" / name).read_bytes()
+        holds = ("byte-identical in fp32 and in bf16" if same16 and same32
+                 else f"fp32 {'byte-identical' if same32 else 'DIFFERS'}; "
+                      f"bf16 within the golden gate, max {dmax} (tol 2), "
+                      f"changed fraction {frac:.2e} (tol 1e-04)")
+        print(f"  phase 13b --segment-frames 3 ({dt:.3f} s), stitched vs "
+              f"13a's whole clip: {holds}; --resume rendered nothing "
+              f"({n})", flush=True)
+        if not (same32 and (same16 or ok)):
+            raise AssertionError("phase 13b: the stitched clip differs")
+
+    # c. image folder (bench.py config6): swin_unet/art 4x noise 3, t256,
+    # b16, bf16; 8 stills of 512^2 and, in the middle, one of 384 x 640:
+    # three runs through the cross-file image stream
+    art = ("swin_unet/art", 4, 3)
+    folder = root / "in" / "stills"
+    folder.mkdir()
+    stills = {f"still_{i}": rng.integers(0, 256, (512, 512, 3), np.uint8)
+              for i in range(8)}
+    stills["still_3b"] = rng.integers(0, 256, (384, 640, 3), np.uint8)
+    for stem, img in stills.items():
+        write_image(folder / f"{stem}.png", img)
+    report_path = root / "c_metrics.json"
+    dt, n = _cli(torch, "phase 13c", argv(
+        *art, "fp16", folder, "c", "--metrics-json", str(report_path)))
+    up = _upscaler(*art, Precision.FP16, 256, 16)
+    _check_launches("phase 13c", n, _expected_launches(up, [
+        ((512, 512), 4), ((384, 640), 1), ((512, 512), 4)]))
+    counts["image_dir"] = n
+    metrics = json.loads(report_path.read_text())
+    rows = [(Path(f["input"]).stem, f["rc"], f["frames"])
+            for f in metrics["files"]]
+    if (rows != [(stem, 0, 1) for stem in sorted(stills)]
+            or metrics["totals"]["exit_code"] != 0
+            or not metrics["config"]["streamed_images"]):
+        raise AssertionError(f"phase 13c: metrics report {metrics}")
+    worst = (0, 0.0)
+    for stem, img in stills.items():
+        got = read_image(root / "c" / f"{stem}(swin_unet_art)(noise3)"
+                                      f"(scale4).png")
+        ok, dmax, frac = _golden_gate(got, up.render(img))
+        worst = max(worst, (dmax, frac))
+        if not ok:
+            raise AssertionError(f"phase 13c: {stem} differs from its "
+                                 f"render: max {dmax}, changed {frac}")
+    # the host's share: one 2048^2 output through the CLI's PNG writer
+    t0 = time.perf_counter()
+    write_image(root / "c_png_probe.png", got)
+    png_s = time.perf_counter() - t0
+    print(f"  phase 13c CLI image folder, art 4x t256 b16 bf16, 9 stills "
+          f"through the image stream in {dt:.3f} s ({len(stills) / dt:.3f} "
+          f"files/s, PNG decode and encode included; one 2048^2 PNG "
+          f"encode alone {png_s:.3f} s); each vs its single render: worst "
+          f"max {worst[0]} (tol 2), changed fraction {worst[1]:.2e} (tol "
+          f"1e-04); --metrics-json read back: {len(rows)} rows, rc 0, wall "
+          f"{metrics['totals']['wall_seconds']} s: ok", flush=True)
+
+    # d. an RGBA still with --alpha auto (the headline model): RGB is the
+    # render of fill_transparent(rgb, a), alpha the rounded channel mean
+    # of the render of the alpha plane
+    rgba = rng.integers(0, 256, (200, 264, 4), np.uint8)
+    rgba[..., 3] = 255
+    rgba[:80, :, 3] = 0
+    write_image(root / "in" / "rgba.png", rgba)
+    _, n = _cli(torch, "phase 13d", argv(
+        *art, "fp16", root / "in" / "rgba.png", "d", "--alpha", "auto"))
+    t = up._pipeline.get((200, 264))[2].tile_count
+    _check_launches("phase 13d", n, (2 * 10 * -(-t // 16), 2))
+    counts["alpha"] = n
+    from PIL import Image
+
+    got = np.asarray(Image.open(
+        root / "d" / "rgba(swin_unet_art)(noise3)(scale4).png"))
+    want_rgb = up.render(fill_transparent(rgba[..., :3], rgba[..., 3]))
+    a_r = up.render(np.repeat(rgba[..., 3:], 3, axis=2))
+    want_a = np.clip(np.rint(a_r.astype(np.float32).mean(axis=2)), 0,
+                     255).astype(np.uint8)
+    ok_rgb, d_rgb, f_rgb = _golden_gate(got[..., :3], want_rgb)
+    ok_a, d_a, f_a = _golden_gate(got[..., 3], want_a)
+    print(f"  phase 13d --alpha auto RGBA still 200x264 -> {got.shape}: RGB "
+          f"vs render(fill_transparent) max {d_rgb}, changed {f_rgb:.2e}; "
+          f"alpha vs the rounded mean of the alpha plane's render max {d_a}, "
+          f"changed {f_a:.2e} (tol 2, 1e-04); output alpha mean "
+          f"{got[320:, :, 3].mean():.3f} under opaque input, "
+          f"{got[:320, :, 3].mean():.3f} under transparent: "
+          f"{'ok' if ok_rgb and ok_a else 'FAIL'}", flush=True)
+    if got.shape != (800, 1056, 4) or not (ok_rgb and ok_a):
+        raise AssertionError("phase 13d: the RGBA still disagrees")
+    return counts
+
+
+# ffprobe / ffmpeg stand-ins that speak the pipe protocol of the port's
+# io/video.py over raw rgb24 clips: a clip is its frames' bytes, with a
+# JSON sidecar (<clip>.json: width, height, rate, frames) in place of a
+# container header. The encoder writes the raw frames it is piped; the
+# concat demuxer joins the listed parts byte for byte.
+_FFPROBE_SHIM = """\
+import json, sys
+meta = json.load(open(sys.argv[-1] + ".json"))
+if "-count_frames" in sys.argv:
+    print(meta["frames"])
+else:
+    print("width=%d" % meta["width"])
+    print("height=%d" % meta["height"])
+    print("r_frame_rate=" + meta["rate"])
+    print("nb_frames=%d" % meta["frames"])
+"""
+_FFMPEG_SHIM = """\
+import json, re, shutil, signal, sys
+signal.signal(signal.SIGPIPE, signal.SIG_DFL)  # a closed reader ends it
+argv = sys.argv[1:]
+src = argv[argv.index("-i") + 1]
+if "concat" in argv:
+    with open(argv[-1], "wb") as out:
+        for m in re.finditer(r"^file '(.*)'$", open(src).read(), re.M):
+            with open(m.group(1).replace("'\\\\''", "'"), "rb") as part:
+                shutil.copyfileobj(part, out)
+elif src == "-":
+    with open(argv[-1], "wb") as out:
+        shutil.copyfileobj(sys.stdin.buffer, out)
+else:
+    meta = json.load(open(src + ".json"))
+    size = meta["width"] * meta["height"] * 3
+    a, b = 0, meta["frames"]
+    if "-vf" in argv:
+        m = re.search(r"trim=start_frame=(\\d+):end_frame=(\\d+)",
+                      argv[argv.index("-vf") + 1])
+        a, b = int(m.group(1)), int(m.group(2))
+    with open(src, "rb") as f:
+        f.seek(a * size)
+        for _ in range(b - a):
+            sys.stdout.buffer.write(f.read(size))
+"""
+
+
+def write_ffmpeg_shims(bin_dir):
+    """Write executable ``ffprobe`` and ``ffmpeg`` stand-ins into
+    ``bin_dir`` (run by this interpreter); put ``bin_dir`` first on PATH to
+    drive the port's video path without a codec."""
+    from pathlib import Path
+
+    bin_dir = Path(bin_dir)
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    for name, body in (("ffprobe", _FFPROBE_SHIM), ("ffmpeg", _FFMPEG_SHIM)):
+        path = bin_dir / name
+        path.write_text(f"#!{sys.executable}\n{body}")
+        path.chmod(0o755)
+    return bin_dir
+
+
+def write_raw_clip(path, frames, rate="30000/1001"):
+    """A clip for the shims: the (N, H, W, 3) u8 frames' bytes at ``path``
+    and their sidecar beside it."""
+    from pathlib import Path
+
+    path = Path(path)
+    path.write_bytes(frames.tobytes())
+    n, h, w = frames.shape[:3]
+    Path(str(path) + ".json").write_text(json.dumps(
+        {"width": w, "height": h, "rate": rate, "frames": n}))
+    return path
+
+
+def read_raw_clip(path, h, w):
+    """The frames of a raw rgb24 file the encoder shim wrote."""
+    import numpy as np
+
+    return np.fromfile(path, np.uint8).reshape(-1, h, w, 3)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     torch = _require_cuda()
@@ -1454,6 +1831,11 @@ def main() -> int:
     n11 = phase_cunet(torch, smi, report)
     print("phase 12 TTA and whole-frame swin_unet, full width:", flush=True)
     n12 = phase_tta_whole_frame(torch, smi, report)
+    print("phase 13 the CLI: video, segments, image folder, alpha:",
+          flush=True)
+    t0 = time.perf_counter()
+    n13 = phase_cli(torch, smi, report)
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
     # launch counts of the new paths, as extra keys on B's and C's rows
     report["C"].update(
         launches_cunet_t256_still=n11["a"],
@@ -1463,6 +1845,9 @@ def main() -> int:
     report["B"].update(
         launches_tta=n12["a"]["B"], launches_rect_tta=n12["b"]["B"],
         launches_whole_frame=n12["c"]["B"])
+    for key, n in n13.items():
+        report["B"][f"launches_cli_{key}"] = n["B"]
+        report["C"][f"launches_cli_{key}"] = n["C"]
 
     src = "waifu2x_tensorrt_tpu_torch/ops/csrc/"
     main_run = ("phase 5: main path, fused_block=True, bf16, tile 256, "

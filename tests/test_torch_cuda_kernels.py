@@ -31,7 +31,10 @@ item counts that leave the last CTA partly idle and with NaN, infinities
 and -0.0 among the values; kernel F (the int8/bf16 probe) at the probe's
 four shapes, at the smallest tile (M 32), at N 96 and 288 and with A in
 registers and in shared memory, int8 equal to its plain twin and bf16
-within the float32 sum bound ``fp32_sum_bound``.
+within the float32 sum bound ``fp32_sum_bound``; ``fetch_async`` (the
+CLI's fetch into pinned memory, no synchronizing call) and
+``Upscaler.render_async`` (bucketed, cropped) equal to the synchronous
+fetch and ``render``.
 """
 
 import numpy as np
@@ -556,6 +559,48 @@ def test_swin_padded_tiles_render_on_card(tile, hw):
             frame).cpu().numpy().astype(int))
     diff = np.abs(renders[0] - renders[1])
     assert diff.max() <= 2 and (diff > 0).mean() <= 1e-4
+
+
+@pytest.mark.parametrize("crop", [None, (33, 50)])
+def test_fetch_async_copies_into_pinned_memory(crop):
+    """``fetch_async`` (the CLI's fetch of a device frame): the copy into
+    pinned host memory is queued with no synchronizing call, and
+    ``np.asarray`` of the handle gives the frame's bytes, C-contiguous,
+    also for a cropped (strided) view."""
+    from waifu2x_tensorrt_tpu_torch.engine.upscaler import fetch_async
+
+    x = torch.randint(0, 256, (40, 56, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(3)).cuda()
+    if crop is not None:
+        x = x[:crop[0], :crop[1]]
+    fetch_async(x)  # warms the pinned allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = fetch_async(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = np.asarray(handle)
+    assert got.flags.c_contiguous and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, x.cpu().numpy())
+
+
+def test_render_async_equals_render():
+    from waifu2x_tensorrt_tpu_torch.engine.config import (
+        Precision,
+        RenderConfig,
+    )
+    from waifu2x_tensorrt_tpu_torch.engine.upscaler import Upscaler
+
+    up = Upscaler(allow_random_init=True, device="cuda")
+    up.load("swin_unet/art", 2, -1, RenderConfig(
+        precision=Precision.FP16, batch_size=2, height=64, width=64,
+        scaling=2, overlap=(1 / 16, 1 / 16)), bucket=16)
+    frame = np.random.default_rng(6).integers(0, 256, (37, 45, 3), np.uint8)
+    want = up.render(frame)
+    got = np.asarray(up.render_async(frame))
+    assert got.shape == (74, 90, 3) and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)
 
 
 def test_kernel_c_finalize_makes_no_synchronizing_call():

@@ -4,12 +4,17 @@ An AST scan, because the test process has jax loaded already (the conftest
 imports it), so ``sys.modules`` cannot tell who imported it:
 - no module of the port, and not ``chip_smoke.py`` or the measurement
   scripts under ``tools/``, imports jax, flax or the JAX package;
-- ``triton`` is imported only inside functions;
-- importing every module of the port builds nothing.
+- ``triton``, ``cv2`` and ``PIL`` are imported only inside functions (the
+  card's machine need not have OpenCV or Pillow);
+- importing every module of the port builds nothing, neither the CUDA
+  kernels nor the native framepipe;
+- the port builds and loads its own framepipe, never the JAX package's
+  ``native/build/``.
 """
 
 import ast
 import importlib
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -61,6 +66,36 @@ def test_triton_only_inside_functions(path):
                 f"{path.name} imports triton at import time"
 
 
+LAZY = ("cv2", "PIL")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_optional_modules_only_inside_functions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    eager = list(tree.body)
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef):
+            eager.extend(node.body)
+    for node in eager:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert not any(n.split(".")[0] in LAZY for n in names), \
+                f"{path.name} imports {names} at import time"
+
+
+def test_framepipe_is_the_ports_own():
+    from waifu2x_tensorrt_tpu_torch.utils import native_build
+
+    assert native_build.SRC == PKG / "native" / "framepipe.cpp"
+    assert native_build.BUILD_DIR == ROOT / "build" / "framepipe"
+    assert native_build.lib_path().parent == native_build.BUILD_DIR
+    pattern = re.compile(r"native['\"]?\s*[/,]\s*['\"]?build")
+    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), \
+            f"{path.name} names the JAX package's native/build/"
+
+
 def test_forbidden_name_check_is_exact():
     assert _forbidden("jax.numpy") and _forbidden("waifu2x_tensorrt_tpu.ops")
     assert not _forbidden("waifu2x_tensorrt_tpu_torch.ops")
@@ -81,7 +116,8 @@ def test_every_module_imports():
 
 def test_importing_builds_nothing():
     """In a fresh interpreter: importing every module of the port loads no
-    kernel library and writes nothing under build/kernels/."""
+    kernel library, tries no framepipe build and writes nothing under
+    build/kernels/."""
     from waifu2x_tensorrt_tpu_torch.ops import build
 
     before = (sorted(build.BUILD_DIR.glob("*"))
@@ -89,7 +125,10 @@ def test_importing_builds_nothing():
     code = "\n".join(
         [f"import {n}" for n in _module_names()]
         + ["from waifu2x_tensorrt_tpu_torch.ops import build",
-           "assert build._lib is None"])
+           "assert build._lib is None",
+           "from waifu2x_tensorrt_tpu_torch.utils import native_build",
+           "assert native_build._cached is None",
+           "assert not native_build._load_failed"])
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -289,14 +289,14 @@ def test_cli_tf32_precision_is_fp32(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--alpha", "auto"],
+    ["--graph-exact"],
 ])
 def test_cli_unported_flags_exit_nonzero(tmp_path, extra, capsys):
     from waifu2x_tensorrt_tpu_torch import cli
 
     argv = ["--model", "swin_unet/art", "--scale", "2", "--noise", "-1",
             "--batchSize", "2", "--tileSize", "64", "--device", "cpu",
-            "render", "-i", str(tmp_path)] + extra
+            *extra, "render", "-i", str(tmp_path)]
     assert cli.main(argv) != 0
     assert "not yet ported" in capsys.readouterr().err
 

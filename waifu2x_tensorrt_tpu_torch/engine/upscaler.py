@@ -3,8 +3,8 @@ src/tensorrt/img2img.h:14-50), the port of
 ``waifu2x_tensorrt_tpu.engine.upscaler``.
 
 Owns the model module, the chunked pipeline and the message/progress
-callback seams: ``load()``, ``render()``, ``open_stream()``,
-``set_message_callback()``, ``set_progress_callback()``.
+callback seams: ``load()``, ``render()``, ``render_async()``,
+``open_stream()``, ``set_message_callback()``, ``set_progress_callback()``.
 Errors raise (the CLI turns them into exit codes). ``load(...,
 bucket=N)`` edge-pads every frame up to a multiple of N before it renders
 and crops the output back.
@@ -140,15 +140,25 @@ class Upscaler:
             f"weights={'file' if from_file else 'random'})")
 
     # -- render (img2img_render.cpp:224-352) -------------------------------
-    def render(self, frame_u8) -> np.ndarray:
-        """Upscale one RGB uint8 HWC frame; returns RGB uint8 HWC (host).
-        Fires the progress callback per model chunk."""
+    def _render_device(self, frame_u8) -> torch.Tensor:
         if self._pipeline is None:
             raise RuntimeError("load() must be called before render()")
         frame_u8, (h, w) = bucket_frame(frame_u8, self._bucket)
         out = self._pipeline.render(frame_u8, progress=self.logger.progress)
         s = self._spec.scale
-        return out[:h * s, :w * s].cpu().numpy()
+        return out[:h * s, :w * s]
+
+    def render(self, frame_u8) -> np.ndarray:
+        """Upscale one RGB uint8 HWC frame; returns RGB uint8 HWC (host).
+        Fires the progress callback per model chunk."""
+        return self._render_device(frame_u8).cpu().numpy()
+
+    def render_async(self, frame_u8):
+        """``render`` whose fetch has not waited yet: the frame's copy to the
+        host is queued behind its render (``fetch_async``), and
+        ``np.asarray`` of the result waits for it. Decode and encode of
+        neighbouring frames overlap the device work meanwhile."""
+        return fetch_async(self._render_device(frame_u8))
 
     def open_stream(self, frame_hw) -> Optional["_StreamSession"]:
         """A cross-frame streaming session for fixed-size frames: leftover
@@ -178,6 +188,37 @@ class Upscaler:
     @property
     def spec(self) -> Optional[registry.ModelSpec]:
         return self._spec
+
+
+class _HostCopy:
+    """A device frame on its way into pinned host memory: the copy and an
+    event after it are queued on the frame's stream; ``np.asarray`` waits
+    on the event and returns a view of the pinned C-contiguous buffer."""
+
+    def __init__(self, frame: torch.Tensor) -> None:
+        with torch.cuda.device(frame.device):
+            self._host = torch.empty(tuple(frame.shape), dtype=frame.dtype,
+                                     pin_memory=True)
+            # a cropped output is a strided view: made dense on the device
+            self._host.copy_(frame.contiguous(), non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
+
+    def __array__(self, dtype=None, copy=None):
+        self._done.synchronize()
+        out = self._host.numpy()
+        if dtype is not None:
+            out = out.astype(dtype, copy=False)
+        return out.copy() if copy else out
+
+
+def fetch_async(frame):
+    """The host side of a device frame without waiting for it: for a CUDA
+    tensor a ``_HostCopy`` (``np.asarray`` waits for its copy), for anything
+    else the object itself (on the CPU the tensor is already host memory)."""
+    if isinstance(frame, torch.Tensor) and frame.is_cuda:
+        return _HostCopy(frame)
+    return frame
 
 
 class _StreamSession:

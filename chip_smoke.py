@@ -121,6 +121,29 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      d. an RGBA still with ``--alpha auto``: 4 channels; RGB against the
         render of ``fill_transparent``, alpha against the rounded channel
         mean of the alpha plane's render (golden gate)
+ 14. ``.onnx`` artifacts (seeded full-width exports of
+     ``tests/torch_mirror.py``, written under build/chip_smoke_onnx/):
+     a. swin_unet/art 4x noise 3 (base_dim 96, depths (2, 2, 6, 2, 2),
+        exported at tile 256) through the CLI's ``build`` (fp16, batch 16,
+        tile 256), cold (no ``.verify.json``, nvcc compiling the kernel
+        library into an empty directory) and warm (both cached): exit 0, one
+        engine sidecar, ``.verify.json`` max_err <= 1e-4, B 10 launches a
+        build (one forward at the profile's corner); seconds of each, and
+        the host seconds of parse, shape probe, conversion and
+        verification;
+     b. phase 5's 10 streamed 720p frames from the ``.onnx`` alone
+        (``require_engine=True``: the build's sidecar), the verified path,
+        two passes: B 10 a chunk, C one a frame; byte-identical to the
+        stream of the weights ``validate --save-npz`` wrote (its gate
+        printed), rendered from the ``.npz``;
+     c. ``graph_exact``: the frames in tf32 against the verified tf32
+        path (golden gate), in fp16 against the verified tf32 frames by
+        the bf16 rule (|g16 - v32| <= max(2 |v16 - v32|, 0.02 x 255) in
+        u8); B 0, C one a frame; output MP/s of each pass of the verified
+        and graph-exact streams, fp16 and tf32, all over the same window;
+     d. cunet/art 2x noise 1 (``export_torch_cunet``) through the CLI's
+        ``build`` and ``render`` of a 512 x 512 still: C one launch, the
+        output against ``Upscaler.render`` of the artifact (golden gate)
 
 Times are per call: the median over 10 samples, each the CUDA-event time
 of 10 calls in a row divided by 10 (kernel F's probe times its own
@@ -138,11 +161,11 @@ are set to 0 just before phases 5, 7 and 9, phase 7's stream, E's API call
 of phase 8, the probe's run of phase 10 and each render or stream of
 phases 11 and 12, and read just after each (phase 5: kernels B and C;
 phase 7: A; phase 8: E; phase 9: D, B and C; phase 10: F; phase 11: C;
-phase 12: B and C), and around each CLI call of phase 13 (B and C, equal
-to the counts its streams and renders imply); each kernel must have
-launched in its run. The ``kernels`` line counts A in phase 7's stream,
-and B's and C's rows carry the counts of phases 11-13 as ``launches_*``
-keys. Any failed check
+phase 12: B and C), and around each CLI call of phases 13 and 14 and
+each stream of phase 14 (B and C, equal to the counts its streams and
+renders imply); each kernel must have launched in its run. The
+``kernels`` line counts A in phase 7's stream, and B's and C's rows carry
+the counts of phases 11-14 as ``launches_*`` keys. Any failed check
 raises, so the script exits non-zero; the last line is the JSON device
 record, printed only when every phase passed. Without a CUDA device it
 exits non-zero before printing any result.
@@ -152,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -1493,8 +1517,6 @@ def _cli(torch, label, argv):
     """One call of the port's CLI (``cli.main``) with the launch counters
     set to 0 just before it; returns (seconds, launch counts). Its console
     goes to a buffer, printed if the call fails."""
-    import io
-
     from waifu2x_tensorrt_tpu_torch import cli
 
     torch.cuda.synchronize()
@@ -1708,6 +1730,254 @@ def phase_cli(torch, smi, report):
     return counts
 
 
+def _mirror():
+    """The torch mirrors' exporters (``tests/torch_mirror.py``: torch and
+    numpy only, ``torch.onnx.export(dynamo=False)``, no ``onnx`` package)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_mirror
+
+    return torch_mirror
+
+
+def _onnx_stream(torch, up, frames, passes=2):
+    """(outputs of the first pass as host arrays, output MP/s of each pass,
+    launch counts of each pass) of ``passes`` streams of the frames
+    (``_stream_run``, each warmed and counted on its own)."""
+    first, rates, counts = None, [], []
+    for _ in range(passes):
+        outs, dt, n = _stream_run(torch, up, frames)
+        if first is None:
+            first = [o.cpu().numpy() for o in outs]
+        rates.append(len(frames) * 2880 * 5120 / 1e6 / dt)
+        counts.append(n)
+    return first, rates, counts
+
+
+def _rates(mps):
+    return " / ".join(f"{r:.2f}" for r in mps)
+
+
+def _stream_launches(up, n_frames):
+    """(B, C) of a stream of ``n_frames`` frames after its warm cycle:
+    10 launches of B a chunk (none for cunet or a parsed graph), one of C
+    a frame."""
+    t = up._pipeline.get((720, 1280))[2].tile_count
+    chunks = -(-n_frames * t // up._pipeline.config.batch_size)
+    return 10 * chunks, n_frames
+
+
+def phase_onnx(torch, smi, report):
+    """Phase 14: ``.onnx`` artifacts served by the port. (a) a seeded
+    full-width swin_unet/art 4x noise 3 export (``torch_mirror``) through
+    the CLI's ``build`` (fp16, batch 16, tile 256), cold (verification and
+    a kernel library built afresh) and warm (both cached); (b) 720p frames
+    from the ``.onnx`` alone on the verified path (``require_engine``),
+    byte-identical to the weights ``validate --save-npz`` wrote, rendered
+    from the ``.npz``; (c) ``graph_exact``: tf32 against the verified path
+    (golden gate), fp16 by the bf16 rule, output MP/s of both paths; (d) a
+    cunet/art 2x noise 1 export through ``build`` and ``render``. Returns
+    the launch counts of each run."""
+    import json as _json
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
+    from waifu2x_tensorrt_tpu_torch.io.image import read_image, write_image
+    from waifu2x_tensorrt_tpu_torch.models import validate
+    from waifu2x_tensorrt_tpu_torch.ops import build as kernel_build
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_onnx"
+    shutil.rmtree(root, ignore_errors=True)
+    models, npz_models = root / "models", root / "npz_models"
+    art = models / "swin_unet" / "art" / "noise3_scale4x.onnx"
+    art.parent.mkdir(parents=True)
+    mirror = _mirror()
+    t0 = time.perf_counter()
+    mirror.export_torch_swin(art, scale=4, base_dim=96,
+                             depths=(2, 2, 6, 2, 2), tile=256, seed=14)
+    export_s = time.perf_counter() - t0
+    counts = {}
+    swin = ("swin_unet/art", 4, 3)
+
+    def argv(model, scale, noise, precision, *cmd, models_dir=models):
+        return ["--model", model, "--scale", str(scale), "--noise",
+                str(noise), "--batchSize", "16", "--tileSize", "256",
+                "--precision", precision, "--models-dir", str(models_dir),
+                *cmd]
+
+    # a. build, cold: no .verify.json and the kernel library compiled
+    # into an empty directory (the process keeps the library it loaded in
+    # phase 2, of the same sources: a second copy of it is not loaded);
+    # then warm: both cached
+    saved_dir = kernel_build.BUILD_DIR
+    kernel_build.BUILD_DIR = root / "kernels"
+    try:
+        cold_s, n_cold = _cli(torch, "phase 14a build (cold)",
+                              argv(*swin, "fp16", "build"))
+    finally:
+        kernel_build.BUILD_DIR = saved_dir
+    warm_s, n_warm = _cli(torch, "phase 14a build (warm)",
+                          argv(*swin, "fp16", "build"))
+    # the host's share of a cold build, step by step
+    from waifu2x_tensorrt_tpu_torch.models import onnx_backend, onnx_graph
+
+    steps = {}
+    t0 = time.perf_counter()
+    graph = onnx_graph.read_graph(art)
+    steps["parse"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arch = onnx_backend.derive_arch(graph)
+    steps["shape probe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = onnx_backend.swin_params_from_graph(graph)
+    steps["conversion"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    onnx_backend.verify_swin_conversion(graph, arch, flat)
+    steps["verification"] = time.perf_counter() - t0
+    sidecars = sorted(p.name for p in art.parent.glob("*.engine.json"))
+    rec = _json.loads((art.parent / (art.name + ".verify.json")).read_text())
+    mb = art.stat().st_size / 1e6
+    print(f"  phase 14a full-width swin_unet/art 4x export ({mb:.1f} MB, "
+          f"{export_s:.1f} s) through the CLI's build "
+          f"(fp16, b16, t256): cold {cold_s:.2f} s (verification + kernel "
+          f"library), warm {warm_s:.2f} s (both cached); sidecar "
+          f"{sidecars}; .verify.json max_err {rec.get('max_err')} "
+          f"(tol 1e-4); build launches {n_cold} / {n_warm}; on {smi}",
+          flush=True)
+    print("  phase 14a host seconds of the artifact's steps: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in steps.items()), flush=True)
+    if (len(sidecars) != 1 or not float(rec.get("max_err", 1)) <= 1e-4
+            or n_cold["B"] != 10 or n_warm["B"] != 10):
+        raise AssertionError(f"phase 14a: build gave sidecars {sidecars}, "
+                             f"record {rec}, launches {n_cold} {n_warm}")
+    counts["build"] = n_warm
+
+    # b. the .onnx alone on the verified path vs the .npz validate wrote;
+    # every rate of (b) and (c) is over phase 5's window: its 10 frames,
+    # two passes
+    rng = np.random.default_rng(14)
+    frames = _phase5_frames()[1]
+
+    def load(models_dir, precision, graph_exact=False, require=False):
+        from waifu2x_tensorrt_tpu_torch.engine.config import RenderConfig
+        from waifu2x_tensorrt_tpu_torch.engine.upscaler import Upscaler
+
+        up = Upscaler(models_dir=models_dir, device="cuda:0")
+        up.load(*swin, RenderConfig(
+            precision=precision, batch_size=16, height=256, width=256,
+            scaling=4, overlap=(1 / 16, 1 / 16)),
+            require_engine=require, graph_exact=graph_exact)
+        return up
+
+    # the build's sidecar must satisfy this load (require_engine)
+    up = load(models, Precision.FP16, require=True)
+    onnx16, mps16, n16v = _onnx_stream(torch, up, frames)
+    want = _stream_launches(up, len(frames))
+    npz = npz_models / "swin_unet" / "art" / "noise3_scale4x.npz"
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = validate.main([str(art), "--family", "swin_unet/art",
+                            "--scale", "4", "--noise", "3", "--tile", "256",
+                            "--save-npz", str(npz)])
+    if rc != 0:
+        print(buf.getvalue()[-3000:], file=sys.stderr)
+        raise AssertionError(f"phase 14b: validate exited {rc}")
+    gate = [ln for ln in buf.getvalue().splitlines() if ln.startswith("max")]
+    npz16, _, _ = _onnx_stream(torch, load(npz_models, Precision.FP16),
+                               frames, passes=1)
+    same = all(np.array_equal(a, b) for a, b in zip(onnx16, npz16))
+    print(f"  phase 14b .onnx alone, verified path, {len(frames)} streamed "
+          f"720p frames, two passes: {_rates(mps16)} output MP/s; launches "
+          f"{n16v} (B, C each pass) expected {want}; validate --save-npz "
+          f"(port modules on the "
+          f"card, tile 256): {'; '.join(gate)}; the .npz's stream "
+          f"byte-identical to the .onnx's: {same}; mean "
+          f"{np.mean(onnx16):.3f}, share of values strictly inside (0, "
+          f"255): {np.mean([(o > 0) & (o < 255) for o in onnx16]):.3f}",
+          flush=True)
+    if (any((n["B"], n["C"]) != want or any(n[k] for k in "ADEF")
+            for n in n16v) or not same):
+        raise AssertionError(f"phase 14b: launches {n16v} (want {want}), "
+                             f"byte-identical {same}")
+    counts["verified"] = n16v[0]
+
+    # c. graph-exact: tf32 against the verified path, fp16 by the bf16
+    # rule against the verified fp32 frames
+    ver32, mps32, _ = _onnx_stream(torch, load(models, Precision.TF32),
+                                   frames)
+    g32, mps_g32, n32 = _onnx_stream(
+        torch, load(models, Precision.TF32, graph_exact=True), frames)
+    g16, mps_g16, n16 = _onnx_stream(
+        torch, load(models, Precision.FP16, graph_exact=True), frames)
+    worst = (0, 0.0)
+    for a, b in zip(g32, ver32):
+        ok, dmax, frac = _golden_gate(a, b)
+        worst = max(worst, (dmax, frac))
+        if not ok:
+            raise AssertionError(f"phase 14c: tf32 graph-exact frame vs "
+                                 f"the verified path: max {dmax}, changed "
+                                 f"{frac}")
+    d16 = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+              for a, b in zip(g16, ver32))
+    dver = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+               for a, b in zip(onnx16, ver32))
+    tol16 = max(2 * dver, 0.02 * 255)
+    print(f"  phase 14c graph-exact, {len(frames)} streamed 720p frames: "
+          f"tf32 vs the "
+          f"verified tf32 path worst max {worst[0]} (tol 2), changed "
+          f"{worst[1]:.2e} (tol 1e-04); fp16 vs verified tf32 max {d16} "
+          f"(bf16 rule: tol max(2 x {dver}, 0.02 x 255) = {tol16:.2f}); "
+          f"launches tf32 {n32}, fp16 {n16} (each pass)", flush=True)
+    print(f"  phase 14b/c output MP/s, {len(frames)} streamed 720p frames, "
+          f"pass 1 / pass 2: verified fp16 {_rates(mps16)}, graph-exact "
+          f"fp16 {_rates(mps_g16)}; verified tf32 {_rates(mps32)}, "
+          f"graph-exact tf32 {_rates(mps_g32)}; on {smi}", flush=True)
+    for label, nn in (("tf32", n32), ("fp16", n16)):
+        if any(n["C"] != len(frames) or any(n[k] for k in "ABDEF")
+               for n in nn):
+            raise AssertionError(f"phase 14c {label}: launches {nn}")
+    if d16 > tol16:
+        raise AssertionError(f"phase 14c: fp16 graph-exact max {d16} > "
+                             f"{tol16}")
+    counts["graph_tf32"], counts["graph_fp16"] = n32[0], n16[0]
+
+    # d. cunet/art 2x noise 1: build, then render a 512^2 still (CLI)
+    cu = ("cunet/art", 2, 1)
+    cu_art = models / "cunet" / "art" / "noise1_scale2x.onnx"
+    cu_art.parent.mkdir(parents=True)
+    mirror.export_torch_cunet(cu_art, scale=2, tile=76, seed=14)
+    bs, nb = _cli(torch, "phase 14d build", argv(*cu, "fp16", "build"))
+    still = rng.integers(0, 256, (512, 512, 3), np.uint8)
+    write_image(root / "still.png", still)
+    (root / "out").mkdir()
+    rs, nr = _cli(torch, "phase 14d render", argv(
+        *cu, "fp16", "render", "-i", str(root / "still.png"), "-o",
+        str(root / "out")))
+    got = read_image(root / "out" / "still(cunet_art)(noise1)(scale2).png")
+    from waifu2x_tensorrt_tpu_torch.engine.config import RenderConfig
+    from waifu2x_tensorrt_tpu_torch.engine.upscaler import Upscaler
+
+    cu_up = Upscaler(models_dir=models, device="cuda:0")
+    cu_up.load(*cu, RenderConfig(precision=Precision.FP16, batch_size=16,
+                                 height=256, width=256, scaling=2),
+               require_engine=True)
+    ok, dmax, frac = _golden_gate(got, cu_up.render(still))
+    print(f"  phase 14d cunet/art 2x export: CLI build {bs:.2f} s "
+          f"(launches {nb}), CLI render of a 512^2 still {rs:.2f} s -> "
+          f"{got.shape}, launches {nr}; vs Upscaler.render of the "
+          f"artifact: max {dmax}, changed {frac:.2e} (golden gate): "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if (got.shape != (1024, 1024, 3) or not ok or nr["C"] != 1
+            or any(nr[k] for k in "ABDEF")):
+        raise AssertionError(f"phase 14d: render {got.shape}, launches "
+                             f"{nr}, gate {ok}")
+    counts["cunet_render"] = nr
+    return counts
+
+
 # ffprobe / ffmpeg stand-ins that speak the pipe protocol of the port's
 # io/video.py over raw rgb24 clips: a clip is its frames' bytes, with a
 # JSON sidecar (<clip>.json: width, height, rate, frames) in place of a
@@ -1836,6 +2106,11 @@ def main() -> int:
     t0 = time.perf_counter()
     n13 = phase_cli(torch, smi, report)
     print(f"  phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase 14 .onnx artifacts: build, verified and graph-exact "
+          "serving:", flush=True)
+    t0 = time.perf_counter()
+    n14 = phase_onnx(torch, smi, report)
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
     # launch counts of the new paths, as extra keys on B's and C's rows
     report["C"].update(
         launches_cunet_t256_still=n11["a"],
@@ -1848,6 +2123,9 @@ def main() -> int:
     for key, n in n13.items():
         report["B"][f"launches_cli_{key}"] = n["B"]
         report["C"][f"launches_cli_{key}"] = n["C"]
+    for key, n in n14.items():
+        report["B"][f"launches_onnx_{key}"] = n["B"]
+        report["C"][f"launches_onnx_{key}"] = n["C"]
 
     src = "waifu2x_tensorrt_tpu_torch/ops/csrc/"
     main_run = ("phase 5: main path, fused_block=True, bf16, tile 256, "

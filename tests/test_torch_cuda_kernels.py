@@ -784,3 +784,36 @@ def test_kernel_f_small_tiles(m, k, n):
             else:
                 err = (got - want).abs().max().item()
                 assert err <= fp32_sum_bound(a, b), err
+
+
+@pytest.mark.parametrize("family", ["swin", "cunet"])
+def test_graph_module_on_card_matches_cpu(tmp_path, family):
+    """``GraphModule`` (the ``--graph-exact`` executor) on CUDA against its
+    CPU run on the same tiles: fp32 within 1e-4 (TF32 off), bf16 by the
+    bf16 rule against the CPU's fp32."""
+    from torch_mirror import export_torch_cunet, export_torch_swin
+
+    from waifu2x_tensorrt_tpu_torch.models.onnx_backend import GraphModule
+    from waifu2x_tensorrt_tpu_torch.models.onnx_graph import read_graph
+
+    path = tmp_path / "m.onnx"
+    if family == "swin":
+        export_torch_swin(path, scale=2, base_dim=32, depths=(2, 2, 2, 2, 2),
+                          tile=64, seed=3)
+        tile = 64
+    else:
+        export_torch_cunet(path, scale=2, tile=76, seed=3)
+        tile = 76
+    graph = read_graph(path)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (3, tile, tile, 3)).astype(np.float32))
+    with torch.inference_mode():
+        p32 = GraphModule(graph)(x)
+        k32 = GraphModule(graph, device="cuda")(x.cuda()).cpu()
+        p16 = GraphModule(graph, torch.bfloat16)(x.bfloat16()).float()
+        k16 = GraphModule(graph, torch.bfloat16, device="cuda")(
+            x.cuda().bfloat16()).float().cpu()
+    assert k32.shape == p32.shape and k32.is_contiguous()
+    assert float((k32 - p32).abs().max()) <= 1e-4
+    tol = max(2 * float((p16 - p32).abs().max()), 0.02)
+    assert float((k16 - p32).abs().max()) <= tol

@@ -288,21 +288,8 @@ def test_cli_tf32_precision_is_fp32(tmp_path):
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
-@pytest.mark.parametrize("extra", [
-    ["--graph-exact"],
-])
-def test_cli_unported_flags_exit_nonzero(tmp_path, extra, capsys):
-    from waifu2x_tensorrt_tpu_torch import cli
-
-    argv = ["--model", "swin_unet/art", "--scale", "2", "--noise", "-1",
-            "--batchSize", "2", "--tileSize", "64", "--device", "cpu",
-            *extra, "render", "-i", str(tmp_path)]
-    assert cli.main(argv) != 0
-    assert "not yet ported" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("argv", [
-    ["--tileSize", "auto"], ["--dp", "2"], ["build"],
+    ["--tileSize", "auto"], ["--dp", "2"],
 ])
 def test_cli_unported_options_exit_nonzero(tmp_path, argv, capsys):
     from waifu2x_tensorrt_tpu_torch import cli
@@ -314,8 +301,7 @@ def test_cli_unported_options_exit_nonzero(tmp_path, argv, capsys):
             "--device", "cpu"]
     for k, v in base.items():
         args += [k, v]
-    args += ["build"] if argv == ["build"] else ["render", "-i",
-                                                 str(tmp_path)]
+    args += ["render", "-i", str(tmp_path)]
     assert cli.main(args) != 0
     assert "not yet ported" in capsys.readouterr().err
 

@@ -13,7 +13,12 @@ through ``Upscaler``):
 - ``cunet-1080p``: cunet/art 2x noise 1, tile 256, batch 16, 1080p
   frames (phase 11c, config 1d);
 - ``art-scan-tta``: swin_unet/art_scan 4x noise 3, tile 128, batch 8,
-  8-way TTA, 512 x 512 frames (phase 12a, config 3).
+  8-way TTA, 512 x 512 frames (phase 12a, config 3);
+- ``graph-exact``: the flagship's configuration served from a seeded
+  full-width ``.onnx`` export (``tests/torch_mirror.py``, written under
+  ``build/profile_stream_models/``) through its own parsed graph
+  (``load(..., graph_exact=True)``: ``GraphModule``, torch ops under
+  ``torch.func.vmap``; ``chip_smoke.py`` phase 14c).
 
 Opens a stream for the cell's frames and runs its warm cycle. It first
 reads the unprofiled streamed rate twice (outputs kept, host clock ending
@@ -53,7 +58,7 @@ from pathlib import Path
 GROUPS = (  # (label, substrings of the device event name), first match
     ("kernel B swin_block", ("swin_block",)),
     ("kernel C finalize_gather", ("finalize_gather",)),
-    ("roll", ("roll",)),
+    ("roll", ("roll_cuda",)),  # not "unrolled_elementwise_kernel"
     ("TTA flips", ("flip",)),
     ("copies (layout, dtype)", ("copy", "Copy")),
     ("host-to-device copies", ("HtoD",)),
@@ -68,6 +73,7 @@ CELLS = {
     "cunet-whole-frame": ("cunet/art", 2, 1, 0, 16, False, (512, 512)),
     "cunet-1080p": ("cunet/art", 2, 1, 256, 16, False, (1080, 1920)),
     "art-scan-tta": ("swin_unet/art_scan", 4, 3, 128, 8, True, (512, 512)),
+    "graph-exact": ("swin_unet/art", 4, 3, 256, 16, False, (720, 1280)),
 }
 
 
@@ -126,11 +132,25 @@ def main() -> int:
     print(f"card: {smi}; package from {args.root}; cell {args.cell}: "
           f"{family} {scale}x noise {noise}, tile {tile or 'whole frame'}, "
           f"batch {batch}, tta {tta}, {hw[0]}x{hw[1]} frames", flush=True)
-    up = Upscaler(allow_random_init=True, device="cuda:0")
     cfg = RenderConfig(precision=Precision.FP16, batch_size=batch,
                        height=tile, width=tile, scaling=scale,
                        overlap=(1 / 16, 1 / 16), tta=tta)
-    up.load(family, scale, noise, cfg)
+    if args.cell == "graph-exact":
+        from waifu2x_tensorrt_tpu_torch.models import registry
+
+        models = Path(__file__).resolve().parents[1] / "build" / \
+            "profile_stream_models"
+        art = registry.weights_path(models, family, scale,
+                                    noise).with_suffix(".onnx")
+        art.parent.mkdir(parents=True, exist_ok=True)
+        cs._mirror().export_torch_swin(art, scale=scale, base_dim=96,
+                                       depths=(2, 2, 6, 2, 2), tile=tile,
+                                       seed=14)
+        up = Upscaler(models_dir=models, device="cuda:0")
+        up.load(family, scale, noise, cfg, graph_exact=True)
+    else:
+        up = Upscaler(allow_random_init=True, device="cuda:0")
+        up.load(family, scale, noise, cfg)
     rng = np.random.default_rng(5)
     frames = [rng.integers(0, 256, (*hw, 3), np.uint8)
               for _ in range(args.frames)]

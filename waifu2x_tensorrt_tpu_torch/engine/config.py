@@ -67,3 +67,53 @@ class RenderConfig:
     scaling: int = 4
     overlap: tuple[float, float] = (0.0625, 0.0625)
     tta: bool = False
+
+
+def is_compatible(render: RenderConfig, build: BuildConfig) -> bool:
+    """Range-compatibility check (reference img2img_load.cpp:9-20).
+
+    Device identity is not compared here: engines are keyed on the device
+    *name* (img2img_build.cpp:12), which ``find_engine`` matches against
+    the sidecar's recorded name, so a render on ``--device N>0`` still
+    finds an engine built on device 0 of the same kind.
+    """
+    return (
+        render.precision == build.precision
+        and build.min_batch_size <= render.batch_size <= build.max_batch_size
+        and build.min_channels <= render.channels <= build.max_channels
+        and build.min_width <= render.width <= build.max_width
+        and build.min_height <= render.height <= build.max_height
+    )
+
+
+def compiled_shapes(build: BuildConfig) -> tuple[tuple[int, int, int], ...]:
+    """Distinct (batch, height, width) corner geometries of a profile
+    (min, opt, max) that ``Upscaler.build`` checks and runs once each."""
+    shapes: list[tuple[int, int, int]] = []
+    for b, h, w in (
+        (build.min_batch_size, build.min_height, build.min_width),
+        (build.opt_batch_size, build.opt_height, build.opt_width),
+        (build.max_batch_size, build.max_height, build.max_width),
+    ):
+        if (b, h, w) not in shapes:
+            shapes.append((b, h, w))
+    return tuple(shapes)
+
+
+def is_warm(render: RenderConfig, build: BuildConfig) -> bool:
+    """True iff the render geometry is one of the build's corners."""
+    return (
+        render.batch_size,
+        render.height,
+        render.width,
+    ) in compiled_shapes(build)
+
+
+def is_optimized(render: RenderConfig, build: BuildConfig) -> bool:
+    """Exact-opt match check (reference img2img_load.cpp:22-27)."""
+    return (
+        render.batch_size == build.opt_batch_size
+        and render.channels == build.opt_channels
+        and render.width == build.opt_width
+        and render.height == build.opt_height
+    )

@@ -3,11 +3,28 @@ src/tensorrt/img2img.h:14-50), the port of
 ``waifu2x_tensorrt_tpu.engine.upscaler``.
 
 Owns the model module, the chunked pipeline and the message/progress
-callback seams: ``load()``, ``render()``, ``render_async()``,
+callback seams: ``build()``, ``load()``, ``render()``, ``render_async()``,
 ``open_stream()``, ``set_message_callback()``, ``set_progress_callback()``.
 Errors raise (the CLI turns them into exit codes). ``load(...,
 bucket=N)`` edge-pads every frame up to a multiple of N before it renders
 and crops the output back.
+
+Weights: a ``.npz`` under ``models/<family>/`` (``registry.weights_path``),
+else a bare ``.onnx`` artifact at the same stem. An artifact is parsed and
+its weights converted positionally and VERIFIED against its own graph
+(``onnx_backend.verify_*_conversion``, the verdict cached in
+``<artifact>.verify.json``); a verified artifact serves through the port's
+modules (kernel B for swin_unet on CUDA), any other — or every one with
+``graph_exact=True`` — through its own parsed graph (``GraphModule``).
+Only the converters' and verifiers' ValueError selects the graph; an
+error on the device raises.
+
+``build()`` resolves the model as ``load()`` will, builds the CUDA kernel
+library (on CUDA), runs one forward at each corner geometry of the
+profile and writes the engine sidecar ``<stem>_<hash16>.engine.json``;
+``load()`` selects a sidecar as the reference's getEnginePath does
+(``engine/cache.py``) and, with ``require_engine=True``, fails without
+one. There is no compiled-program store.
 
 No fallback hides the device or a kernel: without a CUDA device a CUDA
 render raises, the CPU serves only when asked for by name, and a kernel
@@ -16,26 +33,38 @@ Swin block) is the default on CUDA.
 
 ``WAIFU2X_PACK_X=1`` in the environment adds the packed-x-head twin of the
 model (kernel D, same parameters) for every pack-aligned geometry, on any
-device: kernel D on CUDA, its plain twin on the CPU.
+device: kernel D on CUDA, its plain twin on the CPU; not for a model made
+from an ``.onnx`` artifact.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
+import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
-from waifu2x_tensorrt_tpu_torch.engine.config import RenderConfig
+from waifu2x_tensorrt_tpu_torch.engine import cache as engine_cache
+from waifu2x_tensorrt_tpu_torch.engine.config import (
+    BuildConfig,
+    Precision,
+    RenderConfig,
+    compiled_shapes,
+)
 from waifu2x_tensorrt_tpu_torch.engine.renderer import (
     ChunkedPipeline,
     TileStream,
     bucket_frame,
     bucket_hw,
 )
-from waifu2x_tensorrt_tpu_torch.models import registry
+from waifu2x_tensorrt_tpu_torch.models import onnx_backend, registry
+from waifu2x_tensorrt_tpu_torch.models.onnx_graph import read_graph
+from waifu2x_tensorrt_tpu_torch.utils.hashing import device_kind
 from waifu2x_tensorrt_tpu_torch.utils.logging import Logger, Severity
 
 
@@ -83,45 +112,118 @@ class Upscaler:
     def set_progress_callback(self, cb) -> None:
         self.logger.set_progress_callback(cb)
 
-    # -- load: weights + pipeline (img2img_load.cpp) -----------------------
+    # -- build: kernels + corner forwards + sidecar (img2img_build.cpp) ----
+    def build(self, family: str, scale: int, noise: int,
+              config: BuildConfig, graph_exact: bool = False) -> None:
+        """Resolve the model as ``load()`` will (``.npz``, verified
+        ``.onnx`` or its graph; the verification runs or is read from
+        ``.verify.json``), check every corner geometry of the profile
+        against the model's tile divisor, build the CUDA kernel library
+        (on CUDA), run one forward at each corner and write the engine
+        sidecar."""
+        registry.validate(family, scale, noise)
+        device = self._select_device(config.device_id)
+        fused_block = device.type == "cuda"
+        module, spec, _, _ = self._resolve_model(
+            family, scale, noise, config, device, fused_block, graph_exact)
+        shapes = compiled_shapes(config)
+        for _, hh, ww in shapes:
+            for dim in (hh, ww):
+                if dim % spec.tile_divisor:
+                    raise ValueError(
+                        f"profile tile size {dim} is not a multiple of "
+                        f"{spec.tile_divisor} (required by this model "
+                        f"backend)")
+        self.logger.log(
+            Severity.info,
+            f"Building engine for {family} scale={scale} noise={noise} "
+            f"geometries={shapes} "
+            f"precision={config.precision.cache_tag}",
+        )
+        t0 = time.perf_counter()
+        kernels = "no kernel library on the CPU"
+        if device.type == "cuda":
+            from waifu2x_tensorrt_tpu_torch.ops import build as kernel_build
+
+            kernels = f"kernel library {kernel_build.build().name}"
+            kernel_build.load_library()
+        with torch.inference_mode():
+            for b, h, w in shapes:
+                module(torch.zeros((b, h, w, 3), dtype=config.precision.dtype,
+                                   device=device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        stem = registry.weights_path(self.models_dir, family, scale, noise)
+        sidecar = engine_cache.write_engine_sidecar(
+            stem, config, device_name=device_kind(device))
+        self.logger.log(
+            Severity.info,
+            f"Engine built in {dt:.1f}s ({kernels}; one forward at each of "
+            f"{len(shapes)} corner geometries on {device}); sidecar "
+            f"{sidecar.name}",
+        )
+
+    # -- load: engine select + weights + pipeline (img2img_load.cpp) -------
     def load(self, family: str, scale: int, noise: int,
              config: RenderConfig,
-             fused_block: Optional[bool] = None, bucket: int = 0) -> None:
+             fused_block: Optional[bool] = None, bucket: int = 0,
+             require_engine: bool = False,
+             graph_exact: bool = False) -> None:
         """Build the model for (family, scale, noise) at ``config``'s
         precision, load its weights and prepare the pipeline. A swin_unet
         weight file gives the module its width and depths
-        (``registry.checkpoint_arch``); random weights take the flagship
-        architecture. ``fused_block`` (swin_unet) defaults to True on
-        CUDA. ``config.tta`` renders the 8 dihedral variants of every
-        tile, ``config.height == 0`` the whole frame as one tile;
-        ``bucket > 1`` pads frames to multiples of ``bucket``
-        (``bucket_frame``)."""
+        (``registry.checkpoint_arch``), an ``.onnx`` artifact its derived
+        architecture; random weights take the flagship architecture.
+        ``fused_block`` (swin_unet) defaults to True on CUDA.
+        ``config.tta`` renders the 8 dihedral variants of every tile,
+        ``config.height == 0`` the whole frame as one tile; ``bucket > 1``
+        pads frames to multiples of ``bucket`` (``bucket_frame``).
+
+        ``require_engine=True`` fails when no engine sidecar of a
+        ``build()`` matches ``config`` (img2img_load.cpp:111-113);
+        ``graph_exact=True`` serves a bare ``.onnx`` through its own graph
+        even when its conversion verifies."""
         registry.validate(family, scale, noise)
         device = self._select_device(config.device_id)
+        stem = registry.weights_path(self.models_dir, family, scale, noise)
+        found = engine_cache.find_engine(stem, config,
+                                         device_name=device_kind(device))
+        if found is None:
+            msg = (f"no prebuilt engine sidecar for {family} "
+                   f"(tile={config.height}, batch={config.batch_size}); ")
+            if require_engine:
+                # the reference hard-fails here (img2img_load.cpp:111-113)
+                raise FileNotFoundError(
+                    msg + "could not satisfy render configuration")
+            self.logger.log(Severity.warn, msg + "compiling on first use")
+        else:
+            self.logger.log(Severity.info, f"Using engine {found[0].name}")
         if fused_block is None:
             fused_block = device.type == "cuda"
-        path = registry.weights_path(self.models_dir, family, scale, noise)
-        arch = (registry.checkpoint_arch(path)
-                if path.exists() and family.startswith("swin_unet") else {})
-        module, spec = registry.create_model(
-            family, scale, noise, dtype=config.precision.dtype,
-            fused_block=fused_block, device=device, **arch)
-        flat, from_file = registry.load_or_init_params(
-            module, self.models_dir, family, scale, noise,
-            warn=lambda m: self.logger.log(Severity.warn, m),
-            allow_random=self.allow_random_init)
-        registry.load_into(module, flat)
+        module, spec, source, graph_backed = self._resolve_model(
+            family, scale, noise, config, device, fused_block, graph_exact)
         if config.height % spec.tile_divisor:
             raise ValueError(
                 f"tile size {config.height} is not a multiple of "
-                f"{spec.tile_divisor} (required by this model)")
+                f"{spec.tile_divisor} (required by this model backend)")
+        if graph_backed and not config.height:
+            # the parsed graph cannot pad itself to an arbitrary geometry
+            # the way the port's modules do
+            raise ValueError(
+                "--tileSize 0 (whole-frame) is not supported when serving "
+                "a parsed .onnx artifact directly; use a fixed tile size "
+                f"(multiple of {spec.tile_divisor}), or convert the "
+                "artifact to .npz (models/validate.py) for whole-frame "
+                "rendering")
         self._spec = spec
         self._bucket = int(bucket)
         # packed-x-head twin (same parameters): pack-aligned geometries
         # render through kernel D, with no separate depth-to-space (not
-        # under TTA, whose inverses act in pixel space)
+        # under TTA, whose inverses act in pixel space, and not for a
+        # model made from an .onnx artifact)
         module_px = spec_px = None
-        if (os.environ.get("WAIFU2X_PACK_X") == "1"
+        if (os.environ.get("WAIFU2X_PACK_X") == "1" and source != "onnx"
                 and spec.arch == "swin_unet" and scale > 1
                 and not config.tta):
             module_px, spec_px = registry.packed_x_twin(module, spec)
@@ -132,12 +234,198 @@ class Upscaler:
             Severity.info,
             f"loaded {family} scale={scale} noise={noise} on {device} "
             f"({config.precision.cache_tag}, "
-            + (f"fused_block={fused_block}, " if spec.arch == "swin_unet"
-               else "")
+            + (f"fused_block={fused_block}, "
+               if spec.arch == "swin_unet" and not graph_backed else "")
             + f"tta={'on' if config.tta else 'off'}, "
             f"tile={config.height or 'whole frame'}, bucket={bucket}, "
             f"packed_x={'on' if module_px is not None else 'off'}, "
-            f"weights={'file' if from_file else 'random'})")
+            f"weights={source})")
+
+    def _resolve_model(self, family, scale, noise, config, device,
+                       fused_block, graph_exact):
+        """(module with its weights, spec, source, graph_backed): source is
+        "file" (a .npz), "random", "onnx" (a verified artifact's weights)
+        or "graph" (the artifact's parsed graph)."""
+        stem = registry.weights_path(self.models_dir, family, scale, noise)
+        onnx_path = stem.with_suffix(".onnx")
+        if not stem.exists() and onnx_path.exists():
+            return self._load_artifact(onnx_path, family, scale, noise,
+                                       config, device, fused_block,
+                                       graph_exact)
+        arch = (registry.checkpoint_arch(stem)
+                if stem.exists() and family.startswith("swin_unet") else {})
+        module, spec = registry.create_model(
+            family, scale, noise, dtype=config.precision.dtype,
+            fused_block=fused_block, device=device, **arch)
+        flat, from_file = registry.load_or_init_params(
+            module, self.models_dir, family, scale, noise,
+            warn=lambda m: self.logger.log(Severity.warn, m),
+            allow_random=self.allow_random_init)
+        registry.load_into(module, flat)
+        if from_file and spec.arch == "swin_unet":
+            # a converted checkpoint rides on the reconstruction: trust the
+            # verdict validate recorded next to the .npz (content-hash and
+            # converter-version keyed), else warn
+            rec = onnx_backend.npz_verification(stem)
+            if rec is not None:
+                self.logger.log(
+                    Severity.info,
+                    f"conversion verified vs "
+                    f"{rec.get('source_onnx', 'source artifact')} "
+                    f"(max_err {rec.get('max_err')})")
+            else:
+                self.logger.log(
+                    Severity.warn,
+                    "swin_unet fidelity vs upstream is unverified for "
+                    "converted checkpoints; validate with python -m "
+                    "waifu2x_tensorrt_tpu_torch.models.validate or serve "
+                    "the .onnx directly")
+        return module, spec, "file" if from_file else "random", False
+
+    def _load_artifact(self, onnx_path: Path, family, scale, noise,
+                       config, device, fused_block, graph_exact):
+        """Serve a bare ``.onnx``: parse, derive the architecture, and
+        convert + verify its weights (TensorRT-style parse -> optimize,
+        img2img_build.cpp:88); a verified artifact becomes the port's
+        module, any other (or every one with ``graph_exact``) a
+        ``GraphModule`` at ``config.precision`` (fp16: bf16 with fp32
+        islands; tf32: the export's own fp32 math). Raises when the
+        artifact's scale or architecture contradicts the request."""
+        graph = read_graph(onnx_path)
+        arch = onnx_backend.derive_arch(graph)
+        if arch.scale != scale:
+            raise ValueError(
+                f"{onnx_path.name}: artifact scale {arch.scale} != "
+                f"requested scale {scale}")
+        fam_arch = "cunet" if family.startswith("cunet") else "swin_unet"
+        if arch.arch != fam_arch:
+            raise ValueError(
+                f"{onnx_path.name}: artifact architecture {arch.arch!r} "
+                f"does not match the requested family {family!r}")
+        base = registry.get_spec(family, scale, noise)
+        if not graph_exact and (
+                arch.arch == "cunet"
+                or (arch.arch == "swin_unet" and arch.stage_depths)):
+            try:
+                flat, err = self._verified_params(graph, arch, onnx_path)
+            except ValueError as e:  # conversion or verification only
+                self.logger.log(
+                    Severity.warn,
+                    f"{onnx_path.name}: optimized serving unavailable "
+                    f"({e}); serving the parsed graph directly",
+                )
+            else:
+                kw = {}
+                if arch.arch == "swin_unet":
+                    d = arch.stage_depths
+                    kw = {"base_dim": arch.base_dim,
+                          "depths": (d[0], d[0], d[1], d[2], d[2])}
+                module, _ = registry.create_model(
+                    family, scale, noise, dtype=config.precision.dtype,
+                    fused_block=fused_block, device=device, **kw)
+                registry.load_into(module, flat)
+                self.logger.log(
+                    Severity.info,
+                    f"{onnx_path.name}: conversion VERIFIED against the "
+                    f"artifact's own graph (max abs err {err:.2e} on a "
+                    f"{tuple(arch.probe_hw)} probe); serving the port's "
+                    f"{type(module).__name__} module (pass --graph-exact "
+                    f"for the export's own math)",
+                )
+                return (module, dataclasses.replace(base, offset=arch.offset),
+                        "onnx", False)
+        compute_dtype = (config.precision.dtype
+                         if config.precision is Precision.FP16 else None)
+        module = onnx_backend.GraphModule(graph, compute_dtype, device)
+        tile_divisor = base.tile_divisor
+        if arch.arch == "swin_unet" and arch.window:
+            # the graph cannot self-pad like the port's modules: tile
+            # sizes must be window*4-divisible (two stride-2 stages)
+            tile_divisor = max(tile_divisor, arch.window * 4)
+        if arch.static_hw:
+            # a RenderConfig carries one geometry, a BuildConfig the
+            # min/opt/max profile: each must be the export's fixed shape
+            if isinstance(config, BuildConfig):
+                geoms = sorted({(hh, ww) for _, hh, ww in
+                                compiled_shapes(config)})
+            else:
+                geoms = ([(config.height, config.width)] if config.height
+                         else [])
+            bad = [g for g in geoms if g != tuple(arch.static_hw)]
+            if bad:
+                raise ValueError(
+                    f"{onnx_path.name} was exported at a FIXED geometry "
+                    f"{tuple(arch.static_hw)} (requested {bad[0]}): "
+                    f"graph-exact serving requires --tileSize "
+                    f"{arch.static_hw[0]} (or convert the artifact "
+                    f"— models/validate.py — for any tile size)")
+        self.logger.log(
+            Severity.info,
+            f"serving parsed ONNX graph {onnx_path.name} directly at "
+            f"{'bf16 (fp32 islands)' if compute_dtype is not None else 'fp32'}"
+            f" (derived arch: {arch.summary()}); tile sizes must be "
+            f"multiples of {tile_divisor}",
+        )
+        spec = dataclasses.replace(base, offset=arch.offset,
+                                   tile_divisor=tile_divisor)
+        return module, spec, "graph", True
+
+    def _verified_params(self, graph, arch, onnx_path: Path):
+        """(flat params, max abs err) of a conversion verified against the
+        artifact's own graph. All three verdicts (success, divergence,
+        parse failure) are cached in ``<artifact>.verify.json`` under the
+        artifact's sha256 and the port's ``CONVERTER_VERSION``; a record
+        of another version (the JAX package's, an older converter) is
+        ignored and the artifact re-verified. Raises ValueError when the
+        conversion or the verification fails (now or cached)."""
+        sha16 = onnx_backend._sha16(onnx_path)
+        sidecar = onnx_path.parent / (onnx_path.name + ".verify.json")
+
+        def write_sidecar(payload: dict) -> None:
+            try:
+                sidecar.write_text(json.dumps(
+                    {"sha16": sha16,
+                     "converter_version": onnx_backend.CONVERTER_VERSION,
+                     "arch": arch.summary(), **payload},
+                    default=str))
+            except OSError:
+                pass
+
+        err = cached_failure = None
+        if sidecar.exists():
+            try:
+                cached = json.loads(sidecar.read_text())
+                if (cached.get("sha16") == sha16
+                        and cached.get("converter_version")
+                        == onnx_backend.CONVERTER_VERSION):
+                    if "error" in cached:
+                        cached_failure = str(cached["error"])
+                    else:
+                        err = float(cached["max_err"])
+                        # never trust a record past the current gate
+                        if not err <= onnx_backend.VERIFY_TOL:
+                            err = None
+            except (OSError, ValueError, KeyError, TypeError,
+                    AttributeError):
+                err = None
+        if cached_failure is not None:
+            raise ValueError(f"{cached_failure} (cached verification)")
+        is_cunet = arch.arch == "cunet"
+        try:
+            if is_cunet:
+                flat = onnx_backend.cunet_params_from_graph(
+                    graph, scale=arch.scale)
+            else:
+                flat = onnx_backend.swin_params_from_graph(graph)
+            if err is None:
+                verify = (onnx_backend.verify_cunet_conversion if is_cunet
+                          else onnx_backend.verify_swin_conversion)
+                err = verify(graph, arch, flat)
+                write_sidecar({"max_err": err})
+        except ValueError as e:
+            write_sidecar({"error": str(e)})
+            raise
+        return flat, err
 
     # -- render (img2img_render.cpp:224-352) -------------------------------
     def _render_device(self, frame_u8) -> torch.Tensor:

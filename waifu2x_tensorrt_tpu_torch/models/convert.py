@@ -18,6 +18,15 @@ Layout rules (exact inverses of the JAX package's converters):
   squeeze-and-excitation Dense layers are 1x1 Conv2d upstream and in the
   port, weight (O, I, 1, 1);
 - LayerNorm ``scale`` -> ``weight``; relative-position tables unchanged.
+
+The forward direction (torch/ONNX layouts -> flat flax-named dicts:
+``conv_weight``, ``conv_transpose_weight``, ``dense_weight``,
+``swin_from_torch``, ``cunet_from_torch``, ``cunet_from_onnx``) and
+``state_from_flax`` (the inverse, used by load-time artifact
+verification to re-export converted weights) are copies of the JAX
+package's converters. Every converter here returns or takes the FLAT
+dict ('/'-joined flax paths -> float32 arrays) that ``registry.load_into``
+and the ``.npz`` store use, never a nested tree.
 """
 
 from __future__ import annotations
@@ -29,15 +38,40 @@ import numpy as np
 import torch
 
 __all__ = [
+    "conv_transpose_weight",
+    "conv_weight",
+    "cunet_from_onnx",
+    "cunet_from_torch",
     "cunet_mapping",
+    "dense_weight",
     "inv_conv_transpose_weight",
     "inv_conv_weight",
     "inv_dense_weight",
     "is_cunet_tree",
-    "swin_mapping",
-    "swin_depths_from_flax",
     "params_from_flax",
+    "state_from_flax",
+    "swin_depths_from_flax",
+    "swin_from_torch",
+    "swin_mapping",
 ]
+
+
+def conv_weight(w: np.ndarray) -> np.ndarray:
+    """(O, I, kH, kW) -> (kH, kW, I, O)."""
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def conv_transpose_weight(w: np.ndarray) -> np.ndarray:
+    """(I, O, kH, kW) -> (kH, kW, I, O), spatial taps flipped."""
+    w = w[:, :, ::-1, ::-1]
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1)))
+
+
+def dense_weight(w: np.ndarray) -> np.ndarray:
+    """(O, I) or (O, I, 1, 1) -> (I, O)."""
+    if w.ndim == 4:
+        w = w[:, :, 0, 0]
+    return np.ascontiguousarray(w.T)
 
 
 def inv_conv_weight(k: np.ndarray) -> np.ndarray:
@@ -112,6 +146,44 @@ def cunet_mapping(scale: int) -> list[tuple[str, str, str]]:
     return entries
 
 
+_KIND_TRANSFORM = {
+    "conv": conv_weight,
+    "deconv": conv_transpose_weight,
+    "dense": dense_weight,
+}
+
+
+def _to_np(t) -> np.ndarray:
+    if isinstance(t, np.ndarray):
+        return t
+    return t.detach().cpu().numpy()
+
+
+def cunet_from_torch(state_dict: Mapping[str, "object"],
+                     scale: int) -> dict[str, np.ndarray]:
+    """Flat flax dict of a torch CUNet/UpCUNet state_dict (names of
+    ``cunet_mapping``'s left column)."""
+    flat: dict[str, np.ndarray] = {}
+    for src, dst, kind in cunet_mapping(scale):
+        w = _to_np(state_dict[f"{src}.weight"])
+        flat[f"{dst}/kernel"] = _KIND_TRANSFORM[kind](w).astype(np.float32)
+        bias_key = f"{src}.bias"
+        if bias_key in state_dict:
+            flat[f"{dst}/bias"] = _to_np(
+                state_dict[bias_key]).astype(np.float32)
+    return flat
+
+
+def cunet_from_onnx(path, scale: int) -> dict[str, np.ndarray]:
+    """Flat flax dict of an ONNX export whose initializer names follow the
+    torch module paths."""
+    from waifu2x_tensorrt_tpu_torch.models.onnx_reader import (
+        read_initializers,
+    )
+
+    return cunet_from_torch(read_initializers(path), scale)
+
+
 def is_cunet_tree(flat: Mapping[str, np.ndarray]) -> bool:
     """True for the flat tree of a cunet model (its keys start with
     ``unet1/``), False for a swin tree."""
@@ -163,15 +235,42 @@ def swin_depths_from_flax(flat: Mapping[str, np.ndarray]) -> tuple:
     return (d1, d1, d2, d3, d3)
 
 
-def params_from_flax(flat: Mapping[str, np.ndarray],
-                     scale: int = 4) -> dict[str, torch.Tensor]:
-    """torch state_dict (float32 CPU tensors) of the port's ``SwinUNet`` or
-    ``CUNet``/``UpCUNet`` (by the tree's keys, ``is_cunet_tree``) from a
-    flat flax param dict (``registry.load_params`` layout) — the port's
-    copy of ``state_from_flax(flat, swin_mapping(...))`` and of
-    ``state_from_flax(flat, cunet_mapping(scale))``."""
-    mapping = (cunet_mapping(scale) if is_cunet_tree(flat)
-               else swin_mapping(scale, swin_depths_from_flax(flat)))
+def swin_from_torch(state_dict: Mapping[str, "object"], scale: int,
+                    depths=(2, 2, 6, 2, 2),
+                    strict: bool = True) -> dict[str, np.ndarray]:
+    """Flat flax dict of a torch SwinUNet state_dict (names of
+    ``swin_mapping``'s left column). ``strict=False`` skips mapping
+    entries absent from the state_dict."""
+    flat: dict[str, np.ndarray] = {}
+    for src, dst, kind in swin_mapping(scale, depths):
+        probe_key = src if kind == "table" else f"{src}.weight"
+        if probe_key not in state_dict:
+            if strict:
+                raise KeyError(f"missing source weight {probe_key!r}")
+            continue
+        if kind == "table":
+            flat[dst] = _to_np(state_dict[src]).astype(np.float32)
+            continue
+        w = _to_np(state_dict[f"{src}.weight"]).astype(np.float32)
+        if kind == "conv":
+            flat[f"{dst}/kernel"] = conv_weight(w)
+        elif kind == "dense":
+            flat[f"{dst}/kernel"] = dense_weight(w)
+        elif kind == "norm":
+            flat[f"{dst}/scale"] = w
+        bias_key = f"{src}.bias"
+        if bias_key in state_dict:
+            flat[f"{dst}/bias"] = _to_np(
+                state_dict[bias_key]).astype(np.float32)
+    return flat
+
+
+def state_from_flax(flat: Mapping[str, np.ndarray],
+                    mapping: list) -> dict[str, np.ndarray]:
+    """The torch-style state_dict arrays an upstream checkpoint or export
+    would hold, from a flat flax dict and a (torch_prefix, flax_path,
+    kind) mapping: the exact inverse of ``swin_from_torch`` /
+    ``cunet_from_torch``."""
     state: dict[str, np.ndarray] = {}
     for src, dst, kind in mapping:
         if kind == "table":
@@ -186,9 +285,22 @@ def params_from_flax(flat: Mapping[str, np.ndarray],
             w = inv_dense_weight(flat[f"{dst}/kernel"])
             if ".conv.4." in src:  # SE blocks are 1x1 convs upstream
                 w = w[:, :, None, None]
-            state[f"{src}.weight"] = w
+            state[f"{src}.weight"] = np.ascontiguousarray(w)
         elif kind == "norm":
             state[f"{src}.weight"] = np.asarray(flat[f"{dst}/scale"])
-        state[f"{src}.bias"] = np.asarray(flat[f"{dst}/bias"])
+        bias = flat.get(f"{dst}/bias")
+        if bias is not None:
+            state[f"{src}.bias"] = np.asarray(bias)
+    return state
+
+
+def params_from_flax(flat: Mapping[str, np.ndarray],
+                     scale: int = 4) -> dict[str, torch.Tensor]:
+    """torch state_dict (float32 CPU tensors) of the port's ``SwinUNet`` or
+    ``CUNet``/``UpCUNet`` (by the tree's keys, ``is_cunet_tree``) from a
+    flat flax param dict (``registry.load_params`` layout):
+    ``state_from_flax`` with the module's mapping."""
+    mapping = (cunet_mapping(scale) if is_cunet_tree(flat)
+               else swin_mapping(scale, swin_depths_from_flax(flat)))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in state.items()}
+            for k, v in state_from_flax(flat, mapping).items()}

@@ -182,6 +182,15 @@ def init_params(module, seed: int = 0) -> dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
+def save_params(path: str | Path, flat: dict[str, np.ndarray]) -> None:
+    """Write a flat {flax path: array} dict as a weight file (keys in the
+    JAX package's flatten order, so both packages write the same file)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    keys = sorted(flat, key=lambda k: tuple(k.split("/")))
+    np.savez(path, **{k: np.asarray(flat[k], np.float32) for k in keys})
+
+
 def load_params(path: str | Path) -> dict[str, np.ndarray]:
     """The flat {flax path: array} dict of a weight file."""
     with np.load(Path(path)) as data:
@@ -218,8 +227,9 @@ def load_or_init_params(module, models_dir: Optional[str | Path],
         return load_params(p), True
     if not allow_random:
         raise FileNotFoundError(
-            f"no model weights at {p}; pass --allow-random-weights to "
-            "render with random initialization (test pattern output)")
+            f"no model weights at {p}; convert upstream weights with "
+            "models/convert.py, or pass --allow-random-weights to render "
+            "with random initialization (test pattern output)")
     if warn is not None:
         warn(f"no weights at {p}; using random initialization (seed 0)")
     return init_params(module, seed=0), False

@@ -32,7 +32,11 @@ the port through its library entry points (``Upscaler.load`` / ``render``
   5. main path: swin_unet/art 4x noise 3, tile 256, batch 16, fp16 (bf16):
      one 720p frame -> (2880, 5120, 3) u8, then 10 streamed frames, one
      of them held against its single-frame render (max <= 2 LSB, <= 1e-3
-     of the values changed)
+     of the values changed); every chunk runs as a captured CUDA graph
+     (the first call at a chunk shape eagerly, then captured), and the
+     launch counts are exact: B 10 a chunk over the render's 2, the warm
+     cycle's 9, the warm's 7 tail programs (2, 4, ..., 14 tiles) and the
+     stream's 12 chunks, 300 in all; C one a frame, 19
   6. the whole network on the card, kernel path vs all-plain path:
      a. one frame in tf32 (fp32) with the seed-0 weights, through the
         golden gate (max <= 2 LSB, <= 1e-4 of pixels changed);
@@ -144,6 +148,28 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      d. cunet/art 2x noise 1 (``export_torch_cunet``) through the CLI's
         ``build`` and ``render`` of a 512 x 512 still: C one launch, the
         output against ``Upscaler.render`` of the artifact (golden gate)
+ 15. compiled programs (``engine/exe_cache.py``: captured CUDA graphs):
+     a. the flagship (phase 5's frames) and art_scan TTA (12a's config, 8
+        frames): a chunk through its program (eager first call, then a
+        replay) byte-identical to the module called eagerly, and the
+        frames streamed with eager modules and with captured programs in
+        turns (eager, captured, captured, eager): byte-identical streams,
+        equal launch counts, output MP/s of each pass;
+     b. ``fuse_frame``: the 720p flagship frame as one program, within 1
+        LSB of the chunked render (byte-identity printed), a replay
+        identical and launching B 20 and C 1; the per-frame loop's output
+        MP/s, fused and chunked in turns, beside phase 5's stream;
+     c. graph-exact fp16 (phase 14's export) captured against eager, as a;
+     d. the memory pool's bytes: each flagship chunk program, the 720p
+        whole-frame program, and each further still size (512^2,
+        384 x 640, 1080p) with its first call's seconds;
+     e. the flagship's ``flops_per_frame`` at 720p: GFLOP per output MP
+        beside XLA's 45.44, and phase 5's rate as a share of the dense
+        bf16 peak;
+     f. ``Upscaler.build`` of the flagship (b16, t256) cold (the kernel
+        library compiled into an empty directory and loaded: another
+        copy) and warm, its ready seconds by step: library, model and
+        weights, first eager call, capture
 
 Times are per call: the median over 10 samples, each the CUDA-event time
 of 10 calls in a row divided by 10 (kernel F's probe times its own
@@ -168,7 +194,10 @@ renders imply); each kernel must have launched in its run. The
 the counts of phases 11-14 as ``launches_*`` keys. Any failed check
 raises, so the script exits non-zero; the last line is the JSON device
 record, printed only when every phase passed. Without a CUDA device it
-exits non-zero before printing any result.
+exits non-zero before printing any result. Kernel wrappers count
+launches in Python; a graph replay adds the launches its capture
+recorded (``exe_cache``), so the counts of captured paths are those of
+the kernels the device ran.
 """
 
 from __future__ import annotations
@@ -613,25 +642,14 @@ def phase_kernel_c(torch, report):
 
 
 def _counters():
-    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
-        finalize_gather,
-    )
-    from waifu2x_tensorrt_tpu_torch.ops.head_pack import pack_head_x16
-    from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
-    from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
-        fused_window_attention,
-        fused_window_attention_qkv,
-    )
+    from waifu2x_tensorrt_tpu_torch.engine import exe_cache
 
-    from waifu2x_tensorrt_tpu_torch.ops.mma_probe import mma_probe
-
-    return {"A": fused_window_attention_qkv, "B": fused_swin_block,
-            "C": finalize_gather, "D": pack_head_x16,
-            "E": fused_window_attention, "F": mma_probe}
+    return exe_cache.launch_counters()
 
 
 def _upscaler(family, scale, noise, precision, tile, batch, tta=False,
-              models_dir=None, device="cuda:0", fused_block=None):
+              models_dir=None, device="cuda:0", fused_block=None,
+              **load_kw):
     """An ``Upscaler`` loaded through its public ``load``: weights from
     ``models_dir`` when given, else the seeded random init (seed 0)."""
     from waifu2x_tensorrt_tpu_torch.engine.config import RenderConfig
@@ -642,7 +660,7 @@ def _upscaler(family, scale, noise, precision, tile, batch, tta=False,
     cfg = RenderConfig(precision=precision, batch_size=batch, height=tile,
                        width=tile, scaling=scale, overlap=(1 / 16, 1 / 16),
                        tta=tta)
-    up.load(family, scale, noise, cfg, fused_block=fused_block)
+    up.load(family, scale, noise, cfg, fused_block=fused_block, **load_kw)
     return up
 
 
@@ -704,11 +722,19 @@ def phase_main_path(torch, smi, report):
     mps = fps * 2880 * 5120 / 1e6
     print(f"  phase 5 stream: 10 frames in {dt:.3f} s = {fps:.3f} frames/s, "
           f"{mps:.2f} output MP/s on {smi}", flush=True)
-    print(f"  phase 5 launch counts (main path, fused_block=True): {n5}",
-          flush=True)
-    if n5["B"] <= 0 or n5["C"] <= 0 or n5["D"] != 0:
+    # B: 10 a chunk. The render's chunks [16, 2] (first calls: eager,
+    # then captured), the warm cycle's 9 chunks of 16, the warm's one run
+    # at each tail a flush can meet (2, 4, ..., 14: 7 programs, so that no
+    # capture falls inside the stream) and the stream's 11 chunks of 16
+    # and its tail of 4 (replays); C: one a frame, 1 + 8 + 10
+    want = {"B": 10 * (2 + 9 + 7 + 12), "C": 19}
+    print(f"  phase 5 launch counts (main path, fused_block=True): {n5}; "
+          f"B 10 a chunk over the render's 2, the warm cycle's 9, the "
+          f"warm's 7 tail programs and the stream's 12 chunks, C one a "
+          f"frame: expected {want}", flush=True)
+    if {k: n5[k] for k in want} != want or any(n5[k] for k in "ADEF"):
         raise AssertionError(f"phase 5 did not launch kernels B and C "
-                             f"alone: {n5}")
+                             f"alone, as expected: {n5}")
     # frame 3's 18 tiles straddle two stream chunks (3 * 18 = 54 = 3 * 16
     # + 6): its streamed output against its single-frame render. The
     # render runs tiles 16-17 as a 2-tile chunk, for which cuBLAS and
@@ -1462,17 +1488,19 @@ def phase_tta_whole_frame(torch, smi, report):
 def _expected_launches(up, runs):
     """(B, C) launches of the CLI's streams over ``runs``, a list of
     ((h, w), frames) of same-size frames, each run one stream: a warm cycle
-    (``TileStream.warm``: the fewest frames whose tiles fill whole chunks)
-    and the run's chunks (the flush's remainder included), 10 launches of
-    B a chunk (one a Swin block) and one of C a frame."""
+    (``TileStream.warm``: the fewest frames whose tiles fill whole chunks,
+    then one model run at each tail a flush can meet) and the run's chunks
+    (the flush's remainder included), 10 launches of B a chunk (one a Swin
+    block) and one of C a frame."""
     import math
 
     chunk = up._pipeline.config.batch_size
     b = c = 0
     for hw, n in runs:
         t = up._pipeline.get(hw)[2].tile_count
-        warm = 1 if t % chunk == 0 else chunk // math.gcd(t, chunk)
-        b += 10 * (warm * t // chunk + -(-n * t // chunk))
+        warm = chunk // math.gcd(t, chunk)
+        tails = warm - 1  # the warm's run at each tail a flush can meet
+        b += 10 * (warm * t // chunk + tails + -(-n * t // chunk))
         c += warm + n
     return b, c
 
@@ -1810,16 +1838,20 @@ def phase_onnx(torch, smi, report):
                 *cmd]
 
     # a. build, cold: no .verify.json and the kernel library compiled
-    # into an empty directory (the process keeps the library it loaded in
-    # phase 2, of the same sources: a second copy of it is not loaded);
-    # then warm: both cached
-    saved_dir = kernel_build.BUILD_DIR
-    kernel_build.BUILD_DIR = root / "kernels"
+    # into an empty directory and loaded from there, a second copy of the
+    # library in this process (kernel B sets its own shared-memory limit
+    # in each copy); then warm: both cached, the first copy
+    saved = kernel_build.BUILD_DIR, kernel_build._lib
+    kernel_build.BUILD_DIR, kernel_build._lib = root / "kernels", None
     try:
         cold_s, n_cold = _cli(torch, "phase 14a build (cold)",
                               argv(*swin, "fp16", "build"))
+        second_copy = kernel_build._lib
     finally:
-        kernel_build.BUILD_DIR = saved_dir
+        kernel_build.BUILD_DIR, kernel_build._lib = saved
+    if second_copy is None or second_copy is saved[1]:
+        raise AssertionError("phase 14a: the cold build did not load its "
+                             "own copy of the kernel library")
     warm_s, n_warm = _cli(torch, "phase 14a build (warm)",
                           argv(*swin, "fp16", "build"))
     # the host's share of a cold build, step by step
@@ -1846,8 +1878,9 @@ def phase_onnx(torch, smi, report):
           f"(fp16, b16, t256): cold {cold_s:.2f} s (verification + kernel "
           f"library), warm {warm_s:.2f} s (both cached); sidecar "
           f"{sidecars}; .verify.json max_err {rec.get('max_err')} "
-          f"(tol 1e-4); build launches {n_cold} / {n_warm}; on {smi}",
-          flush=True)
+          f"(tol 1e-4); build launches {n_cold} / {n_warm} (the cold one "
+          f"from the second copy of the kernel library it built, "
+          f"{second_copy._name}); on {smi}", flush=True)
     print("  phase 14a host seconds of the artifact's steps: " + ", ".join(
         f"{k} {v:.2f}" for k, v in steps.items()), flush=True)
     if (len(sidecars) != 1 or not float(rec.get("max_err", 1)) <= 1e-4
@@ -1976,6 +2009,228 @@ def phase_onnx(torch, smi, report):
                              f"{nr}, gate {ok}")
     counts["cunet_render"] = nr
     return counts
+
+
+@contextlib.contextmanager
+def _eager_models(torch, pipeline):
+    """Inside the context the pipeline's model programs are their modules
+    called eagerly, as every chunk ran before programs were captured."""
+    saved = pipeline.model_prog, pipeline.model_prog_px
+
+    def eager(prog):
+        def run(tiles):
+            with torch.inference_mode():
+                return prog.fn(tiles)
+
+        return None if prog is None else run
+
+    pipeline.model_prog, pipeline.model_prog_px = map(eager, saved)
+    try:
+        yield
+    finally:
+        pipeline.model_prog, pipeline.model_prog_px = saved
+
+
+def _captured_vs_eager(torch, label, up, frames, out_mp):
+    """One chunk of the first frame's tiles through its program (first
+    call: eager, then captured; second call: a replay) and through the
+    module called eagerly, byte for byte; then the frames streamed with
+    eager models and with captured programs, in turns (eager, captured,
+    captured, eager), each pass warmed on its own: output MP/s and the
+    launch counts of each pass, and the streams byte for byte."""
+    import numpy as np
+
+    pl = up._pipeline
+    prep = pl.get(frames[0].shape[:2])[0]
+    tiles = prep.flat(torch.from_numpy(frames[0]).cuda())
+    chunk = tiles[:pl.config.batch_size]
+    prog = pl.model_prog_px if prep.use_pack_x else pl.model_prog
+    first, replay = prog(chunk), prog(chunk)
+    with torch.inference_mode():
+        eager = prog.fn(chunk)
+    same_chunk = torch.equal(first, eager) and torch.equal(replay, eager)
+    rates, counts, firsts = {"eager": [], "captured": []}, {}, {}
+    for mode in ("eager", "captured", "captured", "eager"):
+        ctx = (_eager_models(torch, pl) if mode == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            outs, dt, n = _stream_run(torch, up, frames)
+        rates[mode].append(len(frames) * out_mp / dt)
+        counts[mode] = n
+        firsts.setdefault(mode, [o.cpu().numpy() for o in outs])
+    same_stream = all(np.array_equal(a, b) for a, b in
+                      zip(firsts["eager"], firsts["captured"]))
+    print(f"  {label}: a chunk {tuple(chunk.shape)} captured vs eager "
+          f"byte-identical: {same_chunk}; {len(frames)} streamed frames "
+          f"byte-identical: {same_stream}; output MP/s eager "
+          f"{_rates(rates['eager'])}, captured {_rates(rates['captured'])}"
+          f"; launch counts a pass eager {counts['eager']}, captured "
+          f"{counts['captured']}", flush=True)
+    if not (same_chunk and same_stream) or counts["eager"] != \
+            counts["captured"]:
+        raise AssertionError(f"{label}: captured programs differ from the "
+                             "eager modules")
+    return {"eager_mp_per_s": rates["eager"],
+            "captured_mp_per_s": rates["captured"],
+            "launches_a_pass": counts["captured"]}
+
+
+def _pool_mb(nbytes):
+    return f"{nbytes / 2 ** 20:.1f} MiB"
+
+
+def phase_programs(torch, smi, report):
+    """Phase 15: compiled programs (captured CUDA graphs, the port's
+    ``engine/exe_cache.py``). a. captured against eager, flagship and
+    art_scan TTA; b. a ``fuse_frame`` 720p render and its per-frame loop;
+    c. graph-exact captured against eager (phase 14's export); d. pool
+    bytes; e. the flagship's ``flops_per_frame``; f. ``build`` ready
+    seconds, cold and warm, by step."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from waifu2x_tensorrt_tpu_torch.engine.config import (
+        BuildConfig,
+        Precision,
+    )
+    from waifu2x_tensorrt_tpu_torch.engine.upscaler import Upscaler
+    from waifu2x_tensorrt_tpu_torch.ops import build as kernel_build
+    from waifu2x_tensorrt_tpu_torch.probes.int8_probe import BF16_PEAK
+
+    out = {}
+    frame, frames = _phase5_frames()
+    flag_mp = 2880 * 5120 / 1e6
+
+    # a. captured vs eager: the flagship stream and art_scan TTA
+    up = _load(torch, Precision.FP16)
+    out["flagship"] = _captured_vs_eager(torch, "phase 15a flagship", up,
+                                         frames, flag_mp)
+    rng = np.random.default_rng(15)
+    tta_frames = [rng.integers(0, 256, (512, 512, 3), np.uint8)
+                  for _ in range(8)]
+    tta = _upscaler("swin_unet/art_scan", 4, 3, Precision.FP16, 128, 8,
+                    tta=True)
+    out["art_scan_tta"] = _captured_vs_eager(
+        torch, "phase 15a art_scan TTA", tta, tta_frames, 2048 * 2048 / 1e6)
+
+    # b. fuse_frame: the 720p frame as one program, against the chunked
+    # render; the per-frame loop of each over phase 5's 10 frames
+    fused = _upscaler("swin_unet/art", 4, 3, Precision.FP16, 256, 16,
+                      fuse_frame=True)
+    want = up.render(frame)
+    got = fused.render(frame)
+    counters = _zero_counters()
+    again = fused.render(frame)
+    n_frame = {k: f.launches for k, f in counters.items()}
+    dmax = int(np.abs(got.astype(int) - want.astype(int)).max())
+    loops = {"fused": [], "chunked": []}
+    for mode in ("chunked", "fused", "fused", "chunked"):
+        render = (fused._fused.render if mode == "fused"
+                  else up._pipeline.render)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in frames:
+            render(f)
+        torch.cuda.synchronize()
+        loops[mode].append(len(frames) * flag_mp / (time.perf_counter() - t0))
+    prog = fused._fused.get((720, 1280))
+    print(f"  phase 15b fuse_frame 720p render -> {got.shape}: vs the "
+          f"chunked render max {dmax} (tol 1), byte-identical "
+          f"{dmax == 0}; a replay byte-identical {np.array_equal(got, again)}"
+          f", launches a frame {n_frame}; per-frame loop of 10 frames, "
+          f"output MP/s: fused {_rates(loops['fused'])}, chunked "
+          f"{_rates(loops['chunked'])} (phase 5's stream "
+          f"{report['stream']['output_mp_per_s']:.2f}); first call: eager "
+          f"{next(iter(prog.graphs.values())).eager_s:.3f} s, capture "
+          f"{next(iter(prog.graphs.values())).capture_s:.3f} s", flush=True)
+    if (dmax > 1 or not np.array_equal(got, again)
+            or (n_frame["B"], n_frame["C"]) != (20, 1)):
+        raise AssertionError(f"phase 15b: fuse_frame max {dmax}, launches "
+                             f"{n_frame}")
+    out["fuse_frame"] = {"max_vs_chunked": dmax, "loop_mp_per_s": loops,
+                         "launches_a_frame": n_frame}
+
+    # c. graph-exact (phase 14's export), captured vs eager
+    onnx_models = (Path(__file__).resolve().parent / "build" /
+                   "chip_smoke_onnx" / "models")
+    graph = _upscaler("swin_unet/art", 4, 3, Precision.FP16, 256, 16,
+                      models_dir=onnx_models, graph_exact=True)
+    out["graph_exact"] = _captured_vs_eager(
+        torch, "phase 15c graph-exact fp16", graph, frames, flag_mp)
+
+    # d. pool bytes: the flagship's chunk programs, the 720p frame, and a
+    # folder of stills of other sizes (one whole-frame graph each)
+    chunk_pools = {g.static_args[0].shape[0]: g.pool_bytes
+                   for g in up._pipeline.model_prog.graphs.values()}
+    frame_pool = fused._fused.pool.bytes
+    sizes, growth = [(512, 512), (384, 640), (1080, 1920)], []
+    for hw in sizes:
+        before = fused._fused.pool.bytes
+        t0 = time.perf_counter()
+        fused.render(rng.integers(0, 256, (*hw, 3), np.uint8))
+        torch.cuda.synchronize()
+        growth.append((fused._fused.pool.bytes - before,
+                       time.perf_counter() - t0))
+    print(f"  phase 15d pool bytes: flagship chunk programs "
+          + ", ".join(f"{n} tiles {_pool_mb(b)}"
+                      for n, b in sorted(chunk_pools.items()))
+          + f" (one pool: {_pool_mb(up._pipeline.pool.bytes)}); fuse_frame "
+          f"720p frame {_pool_mb(frame_pool)}; each further still size "
+          + ", ".join(f"{h}x{w} +{_pool_mb(b)} in {t:.2f} s (eager + "
+                      f"capture)" for (h, w), (b, t) in zip(sizes, growth))
+          + f"; reserved {_pool_mb(torch.cuda.memory_reserved())}",
+          flush=True)
+    out["pool_bytes"] = {"chunks": chunk_pools,
+                         "chunk_pool": up._pipeline.pool.bytes,
+                         "fuse_frame_720p": frame_pool,
+                         "stills": dict(zip(map(str, sizes), growth))}
+
+    # e. the flagship's FLOPs a frame (the MFU numerator)
+    t0 = time.perf_counter()
+    flops = up._pipeline.flops_per_frame((720, 1280))
+    per_mp = flops / 1e9 / flag_mp
+    mfu = report["stream"]["output_mp_per_s"] * per_mp * 1e9 / BF16_PEAK
+    print(f"  phase 15e flops_per_frame 720p: {flops / 1e9:.2f} GFLOP "
+          f"({per_mp:.2f} GFLOP per output MP; XLA's count of the JAX model "
+          f"45.44), counted in {time.perf_counter() - t0:.2f} s; at phase "
+          f"5's streamed rate {100 * mfu:.2f}% of the dense bf16 peak, on "
+          f"{smi}", flush=True)
+    out["flops"] = {"gflop_per_frame": flops / 1e9,
+                    "gflop_per_output_mp": per_mp, "mfu_phase5": mfu}
+
+    # f. build ready seconds, cold (the kernel library compiled into an
+    # empty directory and loaded from there: another copy) and warm
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_programs"
+    shutil.rmtree(root, ignore_errors=True)
+    bcfg = BuildConfig(precision=Precision.FP16, min_batch_size=16,
+                       opt_batch_size=16, max_batch_size=16, min_width=256,
+                       opt_width=256, max_width=256, min_height=256,
+                       opt_height=256, max_height=256)
+    ready = {}
+    for mode in ("cold", "warm"):
+        saved = kernel_build.BUILD_DIR, kernel_build._lib
+        if mode == "cold":
+            kernel_build.BUILD_DIR, kernel_build._lib = root / "kernels", None
+        try:
+            builder = Upscaler(models_dir=root / "models",
+                               allow_random_init=True, device="cuda:0")
+            t0 = time.perf_counter()
+            builder.build("swin_unet/art", 4, 3, bcfg)
+            ready[mode] = {"total": time.perf_counter() - t0,
+                           **builder.build_seconds}
+        finally:
+            kernel_build.BUILD_DIR, kernel_build._lib = saved
+    print("  phase 15f build ready seconds (flagship, b16 t256, one "
+          "corner): " + "; ".join(
+              f"{mode} {r['total']:.2f} = library {r['library']:.2f} + "
+              f"model and weights {r['model']:.2f} + first eager call "
+              f"{r['eager']:.2f} + capture {r['capture']:.2f} (+ sidecar)"
+              for mode, r in ready.items()), flush=True)
+    out["build_seconds"] = ready
+    report["programs"] = out
+    return n_frame
 
 
 # ffprobe / ffmpeg stand-ins that speak the pipe protocol of the port's
@@ -2111,6 +2366,10 @@ def main() -> int:
     t0 = time.perf_counter()
     n14 = phase_onnx(torch, smi, report)
     print(f"  phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase 15 compiled programs (captured CUDA graphs):", flush=True)
+    t0 = time.perf_counter()
+    n15 = phase_programs(torch, smi, report)
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
     # launch counts of the new paths, as extra keys on B's and C's rows
     report["C"].update(
         launches_cunet_t256_still=n11["a"],
@@ -2126,6 +2385,8 @@ def main() -> int:
     for key, n in n14.items():
         report["B"][f"launches_onnx_{key}"] = n["B"]
         report["C"][f"launches_onnx_{key}"] = n["C"]
+    report["B"]["launches_fuse_frame_replay"] = n15["B"]
+    report["C"]["launches_fuse_frame_replay"] = n15["C"]
 
     src = "waifu2x_tensorrt_tpu_torch/ops/csrc/"
     main_run = ("phase 5: main path, fused_block=True, bf16, tile 256, "

@@ -34,7 +34,14 @@ registers and in shared memory, int8 equal to its plain twin and bf16
 within the float32 sum bound ``fp32_sum_bound``; ``fetch_async`` (the
 CLI's fetch into pinned memory, no synchronizing call) and
 ``Upscaler.render_async`` (bucketed, cropped) equal to the synchronous
-fetch and ``render``.
+fetch and ``render``; captured programs (``engine/exe_cache.py``): a
+flagship-width chunk through its CUDA graph byte-identical to the module
+called eagerly at the same shape, N replays adding N times the capture's
+launch counts, no synchronizing call in a replay or in a streamed frame
+around replays, a ``fuse_frame`` 720p flagship frame within 1 LSB of the
+chunked render; kernel B launched from the kernel library and from a
+variant copy of it in one process, in bf16 and fp32, a first launch of
+the variant's kernel inside a graph capture.
 """
 
 import numpy as np
@@ -817,3 +824,145 @@ def test_graph_module_on_card_matches_cpu(tmp_path, family):
     assert float((k32 - p32).abs().max()) <= 1e-4
     tol = max(2 * float((p16 - p32).abs().max()), 0.02)
     assert float((k16 - p32).abs().max()) <= tol
+
+
+def _flagship_pipeline(batch=4, dtype="fp16", fuse_frame=False):
+    """The flagship model (swin_unet/art 4x noise 3, full width, seed-0
+    weights) behind an ``Upscaler`` at tile 256."""
+    from waifu2x_tensorrt_tpu_torch.engine.config import (
+        Precision,
+        RenderConfig,
+    )
+    from waifu2x_tensorrt_tpu_torch.engine.upscaler import Upscaler
+
+    up = Upscaler(allow_random_init=True, device="cuda")
+    up.load("swin_unet/art", 4, 3, RenderConfig(
+        precision=Precision(dtype), batch_size=batch, height=256, width=256,
+        scaling=4, overlap=(1 / 16, 1 / 16)), fuse_frame=fuse_frame)
+    return up
+
+
+def test_captured_chunk_is_the_eager_chunk():
+    """A flagship-width chunk (bf16, 4 tiles of 256) through its captured
+    program: the first call is the eager run, later calls replay the
+    graph, and both give the bytes of the module called eagerly at the
+    same shape. Replays add the capture's launches (10 of kernel B) to the
+    counters; the capture itself adds none. A replay, and a whole
+    streamed frame around replays (pinned upload, kernel C), make no
+    synchronizing call."""
+    from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
+
+    up = _flagship_pipeline()
+    pl = up._pipeline
+    x = torch.rand((4, 256, 256, 3), generator=torch.Generator().manual_seed(
+        8)).cuda().bfloat16()
+    with torch.inference_mode():
+        want = pl.model_prog.fn(x)
+    before = fused_swin_block.launches
+    first = pl.run_model(x)
+    assert fused_swin_block.launches == before + 10  # the eager run only
+    (graph,) = pl.model_prog.graphs.values()
+    assert {w.__name__: n for w, n in graph.launches.items()} == {
+        "fused_swin_block": 10}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replays = [pl.run_model(x) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert fused_swin_block.launches == before + 10 + 3 * 10
+    assert torch.equal(first, want)
+    for r in replays:
+        assert torch.equal(r, want)
+        assert r.data_ptr() != graph.static_out.data_ptr()  # a copy
+
+    stream = up.open_stream((300, 500))
+    stream.warm()
+    frames = [np.random.default_rng(i).integers(0, 256, (300, 500, 3),
+                                                 np.uint8) for i in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [o for f in frames for o in stream.submit(f)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    outs += stream.flush()
+    for f, o in zip(frames, outs):
+        np.testing.assert_array_equal(o.cpu().numpy(), up.render(f))
+
+
+def test_fuse_frame_720p_against_the_chunked_render():
+    """A 720p flagship frame (bf16, batch 16: chunks [16, 2]) as one
+    captured whole-frame program, against the chunked pipeline's render
+    of it: the same launches at the same shapes, so at most 1 LSB (the
+    JAX package's bound between its two), in practice none. The second
+    fused call replays the graph: the same bytes, and the capture's
+    launches (B 20, C 1) counted once a replay."""
+    from waifu2x_tensorrt_tpu_torch.engine import exe_cache
+
+    fused = _flagship_pipeline(batch=16, fuse_frame=True)
+    chunked = _flagship_pipeline(batch=16)
+    frame = np.random.default_rng(9).integers(0, 256, (720, 1280, 3),
+                                              np.uint8)
+    want = chunked.render(frame)
+    first = fused.render(frame)
+    counters = exe_cache.launch_counters()
+    before = {k: w.launches for k, w in counters.items()}
+    second = fused.render(frame)
+    made = {k: w.launches - before[k] for k, w in counters.items()}
+    assert made == {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0}
+    assert first.shape == (2880, 5120, 3)
+    np.testing.assert_array_equal(first, second)
+    assert np.abs(first.astype(int) - want.astype(int)).max() <= 1
+    prog = fused._fused.get((720, 1280))
+    assert len(prog.graphs) == 1 and prog.pool.bytes > 0
+
+
+def _launch_b(lib, x, ops, flags, shift):
+    """Kernel B from the library ``lib`` (a copy of the kernel library
+    loaded with ``ctypes``), as the wrapper calls it."""
+    from waifu2x_tensorrt_tpu_torch.ops import build
+
+    out = torch.empty_like(x)
+    code = lib.w2x_swin_block(
+        x.data_ptr(), *[t.data_ptr() for t in ops.tensors],
+        ops.bias.data_ptr(), flags.data_ptr(), out.data_ptr(), x.shape[0],
+        x.shape[2], ops.num_heads, shift, int(x.dtype == torch.bfloat16),
+        build.stream_handle(x.device))
+    build.check(code, "swin block kernel")
+    return out
+
+
+@pytest.mark.parametrize("dtype,captured_first", [
+    (torch.bfloat16, (False, True)), (torch.float32, (True, False))])
+def test_kernel_b_launches_from_two_library_copies(dtype, captured_first):
+    """Two copies of the kernel library in one process (the plain one and
+    a variant built with an extra flag): kernel B launches from each, in
+    bf16 and fp32, after the plain copy has launched the same kernel. One
+    of the variant's first launches of a kernel (bf16 C 192, fp32) is
+    inside a CUDA-graph capture, so its shared-memory limit is set there.
+    Each copy sets its own limit (the flag that guards it is no longer a
+    template's static local, which the loader shares between copies);
+    every launch gives the plain library's bytes."""
+    from waifu2x_tensorrt_tpu_torch.ops import build
+    from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
+
+    plain = build.load_library()
+    variant = build.load_library(extra_flags=("-DW2X_SECOND_COPY",))
+    assert variant is not plain
+    for (c, nh), captured in zip(((96, 3), (192, 6)), captured_first):
+        x, _q, params, bias, flags = _inputs(37, c, nh, c)
+        x = x.to(dtype)
+        ops = sb.block_operands(params, bias, dtype)
+        want = _launch_b(plain, x, ops, flags, 4)
+        if captured:
+            static_x = x.clone()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                static_out = _launch_b(variant, static_x, ops, flags, 4)
+            graph.replay()
+            got = static_out.clone()
+        else:
+            got = _launch_b(variant, x, ops, flags, 4)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (c, captured)

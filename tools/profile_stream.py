@@ -39,7 +39,9 @@ submits ``--frames`` seeded frames and flushes under ``torch.profiler``
   convolutions and GEMMs, host-to-device copies, the rest), and the 20
   device kernels with the most time;
 - per chunk of the cell's batch: kernel launches (``cudaLaunchKernel``
-  calls) and the aten operators called most often.
+  calls) and CUDA-graph launches (``cudaGraphLaunch``: a captured chunk
+  program's kernels are launched by its replay, not from the host) from
+  the host, and the aten operators called most often.
 
 ``--root DIR`` imports ``waifu2x_tensorrt_tpu_torch`` from DIR (an
 unpacked other commit, to compare two versions in one call). ``--trace``
@@ -226,7 +228,9 @@ def main() -> int:
     for name, (us, n) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"  {us / 1e3:9.3f} {n:6d}  {name[:110]}")
     launches = sum(n for name, n in host.items() if "LaunchKernel" in name)
-    print(f"per chunk: {launches / chunks:.1f} kernel launches; aten "
+    graphs = sum(n for name, n in host.items() if "GraphLaunch" in name)
+    print(f"per chunk: {launches / chunks:.1f} kernel launches and "
+          f"{graphs / chunks:.1f} graph launches from the host; aten "
           "operators called most often (calls per chunk):")
     aten = [(n, name) for name, n in host.items() if name.startswith("aten::")]
     for n, name in sorted(aten, reverse=True)[:15]:

@@ -30,16 +30,22 @@ geometry whose output x-origins are 16-aligned renders through it; its
 finalize views them as pixel tiles without a copy and runs kernel C as the
 pixel path does.
 
-Everything runs eagerly on the pipeline's device: prepare is one gather,
-the model one ``nn.Module`` call per chunk, finalize one kernel-C launch
-per frame (its plain scan twin on CPU); the TTA permutes and mean are
-plain torch ops, as they are XLA-fused work in the JAX package. The
-monolithic per-frame program (``make_render_fn``/``RendererCache``), the
-executable store and sharding are not ported.
+On the pipeline's device prepare is one gather, the model one program per
+chunk, finalize one kernel-C launch per frame (its plain scan twin on
+CPU); the TTA permutes and mean are plain torch ops, as they are
+XLA-fused work in the JAX package. The model runs as the JAX package's
+does, through the program store (``engine/exe_cache.py``): on CUDA each
+chunk shape of the module (and of its packed-x twin) is one captured CUDA
+graph, the graphs of a pipeline sharing one memory pool; on the CPU the
+module is called. ``RendererCache`` (``fuse_frame``) makes a whole frame
+one program (``make_render_fn``): one graph replay a frame. Frames go to
+the card through pinned memory, without a synchronize. Sharding is not
+ported.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import time
 from typing import Optional
@@ -47,6 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from waifu2x_tensorrt_tpu_torch.engine import exe_cache
 from waifu2x_tensorrt_tpu_torch.engine.config import RenderConfig
 from waifu2x_tensorrt_tpu_torch.models.registry import ModelSpec
 from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
@@ -162,6 +169,7 @@ def make_chunked_fns(spec: ModelSpec, config: RenderConfig,
         return prepare_flat(frame_u8).split(chunk_sizes)
 
     prepare.flat = prepare_flat
+    prepare.chunk_sizes = chunk_sizes
     finalize = make_finalize_epilogue(plan, device)
     if config.tta:
         finalize_tiles = finalize
@@ -215,6 +223,7 @@ def _make_rect_tta_chunked_fns(plan, config: RenderConfig, frame_hw,
         return tuple(pieces)
 
     prepare.flat = None
+    prepare.chunk_sizes = chunk_sizes
     finalize_tiles = make_finalize_epilogue(plan, device)
 
     def group_sum(outs, idxs, shape):
@@ -240,6 +249,12 @@ def pack_x_applicable(plan, px: int) -> bool:
 
 
 def _as_frame(frame_u8, device) -> torch.Tensor:
+    """The (H, W, 3) u8 frame on ``device``. A host frame bound for a CUDA
+    device is staged in pinned memory and copied without a synchronize (a
+    pageable copy would drain the device's queue every frame); the caching
+    host allocator records an event after the copy on the block it
+    handed out and hands that block out again only once the event has
+    passed."""
     if isinstance(frame_u8, np.ndarray):
         frame_u8 = torch.from_numpy(np.require(frame_u8,
                                                requirements=["C", "W"]))
@@ -247,16 +262,25 @@ def _as_frame(frame_u8, device) -> torch.Tensor:
             or frame_u8.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) uint8 frame, got "
                          f"{frame_u8.dtype} {tuple(frame_u8.shape)}")
+    device = torch.device(device)
+    if device.type == "cuda" and frame_u8.device.type == "cpu":
+        staged = torch.empty(tuple(frame_u8.shape), dtype=torch.uint8,
+                             pin_memory=True)
+        staged.copy_(frame_u8)
+        return staged.to(device, non_blocking=True)
     return frame_u8.to(device)
 
 
 class ChunkedPipeline:
-    """Per-geometry prepare/finalize around one shared model.
+    """Per-geometry prepare/finalize around one shared model program.
 
     ``render`` runs chunk by chunk, firing ``progress(i, n, it_s)`` after
     each model chunk — the reference's "batch i/n @ it/s" seam
     (img2img_render.cpp:336-338). The returned u8 tensor stays on the
-    device.
+    device. The model runs through ``exe_cache.cached_program`` (tag
+    ``model|<module_tag>``), as the JAX ``_make_model_prog`` does: one
+    captured CUDA graph per chunk shape on CUDA, every graph of the
+    pipeline in one memory pool.
 
     ``module_pack_x`` (optional): the packed-x-head twin of ``module`` over
     the same parameters (``registry.packed_x_twin``), with its spec.
@@ -275,6 +299,16 @@ class ChunkedPipeline:
         self._spec_px = spec_pack_x if module_pack_x is not None else None
         self._logger = logger
         self._geoms: dict[tuple[int, int], tuple] = {}
+        self.pool = exe_cache.GraphPool()
+        self.model_prog = self._make_model_prog(module)
+        self.model_prog_px = (self._make_model_prog(module_pack_x)
+                              if module_pack_x is not None else None)
+        self._flops: dict[tuple, float] = {}
+
+    def _make_model_prog(self, module):
+        return exe_cache.cached_program(
+            module, tag=f"model|{exe_cache.module_tag(module)}",
+            pool=self.pool)
 
     @property
     def config(self) -> RenderConfig:
@@ -313,9 +347,32 @@ class ChunkedPipeline:
 
     def run_model(self, tiles: torch.Tensor,
                   use_pack_x: bool = False) -> torch.Tensor:
-        module = self._module_px if use_pack_x else self._module
-        with torch.inference_mode():
-            return module(tiles)
+        prog = self.model_prog_px if use_pack_x else self.model_prog
+        return prog(tiles)
+
+    def flops_per_frame(self, frame_hw: tuple[int, int]) -> float:
+        """Model FLOPs a frame at this geometry (the JAX package's
+        ``ChunkedPipeline.flops_per_frame``, the MFU numerator): the
+        products and convolutions of every chunk of the frame, at 2 FLOP a
+        multiply-add, counted by ``FlopCounterMode`` on the module's plain
+        path on the meta device (the CUDA kernels are opaque to the
+        counter, their plain twins are not), once per chunk size. XLA's
+        cost analysis also counts elementwise work, so this is 0.85-1.0 of
+        the JAX count. Prepare and finalize are data movement and are not
+        counted. Rect-TTA chunks count as (n, th, tw): the FLOPs of a
+        product or a convolution depend on the pixel count, not the
+        orientation."""
+        prepare, _fin, plan, _n = self.get(frame_hw)
+        module = self._module_px if prepare.use_pack_x else self._module
+        th, tw = plan.input_tile
+        total = 0.0
+        for n in prepare.chunk_sizes:
+            key = (prepare.use_pack_x, n, th, tw)
+            if key not in self._flops:
+                self._flops[key] = _plain_flops(
+                    module, (n, th, tw, 3), self._config.precision.dtype)
+            total += self._flops[key]
+        return total
 
     def render(self, frame_u8, progress=None) -> torch.Tensor:
         frame = _as_frame(frame_u8, self._device)
@@ -331,6 +388,76 @@ class ChunkedPipeline:
                              1.0 / max(t_now - t_prev, 1e-9))
                     t_prev = t_now
             return finalize(*outs)
+
+
+def _plain_flops(module, shape, dtype) -> float:
+    """FLOPs of one forward of ``module`` at ``shape``: a copy of it on the
+    meta device (whose kernel wrappers run their plain twins) under
+    ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    meta = copy.deepcopy(module).to("meta")
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        meta(torch.empty(shape, dtype=dtype, device="meta"))
+    return float(counter.get_total_flops())
+
+
+def make_render_fn(module, spec: ModelSpec, config: RenderConfig,
+                   frame_hw: tuple[int, int], device):
+    """The whole render of one frame geometry as one function,
+    ``fn(frame_u8) -> out_u8`` on ``device`` (the JAX
+    ``make_render_fn``): u8 -> [0, 1], replicate pad and gather, every
+    chunk (full chunks plus an exact-size remainder) through ``module``,
+    TTA or rect TTA, and kernel C's finalize: ``make_chunked_fns``'s
+    halves around the model. ``fn.plan`` and ``fn.n_chunks`` describe
+    it."""
+    prepare, finalize, plan, chunk_sizes = make_chunked_fns(
+        spec, config, frame_hw, device)
+
+    def fn(frame_u8: torch.Tensor) -> torch.Tensor:
+        return finalize(*[module(c) for c in prepare(frame_u8)])
+
+    fn.plan = plan
+    fn.n_chunks = len(chunk_sizes)
+    return fn
+
+
+class RendererCache:
+    """Whole-frame programs keyed by frame geometry (``fuse_frame``; the
+    JAX ``RendererCache``): ``get(frame_hw)`` wraps ``make_render_fn`` in
+    a ``CachedProgram`` tagged ``fused|<module_tag>|<spec>|<config>``,
+    with the geometry in its key, so on CUDA a frame is one graph replay.
+    One graph per frame size, all in one memory pool; no cross-frame
+    stream and no per-chunk progress."""
+
+    def __init__(self, module, spec: ModelSpec, config: RenderConfig,
+                 device) -> None:
+        self._module = module
+        self._spec = spec
+        self._config = config
+        self._device = torch.device(device)
+        self._tag = (f"fused|{exe_cache.module_tag(module)}|{spec}"
+                     f"|{config}")
+        self.pool = exe_cache.GraphPool()
+        self._programs: dict[tuple[int, int], exe_cache.CachedProgram] = {}
+
+    def get(self, frame_hw: tuple[int, int]) -> exe_cache.CachedProgram:
+        key = (int(frame_hw[0]), int(frame_hw[1]))
+        prog = self._programs.get(key)
+        if prog is None:
+            fn = make_render_fn(self._module, self._spec, self._config, key,
+                                self._device)
+            prog = exe_cache.cached_program(fn, tag=self._tag,
+                                            pool=self.pool)
+            prog.plan = fn.plan
+            prog.n_chunks = fn.n_chunks
+            self._programs[key] = prog
+        return prog
+
+    def render(self, frame_u8) -> torch.Tensor:
+        """Render one frame; the u8 output stays on the device."""
+        frame = _as_frame(frame_u8, self._device)
+        return self.get(frame.shape[:2])(frame)
 
 
 class TileStream:
@@ -426,16 +553,25 @@ class TileStream:
     def warm(self) -> int:
         """Run one carry cycle of zero frames through a throwaway stream
         (builds the kernels and warms the allocator and cuDNN's algorithm
-        choice for every chunk split the stream will meet). Returns the
-        number of warm frames."""
-        cycle = (1 if self._n_steps % self._chunk == 0
-                 else self._chunk // math.gcd(self._n_steps, self._chunk))
+        choice for every chunk split the stream will meet, and captures the
+        full chunk's program). Where programs are captured (CUDA), also run
+        the model once at every tail that a flush can meet (each multiple of
+        gcd(steps a frame, chunk) below the chunk), so that no capture
+        falls inside the stream. Returns the number of warm frames."""
+        step = math.gcd(self._n_steps, self._chunk)
+        cycle = self._chunk // step
         throwaway = TileStream(self._pl, self._hw)
         frame = torch.zeros((*self._hw, 3), dtype=torch.uint8,
                             device=self._pl.device)
         for _ in range(cycle):
             throwaway.submit(frame)
         throwaway.flush()
+        if exe_cache.enabled(self._pl.device):
+            with torch.inference_mode():
+                tile = self._prep_flat(frame)[:1]
+            for n in range(step, self._chunk, step):
+                self._pl.run_model(tile.new_zeros((n, *tile.shape[1:])),
+                                   self._use_px)
         return cycle
 
 

@@ -21,10 +21,18 @@ error on the device raises.
 
 ``build()`` resolves the model as ``load()`` will, builds the CUDA kernel
 library (on CUDA), runs one forward at each corner geometry of the
-profile and writes the engine sidecar ``<stem>_<hash16>.engine.json``;
-``load()`` selects a sidecar as the reference's getEnginePath does
-(``engine/cache.py``) and, with ``require_engine=True``, fails without
-one. There is no compiled-program store.
+profile, captures each corner's chunk program (``engine/exe_cache.py``,
+so a capture fault shows at build) and writes the engine sidecar
+``<stem>_<hash16>.engine.json``; ``load()`` selects a sidecar as the
+reference's getEnginePath does (``engine/cache.py``) and, with
+``require_engine=True``, fails without one. Captured programs live in
+their process: a later ``load`` captures again, and nothing is persisted.
+
+Renders run through captured CUDA graphs on CUDA: one a chunk shape
+(``ChunkedPipeline``), or with ``load(..., fuse_frame=True)`` one a frame
+geometry (``RendererCache``: the whole frame is one graph replay, with no
+cross-frame stream, so ``can_stream`` is False and ``open_stream``
+returns None).
 
 No fallback hides the device or a kernel: without a CUDA device a CUDA
 render raises, the CPU serves only when asked for by name, and a kernel
@@ -50,6 +58,7 @@ import numpy as np
 import torch
 
 from waifu2x_tensorrt_tpu_torch.engine import cache as engine_cache
+from waifu2x_tensorrt_tpu_torch.engine import exe_cache
 from waifu2x_tensorrt_tpu_torch.engine.config import (
     BuildConfig,
     Precision,
@@ -58,6 +67,7 @@ from waifu2x_tensorrt_tpu_torch.engine.config import (
 )
 from waifu2x_tensorrt_tpu_torch.engine.renderer import (
     ChunkedPipeline,
+    RendererCache,
     TileStream,
     bucket_frame,
     bucket_hw,
@@ -84,7 +94,10 @@ class Upscaler:
         self._device: Optional[torch.device] = None
         self._spec: Optional[registry.ModelSpec] = None
         self._pipeline: Optional[ChunkedPipeline] = None
+        self._fused: Optional[RendererCache] = None
         self._bucket = 0
+        # seconds of the last build(): library, model, eager, capture
+        self.build_seconds: dict[str, float] = {}
 
     def _select_device(self, device_id: int) -> torch.device:
         dev = torch.device(self._device_arg if self._device_arg is not None
@@ -119,13 +132,19 @@ class Upscaler:
         ``.onnx`` or its graph; the verification runs or is read from
         ``.verify.json``), check every corner geometry of the profile
         against the model's tile divisor, build the CUDA kernel library
-        (on CUDA), run one forward at each corner and write the engine
-        sidecar."""
+        (on CUDA), run one forward at each corner, capture each corner's
+        chunk program (on CUDA) and write the engine sidecar.
+        ``build_seconds`` holds the ready seconds by step: the kernel
+        library's build or load, the model and its weights, the first
+        (eager) forwards, and the captures."""
         registry.validate(family, scale, noise)
         device = self._select_device(config.device_id)
+        exe_cache.configure(self.models_dir, device)
         fused_block = device.type == "cuda"
+        t0 = time.perf_counter()
         module, spec, _, _ = self._resolve_model(
             family, scale, noise, config, device, fused_block, graph_exact)
+        model_s = time.perf_counter() - t0
         shapes = compiled_shapes(config)
         for _, hh, ww in shapes:
             for dim in (hh, ww):
@@ -147,21 +166,32 @@ class Upscaler:
 
             kernels = f"kernel library {kernel_build.build().name}"
             kernel_build.load_library()
-        with torch.inference_mode():
-            for b, h, w in shapes:
-                module(torch.zeros((b, h, w, 3), dtype=config.precision.dtype,
-                                   device=device))
+        library_s = time.perf_counter() - t0
+        prog = exe_cache.cached_program(
+            module, tag=f"model|{exe_cache.module_tag(module)}")
+        t0 = time.perf_counter()
+        for b, h, w in shapes:
+            prog(torch.zeros((b, h, w, 3), dtype=config.precision.dtype,
+                             device=device))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
+        forwards_s = time.perf_counter() - t0
+        capture_s = sum(g.capture_s for g in prog.graphs.values())
+        self.build_seconds = {"library": library_s, "model": model_s,
+                              "eager": forwards_s - capture_s,
+                              "capture": capture_s}
         stem = registry.weights_path(self.models_dir, family, scale, noise)
         sidecar = engine_cache.write_engine_sidecar(
             stem, config, device_name=device_kind(device))
+        captured = (f"{len(prog.graphs)} chunk programs captured as CUDA "
+                    f"graphs in {capture_s:.1f}s, not persisted: a graph "
+                    "lives in its process, so load() captures again"
+                    if prog.graphs else "no programs captured on the CPU")
         self.logger.log(
             Severity.info,
-            f"Engine built in {dt:.1f}s ({kernels}; one forward at each of "
-            f"{len(shapes)} corner geometries on {device}); sidecar "
-            f"{sidecar.name}",
+            f"Engine built in {library_s + forwards_s:.1f}s ({kernels}; one "
+            f"forward at each of {len(shapes)} corner geometries on "
+            f"{device}; {captured}); sidecar {sidecar.name}",
         )
 
     # -- load: engine select + weights + pipeline (img2img_load.cpp) -------
@@ -169,7 +199,7 @@ class Upscaler:
              config: RenderConfig,
              fused_block: Optional[bool] = None, bucket: int = 0,
              require_engine: bool = False,
-             graph_exact: bool = False) -> None:
+             graph_exact: bool = False, fuse_frame: bool = False) -> None:
         """Build the model for (family, scale, noise) at ``config``'s
         precision, load its weights and prepare the pipeline. A swin_unet
         weight file gives the module its width and depths
@@ -183,9 +213,13 @@ class Upscaler:
         ``require_engine=True`` fails when no engine sidecar of a
         ``build()`` matches ``config`` (img2img_load.cpp:111-113);
         ``graph_exact=True`` serves a bare ``.onnx`` through its own graph
-        even when its conversion verifies."""
+        even when its conversion verifies. ``fuse_frame=True`` renders a
+        whole frame as one program (``RendererCache``; one per frame
+        geometry, no cross-frame stream, no per-chunk progress); the
+        default is the chunked pipeline, one program per chunk shape."""
         registry.validate(family, scale, noise)
         device = self._select_device(config.device_id)
+        exe_cache.configure(self.models_dir, device)
         stem = registry.weights_path(self.models_dir, family, scale, noise)
         found = engine_cache.find_engine(stem, config,
                                          device_name=device_kind(device))
@@ -225,11 +259,15 @@ class Upscaler:
         module_px = spec_px = None
         if (os.environ.get("WAIFU2X_PACK_X") == "1" and source != "onnx"
                 and spec.arch == "swin_unet" and scale > 1
-                and not config.tta):
+                and not config.tta and not fuse_frame):
             module_px, spec_px = registry.packed_x_twin(module, spec)
-        self._pipeline = ChunkedPipeline(
-            module, spec, config, device, module_pack_x=module_px,
-            spec_pack_x=spec_px, logger=self.logger)
+        self._pipeline = self._fused = None
+        if fuse_frame:
+            self._fused = RendererCache(module, spec, config, device)
+        else:
+            self._pipeline = ChunkedPipeline(
+                module, spec, config, device, module_pack_x=module_px,
+                spec_pack_x=spec_px, logger=self.logger)
         self.logger.log(
             Severity.info,
             f"loaded {family} scale={scale} noise={noise} on {device} "
@@ -239,6 +277,7 @@ class Upscaler:
             + f"tta={'on' if config.tta else 'off'}, "
             f"tile={config.height or 'whole frame'}, bucket={bucket}, "
             f"packed_x={'on' if module_px is not None else 'off'}, "
+            f"fuse_frame={'on' if fuse_frame else 'off'}, "
             f"weights={source})")
 
     def _resolve_model(self, family, scale, noise, config, device,
@@ -429,10 +468,16 @@ class Upscaler:
 
     # -- render (img2img_render.cpp:224-352) -------------------------------
     def _render_device(self, frame_u8) -> torch.Tensor:
-        if self._pipeline is None:
+        if self._pipeline is None and self._fused is None:
             raise RuntimeError("load() must be called before render()")
         frame_u8, (h, w) = bucket_frame(frame_u8, self._bucket)
-        out = self._pipeline.render(frame_u8, progress=self.logger.progress)
+        if self._fused is not None:
+            out = self._fused.render(frame_u8)
+            n = self._fused.get(frame_u8.shape[:2]).n_chunks
+            self.logger.progress(n, n, 0.0)
+        else:
+            out = self._pipeline.render(frame_u8,
+                                        progress=self.logger.progress)
         s = self._spec.scale
         return out[:h * s, :w * s]
 
@@ -455,7 +500,10 @@ class Upscaler:
         that became ready (device u8 tensors, cropped to the frame's
         size), ``flush()`` the rest. Returns None for a rect-TTA geometry
         (whole-frame TTA on a non-square frame, two tile orientations a
-        frame): render such frames one by one."""
+        frame): render such frames one by one; so does every geometry
+        under ``fuse_frame`` (a frame is one program)."""
+        if self._fused is not None:
+            return None
         if not self.can_stream:
             raise RuntimeError("load() must be called before open_stream()")
         hw = (int(frame_hw[0]), int(frame_hw[1]))
@@ -470,7 +518,8 @@ class Upscaler:
     @property
     def can_stream(self) -> bool:
         """True once ``load()`` has built the chunked pipeline, whose
-        geometries stream (all but rect-TTA ones, see ``open_stream``)."""
+        geometries stream (all but rect-TTA ones, see ``open_stream``);
+        False under ``fuse_frame``."""
         return self._pipeline is not None
 
     @property

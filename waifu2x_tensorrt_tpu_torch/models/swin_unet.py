@@ -112,11 +112,18 @@ def _conv(x, layer: nn.Conv2d, dtype):
     return y.permute(0, 2, 3, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _relative_index_tensor(ws: int, device: torch.device):
+    """``_relative_position_index`` on ``device``, uploaded once (so a
+    captured graph reads no host memory)."""
+    return torch.from_numpy(_relative_position_index(ws).reshape(-1)).to(
+        device)
+
+
 def _bias_from_table(table, nh: int, ws: int = WINDOW):
     """(nh, N, N) fp32 relative-position bias gathered from the table."""
     n = ws * ws
-    idx = torch.from_numpy(_relative_position_index(ws).reshape(-1))
-    bias = table[idx.to(table.device)].reshape(n, n, nh)
+    bias = table[_relative_index_tensor(ws, table.device)].reshape(n, n, nh)
     return bias.permute(2, 0, 1).float().contiguous()
 
 

@@ -5,8 +5,9 @@ together) and links them into ONE shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers: a build takes
 seconds, not minutes). The library is built at first use into
 ``build/kernels/`` at the root of the checkout, under a name keyed on a
-hash of the sources and the flags, so a changed source always rebuilds and
-an unchanged one is reused. Nothing is built at import time.
+hash of the sources, the flags and nvcc's version, so a changed source or
+toolkit always rebuilds and an unchanged one is reused. Nothing is built
+at import time.
 ``extra_flags`` builds a variant of the library beside it (a measurement
 build, e.g. ``-DW2X_PHASE_CLOCK``); the kernels' wrappers use the plain one.
 
@@ -18,6 +19,7 @@ a non-zero code.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -51,8 +53,22 @@ def _sources() -> list[Path]:
     return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
 
 
+@functools.cache
+def _version_of(nvcc: str) -> str:
+    out = subprocess.run([nvcc, "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[-1]
+
+
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (the toolkit's build)."""
+    return _version_of(_nvcc())
+
+
 def source_hash(extra_flags=()) -> str:
+    """The library's key: the sources, the flags and nvcc's version."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
+    h.update(nvcc_version().encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())

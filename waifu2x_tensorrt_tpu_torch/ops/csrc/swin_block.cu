@@ -90,6 +90,40 @@ struct BlockParams {
 
 constexpr int kMaxDevices = 64;
 
+namespace {
+
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once per kernel
+// and device. The flags are kept here, in a function of internal linkage
+// that is no template: a static local of a template (or inline) function
+// is a GNU unique symbol, which the dynamic loader binds once per process
+// even under RTLD_LOCAL, so every copy of this library loaded into one
+// process (a variant built with other flags, a build in another directory)
+// would share one flag, and a second copy would skip the attribute for its
+// own kernel and fail to launch. Keyed by the kernel's host stub, which is
+// this copy's own.
+int set_smem_limit(const void* kernel, int bytes) {
+  constexpr int kKernels = 8;  // the fp32 kernel and 6 bf16 instantiations
+  static const void* done[kMaxDevices][kKernels] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const void** mine = dev < kMaxDevices ? done[dev] : nullptr;
+  for (int i = 0; mine && i < kKernels; ++i)
+    if (mine[i] == kernel) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return (int)err;
+  for (int i = 0; mine && i < kKernels; ++i)
+    if (!mine[i]) {
+      mine[i] = kernel;
+      break;
+    }
+  return 0;
+}
+
+}  // namespace
+
 // ---------------------------------------------------------------------------
 // fp32: one CTA per window on the CUDA cores
 // ---------------------------------------------------------------------------
@@ -155,20 +189,12 @@ int launch_swin_block(const void* x, const BlockParams& p, const void* bias,
   constexpr size_t kMaxSmem = NTOK * SLD * sizeof(float) +
                               (size_t)NTOK * padded_ld<T>(192) * sizeof(T) +
                               (size_t)NTOK * padded_ld<T>(3 * 192) * sizeof(T);
-  static bool configured[kMaxDevices] = {};
   const size_t smem = NTOK * SLD * sizeof(float) +
                       (size_t)NTOK * padded_ld<T>(C) * sizeof(T) +
                       (size_t)NTOK * padded_ld<T>(3 * C) * sizeof(T);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices || !configured[dev]) {
-    err = cudaFuncSetAttribute(swin_block_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kMaxSmem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < kMaxDevices) configured[dev] = true;
-  }
+  const int err = set_smem_limit((const void*)swin_block_kernel<T>,
+                                 (int)kMaxSmem);
+  if (err) return err;
   swin_block_kernel<T><<<bw, NTHREADS, smem, stream>>>(
       static_cast<const T*>(x), p, static_cast<const float*>(bias),
       static_cast<const int*>(flags), static_cast<T*>(out), C, nh, shift);
@@ -685,17 +711,9 @@ int launch_swin_block_tc(const void* x, const BlockParams& p,
                          const void* bias, const void* flags, void* out,
                          int bw, int shift, cudaStream_t stream) {
   using L = TcLayout<C>;
-  static bool configured[kMaxDevices] = {};  // one per instantiation
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices || !configured[dev]) {
-    err = cudaFuncSetAttribute(swin_block_tc_kernel<C>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)L::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < kMaxDevices) configured[dev] = true;
-  }
+  const int err = set_smem_limit((const void*)swin_block_tc_kernel<C>,
+                                 (int)L::SMEM);
+  if (err) return err;
   const int grid = (bw + TC_WPC - 1) / TC_WPC;
   swin_block_tc_kernel<C><<<grid, TC_THREADS, L::SMEM, stream>>>(
       static_cast<const bf16*>(x), p, static_cast<const float*>(bias),

@@ -15,7 +15,11 @@ the same order, so the two are byte-identical.
 model's chunk outputs (or TileStream's pieces of them) where they are.
 Each call's table of tile addresses goes to the card from pinned memory
 without a synchronize, so finalize never makes the host wait for the
-chunks it reads.
+chunks it reads. Inside a CUDA-graph capture (a whole-frame program,
+``engine/exe_cache.py``) the pieces lie at addresses that every replay
+reuses, and a captured copy would read the pinned buffer again at each
+replay after it was freed: there the table is made on the card from those
+addresses (one ``arange`` a piece, recorded in the graph).
 """
 
 from __future__ import annotations
@@ -151,22 +155,32 @@ def make_finalize_epilogue(plan, device):
         dt = outs[0].dtype
         if dt not in (torch.float32, torch.bfloat16):
             raise TypeError(f"tile dtype {dt}: float32 or bfloat16 only")
-        ptrs = []
+        pieces = []  # (base address, tiles, bytes a tile)
         for c in outs:
             if (c.device != device or c.dtype != dt or not c.is_contiguous()
                     or tuple(c.shape[1:]) != (oh, ow, 3)):
                 raise ValueError(
                     f"finalize pieces must be contiguous ({oh}, {ow}, 3) "
                     f"{dt} tensors on {device}")
-            base = c.data_ptr()
-            step = tile_elems * c.element_size()
-            ptrs.extend(base + i * step for i in range(int(c.shape[0])))
-        if len(ptrs) < T:
-            raise ValueError(f"finalize got {len(ptrs)} tiles, plan has {T}")
-        # pinned host memory and an asynchronous copy: no synchronize (the
-        # caching host allocator keeps the block until the copy has run)
-        table = torch.tensor(ptrs[:T], dtype=torch.int64,
-                             pin_memory=True).to(device, non_blocking=True)
+            pieces.append((c.data_ptr(), int(c.shape[0]),
+                           tile_elems * c.element_size()))
+        if sum(n for _, n, _ in pieces) < T:
+            raise ValueError(f"finalize got {sum(n for _, n, _ in pieces)} "
+                             f"tiles, plan has {T}")
+        if torch.cuda.is_current_stream_capturing():
+            table = torch.cat([
+                torch.arange(base, base + n * step, step, dtype=torch.int64,
+                             device=device)
+                for base, n, step in pieces])[:T]
+        else:
+            # pinned host memory and an asynchronous copy: no synchronize
+            # (the caching host allocator keeps the block until the copy
+            # has run)
+            ptrs = [base + i * step for base, n, step in pieces
+                    for i in range(n)]
+            table = torch.tensor(ptrs[:T], dtype=torch.int64,
+                                 pin_memory=True).to(device,
+                                                     non_blocking=True)
         out = torch.empty((out_h, out_w, 3), dtype=torch.uint8, device=device)
         return finalize_gather(table, row_w, col_w, out, geom,
                                dt == torch.bfloat16)

@@ -49,10 +49,11 @@ def _check(z, r):
 
 def pack_head_x16(z, *, r: int):
     """Clamp + depth-to-space(r) + pack-x16: the CUDA kernel for CUDA
-    tensors, the plain twin for CPU tensors. Returns (B, rH, rW/16, 48) in
-    z's dtype. Counts kernel launches in ``pack_head_x16.launches``."""
+    tensors, the plain twin for CPU (and meta) tensors. Returns (B, rH,
+    rW/16, 48) in z's dtype. Counts kernel launches in
+    ``pack_head_x16.launches``."""
     _check(z, r)
-    if z.device.type == "cpu":
+    if z.device.type in ("cpu", "meta"):
         return pack_head_plain(z, r)
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")

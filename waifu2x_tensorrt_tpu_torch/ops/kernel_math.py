@@ -43,8 +43,10 @@ def keep_from_flags(bottom, right, row_cross, col_cross):
 
 
 @functools.lru_cache(maxsize=None)
-def _crossings(ws: int, shift: int):
-    t = torch.arange(ws * ws)
+def _crossings(ws: int, shift: int, device: torch.device):
+    """The seam crossings on ``device``, made once (so a captured graph
+    reads no host memory)."""
+    t = torch.arange(ws * ws, device=device)
     return shift_crossing(t[:, None], t[None, :], ws, shift)
 
 
@@ -53,7 +55,7 @@ def keep_mask(flags: torch.Tensor, ws: int, shift: int):
     ``shift`` is 0 (nothing is masked)."""
     if not shift:
         return None
-    row_cross, col_cross = (a.to(flags.device) for a in _crossings(ws, shift))
+    row_cross, col_cross = _crossings(ws, shift, flags.device)
     bottom = ((flags & 1) > 0)[:, None, None]
     right = ((flags & 2) > 0)[:, None, None]
     return keep_from_flags(bottom, right, row_cross[None], col_cross[None])
@@ -69,8 +71,7 @@ def softmax_lastdim(attn: torch.Tensor, keep=None) -> torch.Tensor:
     where ``keep`` is False get weight exactly 0. Every row must keep at
     least one entry (Swin shift masks always do)."""
     if keep is not None:
-        attn = torch.where(keep, attn, torch.tensor(-3e38, dtype=attn.dtype,
-                                                    device=attn.device))
+        attn = attn.masked_fill(~keep, -3e38)
     e = torch.exp(attn - attn.amax(dim=-1, keepdim=True))
     if keep is not None:
         e = e * keep.to(e.dtype)

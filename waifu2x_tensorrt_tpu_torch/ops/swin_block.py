@@ -164,14 +164,15 @@ def swin_block_prepared(x, operands: BlockOperands, flags, *,
                         shift: int = 0, ws: int = 8):
     """One Swin block on prepared operands: the CUDA kernel for CUDA
     tensors (bf16: tensor cores; fp32: CUDA cores), the plain twin for CPU
-    tensors. Counts kernel launches in ``fused_swin_block.launches``."""
+    tensors (and meta ones, which count FLOPs). Counts kernel launches in
+    ``fused_swin_block.launches``."""
     _check_x(x, flags, ws)
     nh = operands.num_heads
     _check_geometry(x.shape[2], nh, shift, ws)
     if x.shape[2] != operands.dim:
         raise ValueError(f"x has C={x.shape[2]}, the operands "
                          f"C={operands.dim}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return swin_block_plain(x, operands.params(), operands.bias, flags,
                                 num_heads=nh, shift=shift, ws=ws)
     if x.device.type != "cuda":

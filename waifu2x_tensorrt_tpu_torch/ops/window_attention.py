@@ -46,7 +46,7 @@ def window_attention_qkv_plain(qkv, bias, flags, *, num_heads: int,
     nh = num_heads
     hd = c // nh
     dt = qkv.dtype
-    scale = torch.tensor(hd ** -0.5, dtype=dt, device=qkv.device)
+    scale = torch.tensor(hd ** -0.5, dtype=dt)  # a host scalar operand
 
     def heads(t):  # (BW, N, C) -> (BW, nh, N, hd)
         return t.reshape(bw, n, nh, hd).permute(0, 2, 1, 3)
@@ -67,7 +67,7 @@ def window_attention_plain(q, k, v, bias, flags, *, shift: int = 0,
     points (see ``window_attention_qkv_plain``): the JAX package's
     ``window_attention_reference``."""
     dt = q.dtype
-    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=dt, device=q.device)
+    scale = torch.tensor(q.shape[-1] ** -0.5, dtype=dt)
     attn = (q * scale).float() @ k.float().transpose(-1, -2)
     attn = attn + bias.float()[None]
     keep = keep_mask(flags, ws, shift)
@@ -118,10 +118,10 @@ def _check(qkv, bias, flags, num_heads, shift, ws):
 def fused_window_attention_qkv(qkv, bias, flags, *, num_heads: int,
                                shift: int = 0, ws: int = 8):
     """Window attention: the CUDA kernel for CUDA tensors, the plain twin
-    for CPU tensors. Counts kernel launches in
+    for CPU (and meta) tensors. Counts kernel launches in
     ``fused_window_attention_qkv.launches``."""
     _check(qkv, bias, flags, num_heads, shift, ws)
-    if qkv.device.type == "cpu":
+    if qkv.device.type in ("cpu", "meta"):
         return window_attention_qkv_plain(qkv, bias, flags,
                                           num_heads=num_heads, shift=shift,
                                           ws=ws)

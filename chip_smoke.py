@@ -13,13 +13,13 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      PyTorch twins at the flagship shapes: fp32 max |d| <= 1e-4 (TF32 off),
      bf16 by the rule |k16 - p32| <= max(2 |p16 - p32|, 0.02), and B on
      prepared operands (``block_operands``, built once) equal byte for
-     byte to B on per-call ones; median times: B on prepared operands in
-     bf16 and fp32, A in bf16 and fp32 beside
+     byte to B on per-call ones; median times, each dtype beside its own
+     bound (fp32 at 67 TFLOP/s), its plain twin and its yardstick: B on
+     prepared operands beside a chain of library calls in its dtype
+     (layer_norm, linear, SDPA, gelu) that the port never calls, A beside
      ``scaled_dot_product_attention`` with the bias and shift mask as one
-     float mask (bf16 A's share of its bound and its ratio to SDPA, and
-     the registers and resident warps of its tensor-core kernel), B beside
-     a yardstick chain of bf16 library calls (layer_norm, linear, SDPA,
-     gelu) that the port never calls
+     float mask of its dtype; the registers, spills and resident warps of
+     the tensor-core and fp32 kernels
   4. kernel C (finalize) against the plain scan on the 720p -> 4x plan,
      chunk outputs split [16, 2] and in a TileStream split, and kernel C
      alone (``finalize_gather`` on a tile table built once):
@@ -39,7 +39,8 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      stream's 12 chunks, 300 in all; C one a frame, 19
   6. the whole network on the card, kernel path vs all-plain path:
      a. one frame in tf32 (fp32) with the seed-0 weights, through the
-        golden gate (max <= 2 LSB, <= 1e-4 of pixels changed);
+        golden gate (max <= 2 LSB, <= 1e-4 of pixels changed), its render
+        launching fp32 B 10 times a chunk (20) and C once;
      b. the frame's 18 tiles before the clamp, with the seed-0 weights
         (whose output lies within +-0.09, so the u8 frame is near-black)
         and with seeded unit-scale weights: fp32 max |d| <= 1e-4 of
@@ -55,8 +56,9 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      for byte, to clamp + pixel shuffle and to a chain of library calls
      (``_head_pack_chain``, D's yardstick, timed beside it); E at
      (BW 4096, nh 3), (BW 1024, nh 6) and BW 37, shifts 0 and 4, by
-     phase 3's rules; times as in phase 3 (bf16 E's share of its bound
-     and its ratio to SDPA, fp32 E); then one call of E through the
+     phase 3's rules; times as in phase 3 (bf16 and fp32 E, each beside
+     its bound, its plain twin and SDPA in its dtype); then one call of
+     E through the
      ``ops`` package API
   9. the packed-x main path: phase 5's config with WAIFU2X_PACK_X=1 (set
      for this phase only): the 720p geometry must route through the
@@ -183,15 +185,18 @@ E; none for B, C and D; for F, R times one ``torch._int_mm`` or bf16
 ``torch.matmul``, since no call runs R serialized products).
 
 Phase 5 runs with WAIFU2X_PACK_X unset (the default path). Launch counters
-are set to 0 just before phases 5, 7 and 9, phase 7's stream, E's API call
-of phase 8, the probe's run of phase 10 and each render or stream of
-phases 11 and 12, and read just after each (phase 5: kernels B and C;
-phase 7: A; phase 8: E; phase 9: D, B and C; phase 10: F; phase 11: C;
-phase 12: B and C), and around each CLI call of phases 13 and 14 and
-each stream of phase 14 (B and C, equal to the counts its streams and
-renders imply); each kernel must have launched in its run. The
-``kernels`` line counts A in phase 7's stream, and B's and C's rows carry
-the counts of phases 11-14 as ``launches_*`` keys. Any failed check
+are set to 0 just before phases 5, 7 and 9, phase 6a's render, phase 7's
+stream, E's API call of phase 8, the probe's run of phase 10 and each
+render or stream of phases 11 and 12, and read just after each (phase 5:
+kernels B and C; phase 6a: fp32 B and C; phase 7: A; phase 8: E; phase
+9: D, B and C; phase 10: F; phase 11: C; phase 12: B and C), and around
+each CLI call of phases 13 and 14 and each stream of phase 14 (B and C,
+equal to the counts its streams and renders imply); each kernel must
+have launched in its run. The ``kernels`` line counts A in phase 7's
+stream, and B's and C's rows carry the counts of phases 11-14 as
+``launches_*`` keys (B's fp32 count of phase 6a as
+``fp32_launches_tf32_frame``; the fp32 kernels' times, bounds and
+yardsticks as ``fp32_*`` keys). Any failed check
 raises, so the script exits non-zero; the last line is the JSON device
 record, printed only when every phase passed. Without a CUDA device it
 exits non-zero before printing any result. Kernel wrappers count
@@ -346,13 +351,15 @@ def _sdpa_mask(torch, bias, flags, shift, dtype):
     return mask.to(dtype).contiguous()
 
 
-def _block_chain(torch, params, c, nh):
-    """Kernel B's block as a chain of bf16 library calls (F.layer_norm,
-    F.linear, SDPA, F.gelu): a yardstick of what PyTorch's own kernels
-    take for the block. The port never calls it."""
+def _block_chain(torch, params, c, nh, dtype=None):
+    """Kernel B's block as a chain of library calls (F.layer_norm,
+    F.linear, SDPA, F.gelu) in ``dtype`` (bf16 unless given; fp32 runs
+    with TF32 off, as this script sets it): a yardstick of what PyTorch's
+    own kernels take for the block. The port never calls it."""
     import torch.nn.functional as F
 
-    w = {k: (v.t() if k.endswith("_kernel") else v).to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    w = {k: (v.t() if k.endswith("_kernel") else v).to(dtype)
          .contiguous() for k, v in params.items()}
 
     def block(x, mask):
@@ -419,53 +426,78 @@ def phase_kernels_ab(torch, report):
                 if shift == 4 and bw != 37:
                     x16 = a16[0]
                     mask = _sdpa_mask(torch, bias, flags, 4, torch.bfloat16)
+                    mask32 = _sdpa_mask(torch, bias, flags, 4, torch.float32)
                     if name == "A":
                         km = _median_ms(lambda: kern(*a16, **kw))
-                        km32 = _median_ms(lambda: kern(*args, **kw))
                         q, k, v = (x16.view(bw, 64, 3, nh, 32)
                                    .permute(2, 0, 3, 1, 4))
                         lm = _median_ms(
                             lambda: F.scaled_dot_product_attention(
                                 q, k, v, attn_mask=mask))
-                        work = _attention_work(bw, nh, 2)
-                        extra = {"library_ms": lm, "fp32_ms": km32}
+                        q32, k32_, v32 = (inp.view(bw, 64, 3, nh, 32)
+                                          .permute(2, 0, 3, 1, 4))
+                        lm32 = _median_ms(
+                            lambda: F.scaled_dot_product_attention(
+                                q32, k32_, v32, attn_mask=mask32))
+                        work, work32 = (_attention_work(bw, nh, 2),
+                                        _attention_work(bw, nh, 4))
+                        extra = {"library_ms": lm, "fp32_library_ms": lm32}
                         label = (f"SDPA with a float mask {lm:.3f} ms "
-                                 f"(kernel / SDPA {km / lm:.2f}x); fp32 "
-                                 f"kernel {km32:.3f} ms; "
+                                 f"(kernel / SDPA {km / lm:.2f}x); "
                                  + _occupancy_label(wa.tc_occupancy()))
+                        label32 = (f"SDPA fp32 with a float mask {lm32:.3f} "
+                                   f"ms; " + _occupancy_label(
+                                       wa.f32_occupancy(), "fp32 kernel"))
                     else:
                         km = _median_ms(lambda: sb.swin_block_prepared(
                             x16, ops16, flags, shift=4))
-                        km32 = _median_ms(lambda: sb.swin_block_prepared(
-                            inp, ops32, flags, shift=4))
                         chain = _block_chain(torch, params, c, nh)
                         lm = _median_ms(lambda: chain(x16, mask))
-                        work = _block_work(bw, c, nh, 2)
-                        b32 = _bound(*_block_work(bw, c, nh, 4),
-                                     tc_rate=FP32_FLOPS)
+                        chain32 = _block_chain(torch, params, c, nh,
+                                               torch.float32)
+                        lm32 = _median_ms(lambda: chain32(inp, mask32))
+                        work, work32 = (_block_work(bw, c, nh, 2),
+                                        _block_work(bw, c, nh, 4))
                         extra = {"library_ms": None, "library_chain_ms": lm,
-                                 "fp32_ms": km32, "fp32_bound_ms": b32[0]}
-                        label = (f"fp32 kernel {km32:.3f} ms (bound "
-                                 f"{b32[0]:.4f} ms at 67 TFLOP/s); "
-                                 f"yardstick, bf16 library chain "
+                                 "fp32_library_ms": None,
+                                 "fp32_library_chain_ms": lm32}
+                        label = (f"yardstick, bf16 library chain "
                                  f"(layer_norm, linear, SDPA, gelu; never "
                                  f"called by the port) {lm:.3f} ms")
+                        label32 = (f"yardstick, fp32 library chain {lm32:.3f}"
+                                   f" ms; " + _occupancy_label(
+                                       sb.f32_occupancy(c), "fp32 kernel"))
+                    km32 = _median_ms(
+                        (lambda: sb.swin_block_prepared(inp, ops32, flags,
+                                                        shift=4))
+                        if name == "B" else (lambda: kern(*args, **kw)))
                     pm = _median_ms(lambda: plain(*a16, **kw))
+                    pm32 = _median_ms(lambda: plain(*args, **kw))
                     bms, by = _bound(*work)
-                    times[(name, c)] = dict(ms=km, plain_ms=pm, bound_ms=bms,
-                                            bound_by=by, **extra)
+                    b32, by32 = _bound(*work32, tc_rate=FP32_FLOPS)
+                    times[(name, c)] = dict(
+                        ms=km, plain_ms=pm, bound_ms=bms, bound_by=by,
+                        fp32_ms=km32, fp32_plain_ms=pm32, fp32_bound_ms=b32,
+                        fp32_bound_by=by32, **extra)
                     print(f"  kernel {name} bf16 BW={bw} C={c}: kernel "
                           f"{km:.3f} ms (bound {bms:.4f} ms by {by}, "
                           f"{100 * bms / km:.1f}% of it), plain {pm:.3f} "
                           f"ms; {label} (median, CUDA events)", flush=True)
-    report["A"] = dict(times[("A", 96)], max_abs_err=worst["A"],
-                       **{f"c192_{k}": v for k, v in times[("A", 192)].items()})
-    report["B"] = dict(times[("B", 96)], max_abs_err=worst["B"])
+                    print(f"  kernel {name} fp32 BW={bw} C={c}: kernel "
+                          f"{km32:.3f} ms (bound {b32:.4f} ms by {by32} at "
+                          f"3.35 TB/s and 67 TFLOP/s, {100 * b32 / km32:.1f}%"
+                          f" of it), plain {pm32:.3f} ms; {label32} "
+                          f"(median, CUDA events, TF32 off)", flush=True)
+    for name in ("A", "B"):
+        report[name] = dict(times[(name, 96)], max_abs_err=worst[name], **{
+            f"c192_{k}": v for k, v in times[(name, 192)].items()})
     return times
 
 
-def _occupancy_label(occ):
-    return (f"tensor-core kernel: {occ['registers']} registers a thread, "
+def _occupancy_label(occ, kind="tensor-core kernel"):
+    spill = (f" ({occ['local_bytes']} local bytes)" if "local_bytes" in occ
+             else "")
+    return (f"{kind}: {occ['registers']} registers a thread{spill}, "
             f"{occ['ctas_per_sm']} CTAs = {occ['warps_per_sm']} warps per SM")
 
 
@@ -882,16 +914,22 @@ def phase_network_gate(torch):
     frame = np.random.default_rng(6).integers(0, 256, (720, 1280, 3),
                                               np.uint8)
     # a. the u8 frame, seed-0 weights: kernels B and C vs their plain twins
-    got = _load(torch, Precision.TF32).render(frame)
+    up = _load(torch, Precision.TF32)
+    counters = _zero_counters()
+    got = up.render(frame)  # two chunks (16 + 2 tiles): fp32 B 20, C 1
+    n6 = {name: f.launches for name, f in counters.items()}
     with _swin_block_as(_plain_prepared, plain_finalize=True):
         want = _load(torch, Precision.TF32).render(frame)
     ok, dmax, frac = _golden_gate(got, want)
     print(f"  phase 6a tf32 frame, kernel path vs all-plain path: max "
           f"{dmax} (tol 2), changed fraction {frac:.2e} (tol 1e-04), output "
-          f"mean {got.mean():.3f} std {got.std():.3f}: "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"mean {got.mean():.3f} std {got.std():.3f}; launch counts of the "
+          f"kernel path's render {n6}: {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("tf32 golden gate failed")
+    if n6 != {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0}:
+        raise AssertionError(f"phase 6a: not 10 launches of fp32 B a chunk "
+                             f"and one of C: {n6}")
 
     # b. the model's output before the clamp, for both weight sets
     cfg = RenderConfig(precision=Precision.TF32, batch_size=16, height=256,
@@ -935,6 +973,7 @@ def phase_network_gate(torch):
         if not ok:
             raise AssertionError(f"{label} weights: the network's kernel "
                                  "path disagrees with its plain path")
+    return n6
 
 
 def phase_kernels_de(torch, report):
@@ -1015,27 +1054,40 @@ def phase_kernels_de(torch, report):
                                      "version")
             worst_e = max(worst_e, err32)
             if shift == 4 and bw == 4096:
+                sdpa = torch.nn.functional.scaled_dot_product_attention
                 km = _median_ms(lambda: wa.fused_window_attention(
                     *a16, shift=4))
                 km32 = _median_ms(lambda: wa.fused_window_attention(
                     *args, shift=4))
                 pm = _median_ms(lambda: wa.window_attention_plain(
                     *a16, shift=4))
+                pm32 = _median_ms(lambda: wa.window_attention_plain(
+                    *args, shift=4))
                 mask = _sdpa_mask(torch, bias, flags, 4, torch.bfloat16)
-                lm = _median_ms(lambda: torch.nn.functional
-                                .scaled_dot_product_attention(
-                                    a16[0], a16[1], a16[2], attn_mask=mask))
+                lm = _median_ms(lambda: sdpa(*a16[:3], attn_mask=mask))
+                mask32 = _sdpa_mask(torch, bias, flags, 4, torch.float32)
+                lm32 = _median_ms(lambda: sdpa(q, k, v, attn_mask=mask32))
                 bms, by = _bound(*_attention_work(bw, nh, 2))
+                b32, by32 = _bound(*_attention_work(bw, nh, 4),
+                                   tc_rate=FP32_FLOPS)
                 print(f"  kernel E bf16 BW={bw} nh={nh}: kernel {km:.3f} "
                       f"ms (bound {bms:.4f} ms by {by}, "
                       f"{100 * bms / km:.1f}% of it), plain {pm:.3f} ms, "
                       f"SDPA with a float mask {lm:.3f} ms (kernel / SDPA "
-                      f"{km / lm:.2f}x); fp32 kernel {km32:.3f} ms; "
+                      f"{km / lm:.2f}x); "
                       + _occupancy_label(wa.tc_occupancy())
                       + " (median, CUDA events)", flush=True)
+                print(f"  kernel E fp32 BW={bw} nh={nh}: kernel {km32:.3f} "
+                      f"ms (bound {b32:.4f} ms by {by32}, "
+                      f"{100 * b32 / km32:.1f}% of it), plain {pm32:.3f} ms, "
+                      f"SDPA fp32 with a float mask {lm32:.3f} ms (kernel / "
+                      f"SDPA {km32 / lm32:.2f}x) (median, CUDA events, TF32 "
+                      f"off)", flush=True)
                 report["E"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
                                "bound_by": by, "library_ms": lm,
-                               "fp32_ms": km32}
+                               "fp32_ms": km32, "fp32_plain_ms": pm32,
+                               "fp32_bound_ms": b32, "fp32_bound_by": by32,
+                               "fp32_library_ms": lm32}
                 api_args = a16
     report["E"]["max_abs_err"] = worst_e
     # E's run: one call through the ops package's public API
@@ -2343,7 +2395,7 @@ def main() -> int:
     print("phase 5 main path:", flush=True)
     n5, out5 = phase_main_path(torch, smi, report)
     print("phase 6 network, kernel path vs plain path:", flush=True)
-    phase_network_gate(torch)
+    n6 = phase_network_gate(torch)
     print("phase 7 fused_block=False:", flush=True)
     n7 = phase_fused_block_false(torch, smi, report)
     print("phase 8 kernels D and E vs plain:", flush=True)
@@ -2386,6 +2438,7 @@ def main() -> int:
         report["B"][f"launches_onnx_{key}"] = n["B"]
         report["C"][f"launches_onnx_{key}"] = n["C"]
     report["B"]["launches_fuse_frame_replay"] = n15["B"]
+    report["B"]["fp32_launches_tf32_frame"] = n6["B"]
     report["C"]["launches_fuse_frame_replay"] = n15["C"]
 
     src = "waifu2x_tensorrt_tpu_torch/ops/csrc/"

@@ -41,7 +41,12 @@ launch counts, no synchronizing call in a replay or in a streamed frame
 around replays, a ``fuse_frame`` 720p flagship frame within 1 LSB of the
 chunked render; kernel B launched from the kernel library and from a
 variant copy of it in one process, in bf16 and fp32, a first launch of
-the variant's kernel inside a graph capture.
+the variant's kernel inside a graph capture; kernel B's fp32 kernel
+(register-tiled FMA) at every C from 32 to 192 with 1, 37, 512 and 4096
+windows, shift 0 and 4 and every flags value, and with logits beyond 100,
+on prepared operands equal byte for byte to per-call ones; the fp32
+kernel of A and E at ragged and flagship counts; a captured tf32 chunk
+byte-identical to the eager one.
 """
 
 import numpy as np
@@ -149,7 +154,7 @@ def test_kernel_b_tensor_core_shapes(bw, c, nh, shift):
                                                 **kw))
 
 
-@pytest.mark.parametrize("c,nh", [(96, 3), (192, 6)])
+@pytest.mark.parametrize("c,nh", [(96, 3), (192, 6), (128, 4), (160, 5)])
 def test_kernel_b_large_logits(c, nh):
     """q.k scaled up (the q and k columns of the qkv weights x 12: head-0
     logits beyond 100, where exp without the max-subtraction overflows
@@ -172,6 +177,54 @@ def test_kernel_b_large_logits(c, nh):
            (x, params, bias, flags), kw)
     out = sb.fused_swin_block(x.bfloat16(), params, bias, flags, **kw)
     assert torch.isfinite(out.float()).all()
+
+
+def _fp32_close(got, want):
+    assert got.dtype == want.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("bw", [1, 37, 512, 4096])
+@pytest.mark.parametrize("c", [32, 64, 96, 128, 160, 192])
+def test_kernel_b_fp32_every_width(c, bw):
+    """The fp32 kernel (register-tiled FMA on the CUDA cores, no TF32) at
+    every C of the dispatch, with one window, a ragged count (the last CTA
+    of two windows half empty at C <= 96) and full grids, shift 0 and 4,
+    window i with flags (i + 1) % 4: max |d| <= 1e-4 against the plain
+    twin with TF32 off, one launch a call; prepared operands give the
+    bytes of per-call ones."""
+    from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
+
+    nh = c // 32
+    x, _q, params, bias, _f = _inputs(bw, c, nh, bw + c)
+    flags = (torch.arange(bw, dtype=torch.int32, device="cuda") + 1) % 4
+    ops = sb.block_operands(params, bias, torch.float32)
+    assert not ops.out_in
+    for shift in (0, 4):
+        before = sb.fused_swin_block.launches
+        got = sb.fused_swin_block(x, params, bias, flags, num_heads=nh,
+                                  shift=shift)
+        assert sb.fused_swin_block.launches == before + 1
+        _fp32_close(got, sb.swin_block_plain(x, params, bias, flags,
+                                             num_heads=nh, shift=shift))
+        assert torch.equal(sb.swin_block_prepared(x, ops, flags,
+                                                  shift=shift), got)
+
+
+@pytest.mark.parametrize("fl", range(4))
+@pytest.mark.parametrize("c,nh", [(96, 3), (192, 6)])
+def test_kernel_b_fp32_every_flag(c, nh, fl):
+    """Every window with the same flags value under shift 4 (no mask, the
+    row seam, the column seam, both) at the flagship widths, BW 37."""
+    from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
+
+    x, _q, params, bias, flags = _inputs(37, c, nh, 40 + fl + c)
+    flags = torch.full_like(flags, fl)
+    _fp32_close(sb.fused_swin_block(x, params, bias, flags, num_heads=nh,
+                                    shift=4),
+                sb.swin_block_plain(x, params, bias, flags, num_heads=nh,
+                                    shift=4))
 
 
 def test_kernel_b_wrapper_checks():
@@ -281,7 +334,7 @@ def test_kernels_a_e_large_logits(c, nh):
 
 @pytest.mark.parametrize("bw,c,nh", [(300, 96, 3), (100, 192, 6)])
 def test_kernels_a_e_fp32(bw, c, nh):
-    """The fp32 instantiations (attention_core on the CUDA cores) against
+    """The fp32 kernel (attention_f32_kernel on the CUDA cores) against
     the plain twin, max |d| <= 1e-4 with TF32 off, shift 4."""
     from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
 
@@ -295,6 +348,35 @@ def test_kernels_a_e_fp32(bw, c, nh):
     got = wa.fused_window_attention(q, k, v, bias, flags, shift=4)
     want = wa.window_attention_plain(q, k, v, bias, flags, shift=4)
     assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("bw,c,nh", [
+    (1, 32, 1), (1, 192, 6), (37, 96, 3), (37, 160, 5), (512, 64, 2),
+    (512, 128, 4), (4096, 96, 3), (1024, 192, 6),
+])
+def test_kernels_a_e_fp32_shapes(bw, c, nh):
+    """The fp32 kernel of A and E (the persistent unit walk on the CUDA
+    cores) with one window, ragged counts, more units than resident CTAs
+    and the flagship shapes, shift 0 and 4, window i with flags i % 4:
+    max |d| <= 1e-4 against the plain twins, one launch a call."""
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    _x, qkv, _p, bias, _f = _inputs(bw, c, nh, bw + c + 11)
+    flags = torch.arange(bw, dtype=torch.int32, device="cuda") % 4
+    heads = _unpacked(qkv, nh)
+    for shift in (0, 4):
+        before = wa.fused_window_attention_qkv.launches
+        _fp32_close(wa.fused_window_attention_qkv(qkv, bias, flags,
+                                                  num_heads=nh, shift=shift),
+                    wa.window_attention_qkv_plain(qkv, bias, flags,
+                                                  num_heads=nh, shift=shift))
+        assert wa.fused_window_attention_qkv.launches == before + 1
+        before = wa.fused_window_attention.launches
+        _fp32_close(wa.fused_window_attention(*heads, bias, flags,
+                                              shift=shift),
+                    wa.window_attention_plain(*heads, bias, flags,
+                                              shift=shift))
+        assert wa.fused_window_attention.launches == before + 1
 
 
 @pytest.mark.parametrize("r,w,dtype", [
@@ -889,6 +971,29 @@ def test_captured_chunk_is_the_eager_chunk():
     outs += stream.flush()
     for f, o in zip(frames, outs):
         np.testing.assert_array_equal(o.cpu().numpy(), up.render(f))
+
+
+def test_captured_fp32_chunk_is_the_eager_chunk():
+    """The tf32 precision's chunk (fp32 kernel B, 4 tiles of 256 at the
+    flagship width) through its captured program: the eager first call and
+    the replays give the bytes of the module called eagerly, and each
+    replay adds the capture's 10 launches of B."""
+    from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
+
+    up = _flagship_pipeline(dtype="tf32")
+    pl = up._pipeline
+    x = torch.rand((4, 256, 256, 3), generator=torch.Generator().manual_seed(
+        12)).cuda()
+    with torch.inference_mode():
+        want = pl.model_prog.fn(x)
+    assert want.dtype == torch.float32
+    before = fused_swin_block.launches
+    first = pl.run_model(x)
+    replays = [pl.run_model(x) for _ in range(2)]
+    assert fused_swin_block.launches == before + 10 + 2 * 10
+    assert torch.equal(first, want)
+    for r in replays:
+        assert torch.equal(r, want)
 
 
 def test_fuse_frame_720p_against_the_chunked_render():

@@ -1,6 +1,8 @@
-"""Phase clocks of kernel B's bf16 (tensor-core) kernel on one NVIDIA GPU.
+"""Phase clocks of kernel B (bf16 tensor-core or fp32 kernel) on one
+NVIDIA GPU.
 
-    python3 tools/block_phase_clock.py [--iters 5] [--shift 4] [--root DIR]
+    python3 tools/block_phase_clock.py [--dtype bf16|fp32] [--iters 5]
+                                       [--shift 4] [--root DIR]
 
 Builds the measurement variant of the kernels' library (nvcc
 -DW2X_PHASE_CLOCK: thread 0 of every CTA adds the clock64() cycles of each
@@ -14,7 +16,9 @@ flags of every kind) prints:
   shows;
 - the cycles of an average CTA in each phase: x load + LN1, the K | V
   GEMM tiles, the attention heads (bias + q_h, q k^T, softmax, p v,
-  proj), x1 + LN2, the MLP chunks (fc1 + GELU, fc2), the output store;
+  proj), x1 + LN2, the MLP chunks (fc1 + GELU, fc2), the output store
+  (fp32: x load + LN1, per head the q, k, v products, the attention and
+  proj, then x1 + LN2, the MLP chunks and the store);
   and, inside those, the waits at the weight-tile barriers (cp.async
   completion and the CTA barrier). A phase's cycles run from the previous
   clock point to its own, as thread 0 issues them: an asynchronous
@@ -36,15 +40,22 @@ import sys
 from pathlib import Path
 
 # (counter, label) in kernel order; see W2X_PHASE_CLOCK in swin_block.cu
-PHASES = ((0, "x load + LN1"), (1, "K | V tiles"), (8, "heads: bias + q_h"),
-          (9, "heads: q k^T"), (10, "heads: softmax"), (11, "heads: p v"),
-          (2, "heads: proj"), (3, "x1 + LN2"), (12, "MLP: fc1 + GELU"),
-          (4, "MLP: fc2"), (5, "output store"))
+PHASES = {
+    "bf16": ((0, "x load + LN1"), (1, "K | V tiles"),
+             (8, "heads: bias + q_h"), (9, "heads: q k^T"),
+             (10, "heads: softmax"), (11, "heads: p v"), (2, "heads: proj"),
+             (3, "x1 + LN2"), (12, "MLP: fc1 + GELU"), (4, "MLP: fc2"),
+             (5, "output store")),
+    "fp32": ((0, "x load + LN1"), (8, "heads: q, k, v"),
+             (9, "heads: attention"), (2, "heads: proj"), (3, "x1 + LN2"),
+             (12, "MLP: fc1 + GELU"), (4, "MLP: fc2"), (5, "output store")),
+}
 FLAGS = ("-DW2X_PHASE_CLOCK",)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=tuple(PHASES), default="bf16")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--shift", type=int, default=4, choices=(0, 4))
     ap.add_argument("--root", type=Path,
@@ -74,6 +85,8 @@ def main() -> int:
     clocked.w2x_swin_block_tc_info.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int)]
+    fp32 = args.dtype == "fp32"
+    dtype = torch.float32 if fp32 else torch.bfloat16
     counters = (ctypes.c_ulonglong * 16)()
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -81,7 +94,7 @@ def main() -> int:
         code = lib.w2x_swin_block(
             x.data_ptr(), *[t.data_ptr() for t in ops.tensors],
             ops.bias.data_ptr(), flags.data_ptr(), out.data_ptr(),
-            x.shape[0], x.shape[2], ops.num_heads, args.shift, 1,
+            x.shape[0], x.shape[2], ops.num_heads, args.shift, int(not fp32),
             build.stream_handle(x.device))
         build.check(code, "swin block kernel")
 
@@ -119,14 +132,20 @@ def main() -> int:
             "fc2_bias": t(rng.normal(0, 0.05, c)),
         }
         ops = sb.block_operands(params, t(rng.normal(0, 0.2, (nh, 64, 64))),
-                                torch.bfloat16)
+                                dtype)
         flags = torch.from_numpy(
             rng.integers(0, 4, bw).astype(np.int32)).cuda()
-        x = t(rng.normal(0, 1, (bw, 64, c))).bfloat16()
+        x = t(rng.normal(0, 1, (bw, 64, c))).to(dtype)
         out = torch.empty_like(x)
         regs, ctas = ctypes.c_int(), ctypes.c_int()
-        build.check(clocked.w2x_swin_block_tc_info(
-            c, ctypes.byref(regs), ctypes.byref(ctas)), "info")
+        if fp32:
+            local = ctypes.c_int()
+            build.check(clocked.w2x_swin_block_f32_info(
+                c, ctypes.byref(regs), ctypes.byref(local),
+                ctypes.byref(ctas)), "info")
+        else:
+            build.check(clocked.w2x_swin_block_tc_info(
+                c, ctypes.byref(regs), ctypes.byref(ctas)), "info")
         ms_plain = median_ms(lambda: launch(plain, x, ops, flags, out))
         ms_clocked = median_ms(lambda: launch(clocked, x, ops, flags, out))
         build.check(clocked.w2x_read_phase_cycles(counters), "read")  # clear
@@ -136,21 +155,21 @@ def main() -> int:
         sm_mhz = float(smi("clocks.sm").split()[0])
         n_cta = counters[7]
         per_cta = {i: counters[i] / n_cta for i in range(16)}
-        total = sum(per_cta[i] for i, _ in PHASES)
+        total = sum(per_cta[i] for i, _ in PHASES[args.dtype])
         waves = -(-n_cta // (ctas.value * n_sm))
-        print(f"BW {bw}, C {c}, {nh} heads, bf16, shift {args.shift}: "
+        print(f"BW {bw}, C {c}, {nh} heads, {args.dtype}, shift {args.shift}: "
               f"{regs.value} "
               f"registers a thread, {ctas.value} CTAs per SM, {n_cta} CTAs "
               f"= {waves} waves on {n_sm} SMs; launch {ms_plain:.3f} ms "
               f"(plain build), {ms_clocked:.3f} ms (clocked build)",
               flush=True)
         print(f"  cycles of an average CTA (thread 0), {total:.0f} in all:")
-        for i, name in PHASES:
+        for i, name in PHASES[args.dtype]:
             cyc = per_cta[i]
             print(f"    {name:18s} {cyc:10.0f}  {100 * cyc / total:5.1f}%")
         print(f"    {'waits at barriers':18s} {per_cta[6]:10.0f}  "
-              f"{100 * per_cta[6] / total:5.1f}%  (inside K | V, heads, "
-              "MLP)")
+              f"{100 * per_cta[6] / total:5.1f}%  (inside the heads and "
+              "the MLP)")
         print(f"  SM clock {sm_mhz:.0f} MHz after the runs: {waves} waves x "
               f"{total:.0f} cycles = {waves * total / sm_mhz / 1e3:.3f} ms "
               f"against the {ms_clocked:.3f} ms launch", flush=True)

@@ -10,9 +10,11 @@ shapes, each beside its bound and its share of it:
 
 - A in bf16 and fp32 at (BW 4096, C 96) and (1024, 192), shift 4, beside
   ``F.scaled_dot_product_attention`` with the bias and the shift mask as
-  one bf16 float mask (a yardstick the port never calls);
+  one float mask of the same dtype (a yardstick the port never calls);
 - E in bf16 and fp32 at (BW 4096, nh 3) on the same values, beside SDPA;
-- B in bf16 on prepared operands at both shapes;
+- B in bf16 and fp32 on prepared operands at both shapes, beside the
+  chain of library calls ``chip_smoke._block_chain`` in the same dtype;
+- each fp32 row against its bound at 67 TFLOP/s (TF32 is off);
 - C on the 720p -> 4x plan, alone (``finalize_gather`` on a table built
   once) and through the wrapper per call (table upload included); D in
   bf16 at r 4, (16, 256, 256, 48), beside the chain of library calls
@@ -70,7 +72,8 @@ def main() -> int:
 
     def show(label, fn, work, yardstick=None, yard_name="SDPA"):
         ms = cs._median_ms(fn)
-        bms, by = cs._bound(*work)
+        fp32 = " fp32 " in label
+        bms, by = cs._bound(*work, tc_rate=cs.FP32_FLOPS if fp32 else None)
         line = (f"{label}: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
                 f"{100 * bms / ms:.1f}% of it)")
         if yardstick is not None:
@@ -82,32 +85,36 @@ def main() -> int:
     for bw, c, nh in ((4096, 96, 3), (1024, 192, 6)):
         x, qkv, params, bias, flags = cs._block_inputs(
             torch, bw, c, nh, torch.float32, seed=c + bw)
-        mask = cs._sdpa_mask(torch, bias, flags, 4, torch.bfloat16)
-        qkv16 = qkv.bfloat16()
-        q, k, v = qkv16.view(bw, 64, 3, nh, 32).permute(2, 0, 3, 1, 4)
-        for dtype, inp in (("bf16", qkv16), ("fp32", qkv)):
-            show(f"kernel A {dtype} BW {bw} C {c}",
+        masks = {dt: cs._sdpa_mask(torch, bias, flags, 4, dt)
+                 for dt in (torch.bfloat16, torch.float32)}
+        for inp in (qkv.bfloat16(), qkv):
+            name = "bf16" if inp.dtype == torch.bfloat16 else "fp32"
+            q, k, v = inp.view(bw, 64, 3, nh, 32).permute(2, 0, 3, 1, 4)
+            show(f"kernel A {name} BW {bw} C {c}",
                  lambda: wa.fused_window_attention_qkv(
                      inp, bias, flags, num_heads=nh, shift=4),
                  cs._attention_work(bw, nh, inp.element_size()),
-                 (lambda: F.scaled_dot_product_attention(
-                     q, k, v, attn_mask=mask)) if dtype == "bf16" else None)
+                 lambda: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=masks[inp.dtype]))
         if bw == 4096:  # E on the same values, in its unpacked layout
             heads = [t.reshape(bw, 64, nh, 32).transpose(1, 2).contiguous()
                      for t in qkv.chunk(3, dim=-1)]
-            for dtype, hs in (("bf16", [t.bfloat16() for t in heads]),
-                              ("fp32", heads)):
-                show(f"kernel E {dtype} BW {bw} nh {nh}",
+            for hs in ([t.bfloat16() for t in heads], heads):
+                name = "bf16" if hs[0].dtype == torch.bfloat16 else "fp32"
+                show(f"kernel E {name} BW {bw} nh {nh}",
                      lambda: wa.fused_window_attention(
                          *hs, bias, flags, shift=4),
                      cs._attention_work(bw, nh, hs[0].element_size()),
-                     (lambda: F.scaled_dot_product_attention(
-                         *hs, attn_mask=mask)) if dtype == "bf16" else None)
-        ops16 = sb.block_operands(params, bias, torch.bfloat16)
-        x16 = x.bfloat16()
-        show(f"kernel B bf16 BW {bw} C {c} (prepared operands)",
-             lambda: sb.swin_block_prepared(x16, ops16, flags, shift=4),
-             cs._block_work(bw, c, nh, 2))
+                     lambda: F.scaled_dot_product_attention(
+                         *hs, attn_mask=masks[hs[0].dtype]))
+        for xs in (x.bfloat16(), x):
+            name = "bf16" if xs.dtype == torch.bfloat16 else "fp32"
+            ops = sb.block_operands(params, bias, xs.dtype)
+            chain = cs._block_chain(torch, params, c, nh, xs.dtype)
+            show(f"kernel B {name} BW {bw} C {c} (prepared operands)",
+                 lambda: sb.swin_block_prepared(xs, ops, flags, shift=4),
+                 cs._block_work(bw, c, nh, xs.element_size()),
+                 lambda: chain(xs, masks[xs.dtype]), "library chain")
 
     fin, plan, outs = cs._finalize_case(torch)
     work = cs._finalize_work(plan, outs[0].element_size())

@@ -1,10 +1,12 @@
-"""Kernels D and F against the alternatives their designs chose between,
-measured on one NVIDIA GPU.
+"""Kernels D, F and the fp32 kernels of B and A/E against the
+alternatives their designs chose between, measured on one NVIDIA GPU.
 
-    python3 tools/kernel_variants.py [--kernel D|F]
+    python3 tools/kernel_variants.py [--kernel D|F|B32|A32]
 
 Builds variants of ``waifu2x_tensorrt_tpu_torch/ops/csrc/head_pack.cu``
-(D) and ``mma_probe.cu`` (F) — text substitutions of this checkout's
+(D), ``mma_probe.cu`` (F), ``swin_block.cu`` (B32: kernel B in fp32) and
+``window_attention.cu`` (A32: kernels A and E in fp32) — text
+substitutions of this checkout's
 source, or another source file — one ``nvcc`` each, all started together,
 into ``build/kernels/variants/``, prints what ptxas says of each (its
 registers and any wgmma serialization, C7514/C7515), checks each against
@@ -26,6 +28,19 @@ the plain twin and times it:
   and four; two accumulator sets in turn (product r + 1 issued before the
   carry of product r, ``wgmma.wait_group 1``), with and without the
   operand fence after the issue.
+- B32: fp32 at (BW 4096, C 96) and (1024, 192), shift 4, by
+  ``chip_smoke.py``'s method beside the bound at 67 TFLOP/s, each within
+  1e-4 of the plain twin (TF32 off). Variants (text substitutions of
+  the layout constants): as built; q, k and v one product at a time; 8
+  attention rows a call at C <= 96, 16 above; 8 warps a window at every
+  C or above C 96; 2
+  warps a window at C <= 96; a 64-column hidden chunk at C <= 96, a
+  32-column one above; one window a CTA at every C; one CTA an SM
+  (registers for one).
+- A32: A fp32 at (4096, C 96) and (1024, 192) and E at (4096, nh 3),
+  shift 4, as B32. Variants: as built (16 rows a call, the head's bias
+  held in registers); 8 rows a call; the bias read from L1 each unit,
+  with 16 and with 8 rows a call.
 
 Needs a CUDA device and nvcc; exits 1 without a device.
 """
@@ -105,6 +120,23 @@ _F_TWO_SETS_LOOP = """  Acc acc[MP_ACC], d0[MP_ACC], d1[MP_ACC];
 """
 
 
+# A32: the head's bias read from L1 each unit, not held in registers
+_A32_BIAS_L1 = [
+    ("  float bias[CALLS][RR][8];  // the head's, for the CTA's life\n"
+     "#pragma unroll\n"
+     "  for (int c = 0; c < CALLS; ++c)\n"
+     "    attn_f32::load_bias<RR>(bias[c], u.bias + h * NTOK * NTOK,\n"
+     "                            r0 + 4 * RR * c);\n",
+     "  const float* bias_h = u.bias + h * NTOK * NTOK;\n"),
+    ("      float o[RR][4];\n"
+     "      attn_f32::head_attention<RR>(q, k, v, rc, bias[c],",
+     "      float b[RR][8], o[RR][4];\n"
+     "      attn_f32::load_bias<RR>(b, bias_h, rc);\n"
+     "      attn_f32::head_attention<RR>(q, k, v, rc, b,")]
+# B32: the threads a window, in F32Layout
+_B32_TW = "F32_TW;  // threads a window"
+
+
 def _between(src, start, end):
     return src[src.index(start):src.index(end)]
 
@@ -112,6 +144,7 @@ def _between(src, start, end):
 def _variants(csrc):
     """{kernel: {name: (source file, substitutions)}}"""
     hp, mp = csrc / "head_pack.cu", csrc / "mma_probe.cu"
+    sb, wa = csrc / "swin_block.cu", csrc / "window_attention.cu"
     f_src = mp.read_text()
     two_sets = [(_between(f_src, _F_PRODUCT_START, _F_PRODUCT_END),
                  _F_TWO_SETS_FUNCS),
@@ -155,6 +188,43 @@ def _variants(csrc):
                                       "  wg::commit();"))
                     for old, new in two_sets]),
         },
+        "B32": {
+            "as built": (sb, []),
+            "q, k and v one at a time": (sb, [
+                ("  static constexpr int QN = 3 * HD;",
+                 "  static constexpr int QN = HD;")]),
+            "8 attention rows a call at C <= 96": (sb, [
+                ("constexpr int F32_RR_PAIR = 4;",
+                 "constexpr int F32_RR_PAIR = 2;")]),
+            "16 attention rows a call at C > 96": (sb, [
+                ("constexpr int F32_RR_SINGLE = 2;",
+                 "constexpr int F32_RR_SINGLE = 4;")]),
+            "8 warps a window": (sb, [(_B32_TW, "2 * F32_TW;")]),
+            "8 warps a window at C > 96": (sb, [
+                (_B32_TW, "PAIR ? F32_TW : 2 * F32_TW;")]),
+            "2 warps a window at C <= 96": (sb, [
+                (_B32_TW, "PAIR ? F32_TW / 2 : F32_TW;")]),
+            "64-column hidden chunk at C <= 96": (sb, [
+                ("constexpr int F32_HC_PAIR = 32;",
+                 "constexpr int F32_HC_PAIR = 64;")]),
+            "32-column hidden chunk at C > 96": (sb, [
+                ("constexpr int F32_HC_SINGLE = 64;",
+                 "constexpr int F32_HC_SINGLE = 32;")]),
+            "one window a CTA at every C": (sb, [
+                ("constexpr int F32_PAIR_C = 96;",
+                 "constexpr int F32_PAIR_C = 0;")]),
+            "one CTA an SM": (sb, [("constexpr int F32_MIN_CTAS = 2;",
+                                    "constexpr int F32_MIN_CTAS = 1;")]),
+        },
+        "A32": {
+            "as built (16 rows a call, the bias in registers)": (wa, []),
+            "8 rows a call": (wa, [("constexpr int F32_RR = 4;",
+                                    "constexpr int F32_RR = 2;")]),
+            "the bias read from L1 each unit": (wa, _A32_BIAS_L1),
+            "8 rows a call, the bias read from L1 each unit": (
+                wa, [("constexpr int F32_RR = 4;",
+                      "constexpr int F32_RR = 2;")] + _A32_BIAS_L1),
+        },
     }
 
 
@@ -165,6 +235,29 @@ def _variant_source(src: str, subs) -> str:
                                "once")
         src = src.replace(old, new)
     return src
+
+
+def _f32_functions(log):
+    """(short name, registers, spill store bytes) of each fp32 kernel in
+    a ``-Xptxas -v`` log."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if "f32" in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            short = re.sub(r"ILi(\d+)E.*", r"<\1>",
+                           re.sub(r"^_ZN3w2x\d+", "", name))[:28]
+            out.append((short, int(m.group(1)), spill))
+            name, spill = None, 0
+    return out
 
 
 def _build(build, kernels, variants):
@@ -182,7 +275,8 @@ def _build(build, kernels, variants):
                  "-Xptxas", "-v", "-shared", str(cu), "-o", str(so)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-    entry = {"D": "w2x_head_pack", "F": "w2x_mma_probe"}
+    entry = {"D": "w2x_head_pack", "F": "w2x_mma_probe",
+             "B32": "w2x_swin_block", "A32": "w2x_window_attention_qkv"}
     fns = {}
     for kernel, name, so, proc in jobs:
         log = proc.communicate()[0]
@@ -198,11 +292,107 @@ def _build(build, kernels, variants):
               f"serialized by ptxas: {', '.join(serial) or 'no'}; fences "
               f"and waits ptxas added: {log.count('(C7519)')} and "
               f"{log.count('(C7517)')}", flush=True)
-        fn = getattr(ctypes.CDLL(str(so)), entry[kernel])
+        if kernel in ("B32", "A32"):  # the fp32 kernels' own lines
+            print(f"  {kernel} {name}: " + "; ".join(
+                f"{fn} {regs} registers, {spill} bytes spilled"
+                for fn, regs, spill in _f32_functions(log)), flush=True)
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, entry[kernel])
         fn.argtypes = build._SIGNATURES[entry[kernel]]
         fn.restype = ctypes.c_int
+        if kernel == "A32":  # and kernel E's entry
+            heads = lib.w2x_window_attention_heads
+            heads.argtypes = build._SIGNATURES["w2x_window_attention_heads"]
+            heads.restype = ctypes.c_int
+            fn = (fn, heads)
         fns[(kernel, name)] = fn
     return fns
+
+
+def _fp32_inputs(torch, cs, bw, c, nh):
+    x, qkv, params, bias, flags = cs._block_inputs(
+        torch, bw, c, nh, torch.float32, seed=c + bw)
+    return x, qkv, params, bias, flags
+
+
+def _time_b32(torch, cs, build, fns):
+    from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
+
+    for bw, c, nh in ((4096, 96, 3), (1024, 192, 6)):
+        x, _qkv, params, bias, flags = _fp32_inputs(torch, cs, bw, c, nh)
+        ops = sb.block_operands(params, bias, torch.float32)
+        want = sb.swin_block_plain(x, params, bias, flags, num_heads=nh,
+                                   shift=4)
+        bms, by = cs._bound(*cs._block_work(bw, c, nh, 4),
+                            tc_rate=cs.FP32_FLOPS)
+        for (kernel, name), fn in fns.items():
+            if kernel != "B32":
+                continue
+            out = torch.empty_like(x)
+
+            def call():
+                build.check(fn(x.data_ptr(),
+                               *[t.data_ptr() for t in ops.tensors],
+                               ops.bias.data_ptr(), flags.data_ptr(),
+                               out.data_ptr(), bw, c, nh, 4, 0,
+                               build.stream_handle(x.device)), name)
+
+            call()
+            torch.cuda.synchronize()
+            err = (out - want).abs().max().item()
+            if err > 1e-4:
+                raise AssertionError(f"B32 {name}: max |d| {err:.3e}")
+            ms = cs._median_ms(call)
+            print(f"B32 {name} BW {bw} C {c}: {ms:.4f} ms "
+                  f"({100 * bms / ms:.1f}% of the bound {bms:.4f} ms by "
+                  f"{by}); max |d| {err:.2e}", flush=True)
+
+
+def _time_a32(torch, cs, build, fns):
+    from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
+
+    for bw, c, nh in ((4096, 96, 3), (1024, 192, 6)):
+        _x, qkv, _params, bias, flags = _fp32_inputs(torch, cs, bw, c, nh)
+        heads = [t.reshape(bw, 64, nh, 32).transpose(1, 2).contiguous()
+                 for t in qkv.chunk(3, dim=-1)]
+        want_a = wa.window_attention_qkv_plain(qkv, bias, flags,
+                                               num_heads=nh, shift=4)
+        want_e = wa.window_attention_plain(*heads, bias, flags, shift=4)
+        bms, by = cs._bound(*cs._attention_work(bw, nh, 4),
+                            tc_rate=cs.FP32_FLOPS)
+        for (kernel, name), fn in fns.items():
+            if kernel != "A32":
+                continue
+            fn_a, fn_e = fn
+            out_a = torch.empty_like(want_a)
+            out_e = torch.empty_like(want_e)
+
+            def call_a():
+                build.check(fn_a(qkv.data_ptr(), bias.data_ptr(),
+                                 flags.data_ptr(), out_a.data_ptr(), bw, c,
+                                 nh, 4, 0, build.stream_handle(qkv.device)),
+                            name)
+
+            def call_e():
+                build.check(fn_e(*[t.data_ptr() for t in heads],
+                                 bias.data_ptr(), flags.data_ptr(),
+                                 out_e.data_ptr(), bw, nh, 4, 0,
+                                 build.stream_handle(qkv.device)), name)
+
+            for label, call, out, want in (("A", call_a, out_a, want_a),
+                                           ("E", call_e, out_e, want_e)):
+                if label == "E" and bw != 4096:
+                    continue
+                call()
+                torch.cuda.synchronize()
+                err = (out - want).abs().max().item()
+                if err > 1e-4:
+                    raise AssertionError(f"A32 {name} {label}: max |d| "
+                                         f"{err:.3e}")
+                ms = cs._median_ms(call)
+                print(f"A32 {name} {label} BW {bw} C {c}: {ms:.4f} ms "
+                      f"({100 * bms / ms:.1f}% of the bound {bms:.4f} ms by "
+                      f"{by}); max |d| {err:.2e}", flush=True)
 
 
 def _time_d(torch, cs, build, fns):
@@ -278,7 +468,8 @@ def _time_f(torch, build, fns):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("D", "F"), action="append")
+    ap.add_argument("--kernel", choices=("D", "F", "B32", "A32"),
+                    action="append")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -294,12 +485,18 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
-    kernels = args.kernel or ["D", "F"]
+    torch.backends.cuda.matmul.allow_tf32 = False  # the fp32 twins
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = args.kernel or ["D", "F", "B32", "A32"]
     fns = _build(build, kernels, _variants(build.CSRC))
     if "D" in kernels:
         _time_d(torch, cs, build, fns)
     if "F" in kernels:
         _time_f(torch, build, fns)
+    if "B32" in kernels:
+        _time_b32(torch, cs, build, fns)
+    if "A32" in kernels:
+        _time_a32(torch, cs, build, fns)
     return 0
 
 

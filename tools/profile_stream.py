@@ -3,8 +3,8 @@
     python3 tools/profile_stream.py [--cell NAME] [--frames 8]
                                     [--trace PATH] [--root DIR]
 
-Cells (``--cell``, bf16 (the CLI's fp16), seeded random weights, loaded
-through ``Upscaler``):
+Cells (``--cell``, bf16 (the CLI's fp16) unless named ``-tf32``, seeded
+random weights, loaded through ``Upscaler``):
 
 - ``flagship`` (default): swin_unet/art 4x noise 3, tile 256, batch 16,
   720p frames (kernel B on every Swin block);
@@ -18,7 +18,10 @@ through ``Upscaler``):
   full-width ``.onnx`` export (``tests/torch_mirror.py``, written under
   ``build/profile_stream_models/``) through its own parsed graph
   (``load(..., graph_exact=True)``: ``GraphModule``, torch ops under
-  ``torch.func.vmap``; ``chip_smoke.py`` phase 14c).
+  ``torch.func.vmap``; ``chip_smoke.py`` phase 14c);
+- ``flagship-tf32``, ``graph-exact-tf32``: the two above in the CLI's
+  tf32 precision (fp32 compute, TF32 off in cuBLAS and cuDNN, as the CLI
+  sets it): kernel B's fp32 kernel, and the graph's fp32 torch ops.
 
 Opens a stream for the cell's frames and runs its warm cycle. It first
 reads the unprofiled streamed rate twice (outputs kept, host clock ending
@@ -69,13 +72,20 @@ GROUPS = (  # (label, substrings of the device event name), first match
 )
 
 
-# name: (family, scale, noise, tile, batch, tta, frame (H, W))
+# name: (family, scale, noise, tile, batch, tta, frame (H, W), precision)
 CELLS = {
-    "flagship": ("swin_unet/art", 4, 3, 256, 16, False, (720, 1280)),
-    "cunet-whole-frame": ("cunet/art", 2, 1, 0, 16, False, (512, 512)),
-    "cunet-1080p": ("cunet/art", 2, 1, 256, 16, False, (1080, 1920)),
-    "art-scan-tta": ("swin_unet/art_scan", 4, 3, 128, 8, True, (512, 512)),
-    "graph-exact": ("swin_unet/art", 4, 3, 256, 16, False, (720, 1280)),
+    "flagship": ("swin_unet/art", 4, 3, 256, 16, False, (720, 1280), "fp16"),
+    "cunet-whole-frame": ("cunet/art", 2, 1, 0, 16, False, (512, 512),
+                          "fp16"),
+    "cunet-1080p": ("cunet/art", 2, 1, 256, 16, False, (1080, 1920), "fp16"),
+    "art-scan-tta": ("swin_unet/art_scan", 4, 3, 128, 8, True, (512, 512),
+                     "fp16"),
+    "graph-exact": ("swin_unet/art", 4, 3, 256, 16, False, (720, 1280),
+                    "fp16"),
+    "flagship-tf32": ("swin_unet/art", 4, 3, 256, 16, False, (720, 1280),
+                      "tf32"),
+    "graph-exact-tf32": ("swin_unet/art", 4, 3, 256, 16, False, (720, 1280),
+                         "tf32"),
 }
 
 
@@ -129,15 +139,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    family, scale, noise, tile, batch, tta, hw = CELLS[args.cell]
+    family, scale, noise, tile, batch, tta, hw, prec = CELLS[args.cell]
     out_px = hw[0] * scale * hw[1] * scale
     print(f"card: {smi}; package from {args.root}; cell {args.cell}: "
           f"{family} {scale}x noise {noise}, tile {tile or 'whole frame'}, "
-          f"batch {batch}, tta {tta}, {hw[0]}x{hw[1]} frames", flush=True)
-    cfg = RenderConfig(precision=Precision.FP16, batch_size=batch,
+          f"batch {batch}, tta {tta}, {hw[0]}x{hw[1]} frames, {prec}",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the CLI's tf32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = RenderConfig(precision=Precision(prec), batch_size=batch,
                        height=tile, width=tile, scaling=scale,
                        overlap=(1 / 16, 1 / 16), tta=tta)
-    if args.cell == "graph-exact":
+    if args.cell.startswith("graph-exact"):
         from waifu2x_tensorrt_tpu_torch.models import registry
 
         models = Path(__file__).resolve().parents[1] / "build" / \
@@ -160,7 +173,7 @@ def main() -> int:
     stream.warm()
     torch.cuda.synchronize()
 
-    if args.cell == "flagship":
+    if args.cell.startswith("flagship"):
         first, rate_frames = cs._phase5_frames()
         up.render(first)  # as phase 5, which renders a frame first
         label = "phase 5's stream"

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "w2x_head_pack": [_P, _P, _I, _I, _I, _I, _I, _P],
     "w2x_window_attention_heads": [_P] * 6 + [_I] * 4 + [_P],
     "w2x_attention_tc_info": [_IP, _IP],
+    "w2x_attention_f32_info": [_IP, _IP, _IP],
+    "w2x_swin_block_f32_info": [_I, _IP, _IP, _IP],
     "w2x_mma_probe": [_P, _P, _P] + [_I] * 5 + [_P],
 }
 

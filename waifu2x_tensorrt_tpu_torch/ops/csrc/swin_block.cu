@@ -56,11 +56,49 @@
 //   SM to hide short dependent mma.sync chains and the CUDA-core work
 //   between them.
 //
-// fp32 (swin_block_kernel<float>, the CLI's tf32 precision): unchanged
-// from the first port: one CTA per window, scalar fp32 FMA GEMMs on the
-// CUDA cores with W (in, out) read from L2, scores in shared memory.
-// TF32 tensor cores would break the fp32 checks (max |d| <= 1e-4 against
-// the plain twin, the tf32 golden gate), so it keeps full fp32 math.
+// fp32 (swin_block_f32_kernel, the CLI's tf32 precision): bf16's dataflow
+// with register-tiled fp32 FMA on the CUDA cores in place of mma.sync (no
+// TF32: the fp32 checks hold it to 1e-4 of the plain twin). Its bound is
+// operations at the CUDA cores' 67 TFLOP/s: 0.673 ms at (BW 4096, C 96),
+// 0.625 ms at (1024, 192), ~8x above bytes.
+//   - What holds a register-tiled product back on this card is the shared
+//     memory's 128 bytes a clock: a warp's 128-bit load costs 4 of them
+//     whatever its lanes share, so a thread's TM x TN output tile needs
+//     TM TN / (TM + TN) >= 4 FMAs per loaded value to keep the FMA pipes
+//     fed. Registers cap the tile: proj's (and fc2's) 64 x C sum lives in
+//     registers for the whole heads loop (MLP chunks).
+//   - So 4 warps a window: each thread owns rows rg + 16 i (i < 4) and
+//     columns 4 cg + 32 s + e of a product (4 x 12 of proj at C 96, 4 x 24
+//     at C 192; q, k and v of a head in one 4 x 12 product). Two windows a
+//     CTA at C <= 96 (8 warps, 112 KB, 128 registers: 2 CTAs = 16 warps an
+//     SM), one above (4 warps, 98 KB at C 192, up to 255 registers for the
+//     96-register proj sum: 2 CTAs = 8 warps an SM). C 192 with 8 warps a
+//     window and 2 x 24 tiles ran 11% slower (tools/kernel_variants.py).
+//   - The weights stream through a 2-stage ring of shared-memory K-tiles
+//     ((in, out) rows, 16-byte cp.async) in the order they are consumed;
+//     each tile serves every row of the CTA, so no window reads the
+//     weights from L2 for itself. One CTA barrier a tile. A's rows (the
+//     LayerNorm output) are stored with XOR-swizzled 16-byte chunks, so a
+//     warp's 4 row reads hit 4 bank groups. LayerNorms reduce a row over
+//     its 8 lanes by shuffles.
+//   - Attention one head at a time: q, k and v of the head only (26 KB a
+//     window), each warp its 16 rows in two calls of
+//     attn_f32::head_attention (attention_f32.cuh, shared with kernels A
+//     and E: scores in registers, masked without branches, softmax by
+//     shuffles); the head's output overwrites its q rows and goes into
+//     proj at once: proj = sum_h O_h Wproj[h] in registers.
+//   - x1 = x + proj waits in the output rows (each thread reads back its
+//     own values) while the MLP runs in HC-column hidden chunks: fc1
+//     chunk -> GELU -> the chunk's rows (in the dead q | k | v space) ->
+//     into fc2's accumulators. The 64 x 2C hidden is never stored.
+//   - A ragged last CTA (odd BW, two windows a CTA) computes its empty
+//     slot on a copy of the last window and stores nothing for it.
+//   Measured on an H100 (tools/kernel_times.py, PERF.md section 6): 1.71-
+//   1.73 ms at (BW 4096, C 96), 39% of the bound, and 1.52 ms at (1024,
+//   192), 41%: 0.58x and 0.91x a chain of fp32 library calls for the
+//   same block, against 4.58 / 6.35 ms for the first port's kernel. Its
+//   phase clocks and the layouts it was chosen against
+//   (tools/kernel_variants.py --kernel B32): PERF.md.
 //
 // Rounding points mirror _block_body (swin_block.py:67-177) in both: LN
 // output rounded to T; GEMMs accumulate in fp32, add the fp32 bias, then
@@ -68,6 +106,9 @@
 // p v; each head's output rounded to T before proj; GELU on the fp32
 // pre-activation; the residual adds round to T. Only the order of the
 // fp32 sums differs between the two and from the plain twin.
+#include <type_traits>
+
+#include "attention_f32.cuh"
 #include "common.cuh"
 #include "tensor_core.cuh"
 
@@ -90,6 +131,30 @@ struct BlockParams {
 
 constexpr int kMaxDevices = 64;
 
+// Every C the kernels are instantiated for (with_width below dispatches
+// over them), one bf16 and one fp32 kernel each: the kernels that
+// set_smem_limit keeps a flag for.
+constexpr int kWidths[] = {32, 64, 96, 128, 160, 192};
+constexpr int kNumWidths = sizeof(kWidths) / sizeof(kWidths[0]);
+constexpr int kKernels = 2 * kNumWidths;
+
+constexpr bool is_width(int c) {
+  for (int w : kWidths)
+    if (w == c) return true;
+  return false;
+}
+
+// f(std::integral_constant<int, C>{}) for C of kWidths, else an error.
+template <int I = 0, class F>
+int with_width(int C, F&& f) {
+  if constexpr (I == kNumWidths) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (C == kWidths[I]) return f(std::integral_constant<int, kWidths[I]>{});
+    return with_width<I + 1>(C, f);
+  }
+}
+
 namespace {
 
 // Raise a kernel's dynamic shared-memory limit to `bytes`, once per kernel
@@ -102,7 +167,6 @@ namespace {
 // own kernel and fail to launch. Keyed by the kernel's host stub, which is
 // this copy's own.
 int set_smem_limit(const void* kernel, int bytes) {
-  constexpr int kKernels = 8;  // the fp32 kernel and 6 bf16 instantiations
   static const void* done[kMaxDevices][kKernels] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -125,83 +189,6 @@ int set_smem_limit(const void* kernel, int bytes) {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// fp32: one CTA per window on the CUDA cores
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-swin_block_kernel(const T* __restrict__ x, BlockParams p,
-                  const float* __restrict__ bias,
-                  const int* __restrict__ flags, T* __restrict__ out, int C,
-                  int nh, int shift) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // shared memory: scores (64 x SLD f32) | hbuf (64 x ldh T) | buf (64 x ld T)
-  //   hbuf holds LN1's output, then the first residual x1
-  //   buf  holds [q | k | v], then [attn | - | LN2 out], then the MLP hidden
-  float* scores = reinterpret_cast<float*>(smem);
-  const int ldh = padded_ld<T>(C);
-  const int ld = padded_ld<T>(3 * C);
-  T* hbuf = reinterpret_cast<T*>(smem + NTOK * SLD * sizeof(float));
-  T* buf = hbuf + NTOK * ldh;
-  const size_t w = blockIdx.x;
-  const T* xw = x + w * NTOK * C;
-  T* ow = out + w * NTOK * C;
-
-  // LN1(x) -> hbuf
-  layernorm64<T>([&](int r, int k) { return to_f(xw[r * C + k]); }, C, p.n1s,
-                 p.n1b, hbuf, ldh);
-  __syncthreads();
-  // qkv = LN1(x) Wqkv + b -> buf[:, 0:3C)
-  gemm64<T>(hbuf, ldh, static_cast<const T*>(p.qkvk), p.qkvb, C, 3 * C,
-            [&](int r, int n, float v) { buf[r * ld + n] = from_f<T>(v); });
-  __syncthreads();
-  // attention -> buf[:, 0:C)
-  attention_core<T>(buf, ld, scores, bias, flags[w], C, nh, shift);
-  // x1 = x + (attn Wproj + b) -> hbuf
-  gemm64<T>(buf, ld, static_cast<const T*>(p.projk), p.projb, C, C,
-            [&](int r, int n, float v) {
-              hbuf[r * ldh + n] = from_f<T>(to_f(xw[r * C + n]) + round_to<T>(v));
-            });
-  __syncthreads();
-  // LN2(x1) -> buf[:, 2C:3C)
-  layernorm64<T>([&](int r, int k) { return to_f(hbuf[r * ldh + k]); }, C,
-                 p.n2s, p.n2b, buf + 2 * C, ld);
-  __syncthreads();
-  // g = gelu(LN2(x1) Wfc1 + b) -> buf[:, 0:2C)
-  gemm64<T>(buf + 2 * C, ld, static_cast<const T*>(p.fc1k), p.fc1b, C, 2 * C,
-            [&](int r, int n, float v) {
-              const float g = 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
-              buf[r * ld + n] = from_f<T>(g);
-            });
-  __syncthreads();
-  // out = x1 + (g Wfc2 + b)
-  gemm64<T>(buf, ld, static_cast<const T*>(p.fc2k), p.fc2b, 2 * C, C,
-            [&](int r, int n, float v) {
-              ow[r * C + n] = from_f<T>(to_f(hbuf[r * ldh + n]) + round_to<T>(v));
-            });
-}
-
-template <typename T>
-int launch_swin_block(const void* x, const BlockParams& p, const void* bias,
-                      const void* flags, void* out, int bw, int C, int nh,
-                      int shift, cudaStream_t stream) {
-  // sized for the largest C, so the attribute is set once per device
-  constexpr size_t kMaxSmem = NTOK * SLD * sizeof(float) +
-                              (size_t)NTOK * padded_ld<T>(192) * sizeof(T) +
-                              (size_t)NTOK * padded_ld<T>(3 * 192) * sizeof(T);
-  const size_t smem = NTOK * SLD * sizeof(float) +
-                      (size_t)NTOK * padded_ld<T>(C) * sizeof(T) +
-                      (size_t)NTOK * padded_ld<T>(3 * C) * sizeof(T);
-  const int err = set_smem_limit((const void*)swin_block_kernel<T>,
-                                 (int)kMaxSmem);
-  if (err) return err;
-  swin_block_kernel<T><<<bw, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(x), p, static_cast<const float*>(bias),
-      static_cast<const int*>(flags), static_cast<T*>(out), C, nh, shift);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // bf16: tensor cores, weights staged in shared memory
 // ---------------------------------------------------------------------------
 
@@ -210,10 +197,11 @@ using bf16 = __nv_bfloat16;
 // Phase clocks, in a measurement build only (nvcc -DW2X_PHASE_CLOCK; see
 // tools/block_phase_clock.py): thread 0 of every CTA adds the clock64()
 // cycles since the previous clock point into w2x_phase_cycles[i] at point
-// i (0 x + LN1, 1 K | V tiles, per head 8 bias + q, 9 q k^T, 10 softmax,
-// 11 p v, 2 proj, 3 x1 + LN2, per MLP chunk 12 fc1 + GELU, 4 fc2, 5
-// output store), its waits at the weight-tile barriers into [6] and 1
-// into [7] (the CTA count). The main build compiles none of it.
+// i (0 x + LN1, 1 K | V tiles, per head 8 bias + q (fp32: q, k, v), 9
+// q k^T (fp32: the attention), 10 softmax, 11 p v, 2 proj, 3 x1 + LN2,
+// per MLP chunk 12 fc1 + GELU, 4 fc2, 5 output store), its waits at the
+// weight-tile barriers into [6] and 1 into [7] (the CTA count). The main
+// build compiles none of it.
 #ifdef W2X_PHASE_CLOCK
 __device__ unsigned long long w2x_phase_cycles[16];
 #define W2X_CLOCK_START()                                         \
@@ -711,6 +699,7 @@ int launch_swin_block_tc(const void* x, const BlockParams& p,
                          const void* bias, const void* flags, void* out,
                          int bw, int shift, cudaStream_t stream) {
   using L = TcLayout<C>;
+  static_assert(is_width(C), "set_smem_limit's table counts kWidths only");
   const int err = set_smem_limit((const void*)swin_block_tc_kernel<C>,
                                  (int)L::SMEM);
   if (err) return err;
@@ -721,9 +710,451 @@ int launch_swin_block_tc(const void* x, const BlockParams& p,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32: register-tiled FMA on the CUDA cores, weights staged in shared memory
+// ---------------------------------------------------------------------------
+
+// C <= F32_PAIR_C: two windows a CTA, else one; the MLP hidden chunk of
+// each
+constexpr int F32_PAIR_C = 96;
+constexpr int F32_HC_PAIR = 32;
+constexpr int F32_HC_SINGLE = 64;
+constexpr int F32_TW = 128;        // threads a window: 4 warps
+constexpr int F32_MIN_CTAS = 2;    // resident CTAs an SM the registers allow
+constexpr int F32_CG = 8;          // column groups of a product tile
+constexpr int F32_KP = 16;         // K rows of a proj or fc2 tile
+constexpr int F32_STAGE_ROWS = 16; // a stage: 16 rows of max(C, 96) floats
+// attention rows a lane a call (16 or 8 rows a warp), two windows a CTA
+// and one
+constexpr int F32_RR_PAIR = 4;
+constexpr int F32_RR_SINGLE = 2;
+
+// The largest multiple of 16 that divides k with k_tile x n <= stage: the K
+// rows of one weight tile of a (k, n) product.
+constexpr int ktile(int k, int n, int stage) {
+  int best = 16;
+  for (int kt = 16; kt <= k && kt * n <= stage; kt += 16)
+    if (k % kt == 0) best = kt;
+  return best;
+}
+
+template <int C>
+struct F32Layout {
+  static constexpr int NH = C / HD;
+  static constexpr bool PAIR = C <= F32_PAIR_C;
+  static constexpr int WPC = PAIR ? 2 : 1;  // windows per CTA
+  static constexpr int TW = F32_TW;  // threads a window
+  static constexpr int THREADS = WPC * TW;
+  static constexpr int WARPS = TW / 32;         // warps per window
+  static constexpr int ROWS_W = NTOK / WARPS;   // attention rows a warp
+  // rows a lane in one attention call (4 RR rows a call), at most a
+  // warp's rows
+  static constexpr int RR_MOST = PAIR ? F32_RR_PAIR : F32_RR_SINGLE;
+  static constexpr int RR = 4 * RR_MOST <= ROWS_W ? RR_MOST : ROWS_W / 4;
+  static constexpr int CALLS = ROWS_W / (4 * RR);
+  // A product's output tile (64 x N a window): thread t of the window owns
+  // rows rg + RG * i (i < TM) and columns 4 cg + 32 s + e (e < 4), with
+  // cg = t % CG, rg = t / CG.
+  static constexpr int CG = F32_CG;
+  static constexpr int RG = TW / CG;
+  static constexpr int TM = NTOK / RG;
+  static constexpr int NSC = C / 32;  // 32-column segments across C
+  // q, k and v of a head in one product
+  static constexpr int QN = 3 * HD;
+  static constexpr int HC = PAIR ? F32_HC_PAIR : F32_HC_SINGLE;
+  static constexpr int NCH = 2 * C / HC;
+  static constexpr int STAGE = F32_STAGE_ROWS * (C > 3 * HD ? C : 3 * HD);
+  static constexpr int KQ = ktile(C, QN, STAGE);  // K rows: a qkv tile
+  static constexpr int KF = ktile(C, HC, STAGE);  // an fc1 tile
+  static constexpr int KP = F32_KP;               // a proj or fc2 tile
+  static constexpr int QKV_TILES = (3 * HD / QN) * (C / KQ);  // a head
+  static constexpr int HEAD_TILES = QKV_TILES + HD / KP;
+  static constexpr int CHUNK_TILES = C / KF + HC / KP;
+  static constexpr int TILES = NH * HEAD_TILES + NCH * CHUNK_TILES;
+  static constexpr int LDG = HC + 4;  // GELU rows, in the q | k | v space
+  // a window's shared memory: h (64 x C, LN1 then LN2 output, 16-byte
+  // chunks swizzled), then q, k and v of the current head
+  static constexpr int QKV = NTOK * (2 * attn_f32::LDQK + attn_f32::LDV);
+  static constexpr int WIN = NTOK * C + QKV;
+  static constexpr size_t SMEM = (size_t)(2 * STAGE + WPC * WIN) * sizeof(float);
+  static_assert(C % HD == 0 && C >= HD && C <= 192, "C = 32 * nh <= 192");
+  // a 32-column segment is 8 lanes x 4 columns, and a row's 8 lanes
+  // reduce by the shuffles of attn_f32::group_sum
+  static_assert(CG * 4 == 32 && RG * TM == NTOK && CALLS * 4 * RR == ROWS_W,
+                "tiling");
+  static_assert(KQ * QN <= STAGE && KF * HC <= STAGE && KP * C <= STAGE &&
+                    C % KQ == 0 && C % KF == 0,
+                "weight tiles");
+  static_assert(NTOK * LDG <= QKV, "the GELU rows fit the q | k | v space");
+  static_assert(F32_MIN_CTAS * (SMEM + 1024) <= 228 * 1024,
+                "F32_MIN_CTAS CTAs an SM");
+  static_assert(QN % 32 == 0 && 3 * HD % QN == 0 && HC % 32 == 0,
+                "product widths");
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Rows rg + RG * i of a 64-row fp32 matrix in shared memory with row
+// stride LD; with SWZ, 16-byte chunk c of row r lies at chunk c ^ (r & 7),
+// so the 4 rows one warp reads at once fall in 4 different bank groups.
+template <int RG, int LD, bool SWZ>
+struct SmemRows {
+  const float* p;
+  int rg;
+  __device__ __forceinline__ float4 load(int i, int k) const {
+    const int r = rg + RG * i;
+    const int c = SWZ ? ((k >> 2) ^ (r & 7)) : (k >> 2);
+    return ld4(p + r * LD + 4 * c);
+  }
+};
+
+__device__ __forceinline__ int swizzled(int r, int col, int ld) {
+  return r * ld + 4 * ((col >> 2) ^ (r & 7)) + (col & 3);
+}
+
+// acc[i][4 s + e] += sum over k < KT of A[row i][k0 + k] * B[k][4 cg + 32 s
+// + e]: B is a K-tile in shared memory (row stride ldb). k ascends, one
+// FMA at a time, so each sum runs in K order across tiles. A float4 of A
+// serves 4 NS FMAs a k, a float4 of B TM FMAs.
+template <int TM, int NS, int KT, class A>
+__device__ __forceinline__ void product(float (&acc)[TM][4 * NS], const A& a,
+                                        int k0, const float* b, int ldb,
+                                        int cg) {
+#pragma unroll
+  for (int k = 0; k < KT; k += 4) {
+    float4 av[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) av[i] = a.load(i, k0 + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float bv[4 * NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float4 t = ld4(b + (k + kk) * ldb + 4 * cg + 32 * s);
+        bv[4 * s] = t.x;
+        bv[4 * s + 1] = t.y;
+        bv[4 * s + 2] = t.z;
+        bv[4 * s + 3] = t.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float ai = kk == 0 ? av[i].x
+                         : kk == 1 ? av[i].y
+                         : kk == 2 ? av[i].z
+                                   : av[i].w;
+#pragma unroll
+        for (int n = 0; n < 4 * NS; ++n) acc[i][n] = fmaf(ai, bv[n], acc[i][n]);
+      }
+    }
+  }
+}
+
+template <int TM, int N>
+__device__ __forceinline__ void zero_tile(float (&acc)[TM][N]) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int n = 0; n < N; ++n) acc[i][n] = 0.f;
+}
+
+// Two-pass fp32 LayerNorm (eps 1e-5) of this thread's rows, held in the
+// product layout (a row's C values over its 8 lanes cg, reduced by
+// shuffles); the result goes to h (swizzled).
+template <int C>
+__device__ __forceinline__ void layernorm_rows(
+    const float (&v)[F32Layout<C>::TM][C / 8], const float* __restrict__ sc,
+    const float* __restrict__ bi, float* h, int rg, int cg) {
+  using L = F32Layout<C>;
+#pragma unroll
+  for (int i = 0; i < L::TM; ++i) {
+    const int r = rg + L::RG * i;
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n) sum += v[i][n];
+    const float mean = attn_f32::group_sum(sum) / (float)C;
+    float sq = 0.f;
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n) {
+      const float d = v[i][n] - mean;
+      sq = fmaf(d, d, sq);
+    }
+    const float inv = 1.f / sqrtf(attn_f32::group_sum(sq) / (float)C + 1e-5f);
+#pragma unroll
+    for (int s = 0; s < L::NSC; ++s) {
+      const int col = 4 * cg + 32 * s;
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[e] = (v[i][4 * s + e] - mean) * inv * sc[col + e] + bi[col + e];
+      st4(h + swizzled(r, col, C), y);
+    }
+  }
+}
+
+// The weight tiles in the order the block consumes them, double-buffered
+// (see WeightStream): per head its q, k, v tiles (K-tiles of the head's
+// 32-column slices of Wqkv), then its two proj tiles (its 32 rows of
+// Wproj); per MLP chunk its fc1 tiles (K-tiles of HC columns of Wfc1) and
+// its fc2 tiles (its HC rows of Wfc2). GEMM weights in (in, out).
+template <int C>
+struct WeightStreamF32 {
+  using L = F32Layout<C>;
+  float* stages;
+  const float* wqkv;   // (C, 3C)
+  const float* wproj;  // (C, C)
+  const float* wfc1;   // (C, 2C)
+  const float* wfc2;   // (2C, C)
+
+  // ROWS x COLS floats of a row-major matrix (row stride lds) -> dst (row
+  // stride ldd), 16 bytes a copy; every thread of the CTA takes part
+  template <int ROWS, int COLS>
+  __device__ static void copy(float* dst, int ldd, const float* src,
+                              int lds) {
+    constexpr int PER_ROW = COLS / 4;
+    for (int i = threadIdx.x; i < ROWS * PER_ROW; i += L::THREADS) {
+      const int r = i / PER_ROW, c = (i - r * PER_ROW) * 4;
+      tc::cp_async16(dst + r * ldd + c, src + (size_t)r * lds + c);
+    }
+  }
+
+  __device__ void load(int t) {
+    float* st = stages + (t & 1) * L::STAGE;
+    if (t < L::NH * L::HEAD_TILES) {
+      const int h = t / L::HEAD_TILES, i = t - h * L::HEAD_TILES;
+      if (i < L::QKV_TILES) {
+        constexpr int PER_PART = C / L::KQ;
+        const int k0 = (i % PER_PART) * L::KQ;
+        const float* w = wqkv + (size_t)k0 * 3 * C + h * HD;
+        if (L::QN == HD)  // part i / PER_PART alone: (KQ, 32)
+          copy<L::KQ, HD>(st, HD, w + (i / PER_PART) * C, 3 * C);
+        else  // q | k | v: (KQ, 96)
+          for (int part = 0; part < 3; ++part)
+            copy<L::KQ, HD>(st + part * HD, 3 * HD, w + part * C, 3 * C);
+      } else {
+        const int k0 = h * HD + (i - L::QKV_TILES) * L::KP;
+        copy<L::KP, C>(st, C, wproj + (size_t)k0 * C, C);
+      }
+    } else {
+      const int u = t - L::NH * L::HEAD_TILES;
+      const int j = u / L::CHUNK_TILES, i = u - j * L::CHUNK_TILES;
+      if (i < C / L::KF) {
+        copy<L::KF, L::HC>(st, L::HC, wfc1 + (size_t)i * L::KF * 2 * C +
+                                          j * L::HC, 2 * C);
+      } else {
+        const int k0 = j * L::HC + (i - C / L::KF) * L::KP;
+        copy<L::KP, C>(st, C, wfc2 + (size_t)k0 * C, C);
+      }
+    }
+    tc::cp_async_commit();
+  }
+  // wait for tile t and sync the CTA (after which every thread is done
+  // with tile t - 1), start tile t + 1 into t - 1's stage
+  __device__ const float* acquire(int t) {
+    W2X_CLOCK_BEGIN_WAIT();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    W2X_CLOCK_END_WAIT();
+    if (t + 1 < L::TILES) load(t + 1);
+    return stages + (t & 1) * L::STAGE;
+  }
+};
+
+template <int C>
+__global__ void __launch_bounds__(F32Layout<C>::THREADS, F32_MIN_CTAS)
+swin_block_f32_kernel(const float* __restrict__ x, BlockParams p,
+                      const float* __restrict__ bias,
+                      const int* __restrict__ flags, float* __restrict__ out,
+                      int bw, int shift) {
+  using L = F32Layout<C>;
+  constexpr int TM = L::TM, NSC = L::NSC;
+  constexpr int RR = L::RR, CALLS = L::CALLS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int slot = threadIdx.x / L::TW, t = threadIdx.x % L::TW;
+  const int cg = t % L::CG, rg = t / L::CG;
+  const int lane = t & 31, rw0 = (t >> 5) * L::ROWS_W;  // attention rows
+  const int win_raw = blockIdx.x * L::WPC + slot;
+  const bool live = win_raw < bw;  // the last CTA may hold one window
+  const int win = live ? win_raw : bw - 1;
+  float* hbuf = smem + 2 * L::STAGE + slot * L::WIN;
+  float* qb = hbuf + NTOK * C;  // later the GELU rows of an MLP chunk
+  float* kb = qb + NTOK * attn_f32::LDQK;
+  float* vb = kb + NTOK * attn_f32::LDQK;
+  const float* xw = x + (size_t)win * NTOK * C;
+  float* ow = out + (size_t)win * NTOK * C;
+  WeightStreamF32<C> ws{smem, static_cast<const float*>(p.qkvk),
+                        static_cast<const float*>(p.projk),
+                        static_cast<const float*>(p.fc1k),
+                        static_cast<const float*>(p.fc2k)};
+  W2X_CLOCK_START();
+  ws.load(0);
+
+  float acc[TM][C / 8];  // x, then proj's sum over heads, x1, the MLP's
+  {                      // sum over chunks
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int s = 0; s < NSC; ++s) {
+        const float4 v =
+            ld4(xw + (rg + L::RG * i) * C + 4 * cg + 32 * s);
+        acc[i][4 * s] = v.x;
+        acc[i][4 * s + 1] = v.y;
+        acc[i][4 * s + 2] = v.z;
+        acc[i][4 * s + 3] = v.w;
+      }
+    layernorm_rows<C>(acc, p.n1s, p.n1b, hbuf, rg, cg);
+  }
+  W2X_CLOCK_PHASE(0);
+  const SmemRows<L::RG, C, true> a_h{hbuf, rg};
+  uint32_t keep[CALLS];
+  {
+    const int fl = __ldg(flags + win);
+#pragma unroll
+    for (int c = 0; c < CALLS; ++c)
+      keep[c] = attn_f32::keep_bits(
+          attn_f32::crossings<RR>(rw0 + 4 * RR * c, shift), fl);
+  }
+
+  zero_tile(acc);
+  int tile = 0;
+  for (int h = 0; h < L::NH; ++h) {
+    // q, k, v of head h = LN1(x) Wqkv[:, head h] + b -> qb, kb, vb
+#pragma unroll
+    for (int part0 = 0; part0 < 3; part0 += L::QN / HD) {
+      float z[TM][L::QN / 8];
+      zero_tile(z);
+      for (int kt = 0; kt < C / L::KQ; ++kt)
+        product<TM, L::QN / 32, L::KQ>(z, a_h, kt * L::KQ,
+                                       ws.acquire(tile++), L::QN, cg);
+#pragma unroll
+      for (int s = 0; s < L::QN / 32; ++s) {
+        const int part = part0 + s, d = 4 * cg;
+        float* dst = part == 0 ? qb : part == 1 ? kb : vb;
+        const int ld = part == 2 ? attn_f32::LDV : attn_f32::LDQK;
+        const float* b = p.qkvb + part * C + h * HD + d;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = z[i][4 * s + e] + b[e];
+          st4(dst + (rg + L::RG * i) * ld + d, v);
+        }
+      }
+    }
+    __syncthreads();  // the head's q, k and v rows are in place
+    W2X_CLOCK_PHASE(8);
+    // O_h for this warp's rows -> their q rows (dead once read)
+#pragma unroll
+    for (int c = 0; c < CALLS; ++c) {
+      const int r0 = rw0 + 4 * RR * c;
+      float b[RR][8], o[RR][4];
+      attn_f32::load_bias<RR>(b, bias + (size_t)h * NTOK * NTOK, r0);
+      attn_f32::head_attention<RR>(qb, kb, vb, r0, b, keep[c], o);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < RR; ++i)
+        st4(qb + (r0 + (lane >> 3) + 4 * i) * attn_f32::LDQK + 4 * (lane & 7),
+            o[i]);
+    }
+    W2X_CLOCK_PHASE(9);
+    // proj += O_h Wproj[h] (the first tile's barrier orders the O stores)
+    const SmemRows<L::RG, attn_f32::LDQK, false> a_o{qb, rg};
+    for (int kt = 0; kt < HD / L::KP; ++kt)
+      product<TM, NSC, L::KP>(acc, a_o, kt * L::KP, ws.acquire(tile++), C,
+                              cg);
+    W2X_CLOCK_PHASE(2);
+  }
+
+  // x1 = x + (attn Wproj + b): to the output rows, which hold it until the
+  // end (the same thread reads it back), and on to LN2 -> h
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int s = 0; s < NSC; ++s) {
+      const int off = (rg + L::RG * i) * C + 4 * cg + 32 * s;
+      const float4 xv = ld4(xw + off);
+      const float* b = p.projb + 4 * cg + 32 * s;
+      float* v = &acc[i][4 * s];
+      v[0] = xv.x + (v[0] + b[0]);
+      v[1] = xv.y + (v[1] + b[1]);
+      v[2] = xv.z + (v[2] + b[2]);
+      v[3] = xv.w + (v[3] + b[3]);
+      if (live) *reinterpret_cast<float4*>(ow + off) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  layernorm_rows<C>(acc, p.n2s, p.n2b, hbuf, rg, cg);
+  W2X_CLOCK_PHASE(3);
+
+  // MLP in hidden chunks: fc1 chunk -> GELU -> the GELU rows -> into fc2
+  zero_tile(acc);
+  const SmemRows<L::RG, L::LDG, false> a_g{qb, rg};
+  for (int j = 0; j < L::NCH; ++j) {
+    float z[TM][L::HC / 8];
+    zero_tile(z);
+    for (int kt = 0; kt < C / L::KF; ++kt)
+      product<TM, L::HC / 32, L::KF>(z, a_h, kt * L::KF, ws.acquire(tile++),
+                                     L::HC, cg);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int s = 0; s < L::HC / 32; ++s) {
+        const int col = 4 * cg + 32 * s;
+        float g[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          g[e] = gelu_erf(z[i][4 * s + e] + p.fc1b[j * L::HC + col + e]);
+        st4(qb + (rg + L::RG * i) * L::LDG + col, g);
+      }
+    W2X_CLOCK_PHASE(12);
+    for (int kt = 0; kt < L::HC / L::KP; ++kt)
+      product<TM, NSC, L::KP>(acc, a_g, kt * L::KP, ws.acquire(tile++), C,
+                              cg);
+    W2X_CLOCK_PHASE(4);
+  }
+
+  // out = x1 + (g Wfc2 + b)
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int s = 0; s < NSC; ++s) {
+      const int off = (rg + L::RG * i) * C + 4 * cg + 32 * s;
+      const float4 x1 = ld4(ow + off);
+      const float* b = p.fc2b + 4 * cg + 32 * s;
+      const float* v = &acc[i][4 * s];
+      *reinterpret_cast<float4*>(ow + off) =
+          make_float4(x1.x + (v[0] + b[0]), x1.y + (v[1] + b[1]),
+                      x1.z + (v[2] + b[2]), x1.w + (v[3] + b[3]));
+    }
+  W2X_CLOCK_PHASE(5);
+}
+
+template <int C>
+int launch_swin_block_f32(const void* x, const BlockParams& p,
+                          const void* bias, const void* flags, void* out,
+                          int bw, int shift, cudaStream_t stream) {
+  using L = F32Layout<C>;
+  static_assert(is_width(C), "set_smem_limit's table counts kWidths only");
+  const int err = set_smem_limit((const void*)swin_block_f32_kernel<C>,
+                                 (int)L::SMEM);
+  if (err) return err;
+  const int grid = (bw + L::WPC - 1) / L::WPC;
+  swin_block_f32_kernel<C><<<grid, L::THREADS, L::SMEM, stream>>>(
+      static_cast<const float*>(x), p, static_cast<const float*>(bias),
+      static_cast<const int*>(flags), static_cast<float*>(out), bw, shift);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace w2x
 
-// GEMM weights: (in, out) for fp32 (is_bf16 = 0), (out, in) for bf16.
+// GEMM weights: (in, out) for fp32 (is_bf16 = 0), (out, in) for bf16;
+// C = 32 * nh, one of kWidths.
 extern "C" int w2x_swin_block(const void* x, const void* n1s, const void* n1b,
                               const void* qkvk, const void* qkvb,
                               const void* projk, const void* projb,
@@ -746,27 +1177,35 @@ extern "C" int w2x_swin_block(const void* x, const void* n1s, const void* n1b,
   p.fc1b = static_cast<const float*>(fc1b);
   p.fc2k = fc2k;
   p.fc2b = static_cast<const float*>(fc2b);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return w2x::launch_swin_block<float>(x, p, bias, flags, out, bw, C, nh,
-                                         shift, s);
   if (nh * w2x::HD != C) return (int)cudaErrorInvalidValue;
-  switch (C) {
-    case 32:
-      return w2x::launch_swin_block_tc<32>(x, p, bias, flags, out, bw, shift, s);
-    case 64:
-      return w2x::launch_swin_block_tc<64>(x, p, bias, flags, out, bw, shift, s);
-    case 96:
-      return w2x::launch_swin_block_tc<96>(x, p, bias, flags, out, bw, shift, s);
-    case 128:
-      return w2x::launch_swin_block_tc<128>(x, p, bias, flags, out, bw, shift, s);
-    case 160:
-      return w2x::launch_swin_block_tc<160>(x, p, bias, flags, out, bw, shift, s);
-    case 192:
-      return w2x::launch_swin_block_tc<192>(x, p, bias, flags, out, bw, shift, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w2x::with_width(C, [&](auto width) {
+    constexpr int kC = decltype(width)::value;
+    return is_bf16 ? w2x::launch_swin_block_tc<kC>(x, p, bias, flags, out, bw,
+                                                   shift, s)
+                   : w2x::launch_swin_block_f32<kC>(x, p, bias, flags, out,
+                                                    bw, shift, s);
+  });
+}
+
+// Registers and local (spill) bytes per thread and resident CTAs per SM
+// of the fp32 kernel for C (with its dynamic shared memory).
+extern "C" int w2x_swin_block_f32_info(int C, int* regs, int* local_bytes,
+                                       int* ctas_per_sm) {
+  return w2x::with_width(C, [&](auto width) {
+    constexpr int kC = decltype(width)::value;
+    const void* kernel = (const void*)w2x::swin_block_f32_kernel<kC>;
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+    if (err != cudaSuccess) return (int)err;
+    *regs = a.numRegs;
+    *local_bytes = (int)a.localSizeBytes;
+    const int code = w2x::set_smem_limit(kernel, (int)w2x::F32Layout<kC>::SMEM);
+    if (code) return code;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, kernel, w2x::F32Layout<kC>::THREADS,
+        w2x::F32Layout<kC>::SMEM);
+  });
 }
 
 #ifdef W2X_PHASE_CLOCK

@@ -33,9 +33,23 @@
 // A 0.087 ms at (BW 4096, C 96), 69% of the bound, and 0.048 ms at (1024,
 // 192), 63%; E 0.087 ms, 69%. The rest goes to the exact softmax's
 // instructions and the CTA barrier of each unit
-// (tools/attention_phase_clock.py). The fp32 instantiations keep
-// attention_core on the CUDA cores (TF32 would break the 1e-4 checks),
-// one CTA per window or (window, head).
+// (tools/attention_phase_clock.py).
+//
+// fp32 (attention_f32_kernel, the CLI's tf32 precision and the ops API):
+// the same stream of units on the CUDA cores, bound by bytes as well (402
+// MB at (BW 4096, C 96): 0.120 ms; 0.060 ms at (1024, 192)). The grid,
+// the two cp.async unit buffers (26 KB each: q and k rows at an odd
+// 16-byte stride) and the one barrier a unit are bf16's; each warp runs
+// attn_f32::head_attention (attention_f32.cuh, the core kernel B's fp32
+// heads loop runs too) on its 16 rows, with scores and its rows of the
+// head's bias in registers and fp32 FMA (no TF32: the fp32 checks hold
+// it to 1e-4), and stores its output from registers. Measured on an
+// H100 (tools/kernel_times.py, PERF.md section 6): A 0.31-0.32 ms at
+// (BW 4096, C 96), 38-39% of the bound, 0.163 ms at (1024, 192), 37%; E
+// 0.30-0.31 ms, 39-40%; 0.57-0.62x fp32 SDPA with a float mask. What
+// holds it: shared memory delivers 128 bytes a clock, and q k^T reads k
+// (and p v reads v and the shuffled probabilities) at 2-3 FMAs a value.
+#include "attention_f32.cuh"
 #include "attention_tc.cuh"
 
 namespace w2x {
@@ -57,18 +71,21 @@ constexpr size_t UNIT_SMEM = 2 * UNIT * sizeof(bf16);  // two unit buffers
 // Where the units lie: unit w * nh + h is head h of window w; its row r
 // of q starts at q + w * in_win + h * in_head + r * in_row (k and v
 // likewise), its output row r at out + w * out_win + h * out_head +
-// r * out_row. Every pointer and stride is 16-byte aligned.
-struct Units {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* out;
+// r * out_row. Every pointer and stride is 16-byte aligned. T is the
+// element type of q, k, v and out (bf16 or float).
+template <typename T>
+struct UnitsOf {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;
   const float* bias;  // (nh, 64, 64)
   const int* flags;   // (BW,)
   int bw, nh;
   int in_win, in_head, in_row;
   int out_win, out_head, out_row;
 };
+using Units = UnitsOf<bf16>;
 
 // unit (w, h)'s rows -> st (q, k, v blocks of 64 rows at stride LDU): 768
 // copies of 16 bytes, neighbouring threads on neighbouring addresses
@@ -155,136 +172,177 @@ attention_tc_kernel(const __grid_constant__ Units u, int shift) {
   }
 }
 
-// Resident CTAs per SM of the kernel on the current device, after opting
-// into its dynamic shared memory.
-int ctas_per_sm(int* per_sm) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      attention_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)UNIT_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, attention_tc_kernel, UNIT_THREADS, UNIT_SMEM);
+// ---------------------------------------------------------------------------
+// fp32: the same persistent grid on the CUDA cores (attention_f32.cuh)
+// ---------------------------------------------------------------------------
+
+// A unit's q and k rows at stride LDQK, its v rows at LDV (26 KB); two
+// unit buffers, 4 CTAs = 16 warps an SM.
+constexpr int UNIT_F32 = NTOK * (2 * attn_f32::LDQK + attn_f32::LDV);
+constexpr size_t UNIT_F32_SMEM = 2 * UNIT_F32 * sizeof(float);
+
+// unit (w, h)'s rows -> st: 1536 copies of 16 bytes
+__device__ __forceinline__ void load_unit(const UnitsOf<float>& u, int w,
+                                          int h, float* st) {
+  const size_t off = (size_t)w * u.in_win + (size_t)h * u.in_head;
+#pragma unroll
+  for (int k = 0; k < 3 * NTOK * 8 / UNIT_THREADS; ++k) {
+    const int i = threadIdx.x + k * UNIT_THREADS;
+    const int part = i / (NTOK * 8), r = (i >> 3) % NTOK, c = (i & 7) * 4;
+    const float* src = part == 0 ? u.q : part == 1 ? u.k : u.v;
+    tc::cp_async16(st + part * NTOK * attn_f32::LDQK +
+                       r * (part == 2 ? attn_f32::LDV : attn_f32::LDQK) + c,
+                   src + off + (size_t)r * u.in_row + c);
+  }
 }
 
-// Resident CTAs of the kernel on the current device (CTAs per SM x SMs),
-// found once per device.
-int resident_ctas(int* ctas) {
-  static int cached[kMaxDevices] = {};
+// As attention_tc_kernel, in fp32: each warp keeps its rows of the head's
+// bias in registers, computes its 16 rows in one call of
+// attn_f32::head_attention (scores in registers) and stores them from
+// registers, 16 bytes a lane.
+constexpr int F32_RR = 4;  // rows a lane: 16 rows a warp
+
+__global__ void __launch_bounds__(UNIT_THREADS, MIN_CTAS)
+attention_f32_kernel(const __grid_constant__ UnitsOf<float> u, int shift) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* buf = reinterpret_cast<float*>(smem_raw);
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int h = blockIdx.x % u.nh, dw = gridDim.x / u.nh;
+  constexpr int RR = F32_RR, CALLS = 4 / RR;
+  attn_f32::Crossings cross[CALLS];
+#pragma unroll
+  for (int c = 0; c < CALLS; ++c)
+    cross[c] = attn_f32::crossings<RR>(r0 + 4 * RR * c, shift);
+  float bias[CALLS][RR][8];  // the head's, for the CTA's life
+#pragma unroll
+  for (int c = 0; c < CALLS; ++c)
+    attn_f32::load_bias<RR>(bias[c], u.bias + h * NTOK * NTOK,
+                            r0 + 4 * RR * c);
+  const int w0 = blockIdx.x / u.nh;  // < bw: the grid is at most bw * nh
+  load_unit(u, w0, h, buf);
+  tc::cp_async_commit();
+  int slot = 0;
+  for (int w = w0; w < u.bw; w += dw) {
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    if (w + dw < u.bw) load_unit(u, w + dw, h, buf + (slot ^ 1) * UNIT_F32);
+    tc::cp_async_commit();
+    const float* q = buf + slot * UNIT_F32;
+    const float* k = q + NTOK * attn_f32::LDQK;
+    const float* v = k + NTOK * attn_f32::LDQK;
+    const int fl = __ldg(u.flags + w);
+    float* dst = u.out + (size_t)w * u.out_win + (size_t)h * u.out_head;
+#pragma unroll
+    for (int c = 0; c < CALLS; ++c) {
+      const int rc = r0 + 4 * RR * c;
+      float o[RR][4];
+      attn_f32::head_attention<RR>(q, k, v, rc, bias[c],
+                                   attn_f32::keep_bits(cross[c], fl), o);
+#pragma unroll
+      for (int i = 0; i < RR; ++i)
+        *reinterpret_cast<float4*>(dst + (size_t)(rc + rg + 4 * i) *
+                                             u.out_row + 4 * cg) =
+            make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+    }
+    slot ^= 1;
+  }
+}
+
+// Resident CTAs of a persistent attention kernel on the current device
+// (CTAs per SM x SMs): the shared-memory attribute is set and the
+// occupancy found once per kernel and device, outside any later launch
+// (and any capture that contains one).
+struct Residency {
+  const void* kernel;
+  size_t smem;
+  int cached[kMaxDevices];
+};
+
+// internal linkage: every copy of this library in a process keeps its own
+namespace {
+Residency tc_residency{(const void*)attention_tc_kernel, UNIT_SMEM, {}};
+Residency f32_residency{(const void*)attention_f32_kernel, UNIT_F32_SMEM, {}};
+}  // namespace
+
+// Resident CTAs per SM of the kernel, after opting into its dynamic
+// shared memory.
+int ctas_per_sm(const Residency& r, int* per_sm) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      r.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)r.smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, r.kernel, UNIT_THREADS, r.smem);
+}
+
+int resident_ctas(Residency& r, int* ctas) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices && cached[dev]) {
-    *ctas = cached[dev];
+  if (dev < kMaxDevices && r.cached[dev]) {
+    *ctas = r.cached[dev];
     return 0;
   }
   int per_sm = 0, sms = 0;
-  const int code = ctas_per_sm(&per_sm);
+  const int code = ctas_per_sm(r, &per_sm);
   if (code) return code;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   *ctas = per_sm * sms;
-  if (dev < kMaxDevices) cached[dev] = *ctas;
+  if (dev < kMaxDevices) r.cached[dev] = *ctas;
   return 0;
 }
 
 // The grid: the units (bw * nh), at most the resident CTAs rounded down
 // to a multiple of nh, so that each CTA keeps one head.
-int launch_attention_tc(const Units& u, int shift, cudaStream_t stream) {
+int grid_for(Residency& r, int bw, int nh, int* grid) {
   int ctas = 0;
-  const int err = resident_ctas(&ctas);
+  const int err = resident_ctas(r, &ctas);
   if (err) return err;
-  const int units = u.bw * u.nh, most = ctas - ctas % u.nh;
-  const int grid = units < most ? units : most;
+  const int units = bw * nh, most = ctas - ctas % nh;
+  *grid = units < most ? units : most;
+  return 0;
+}
+
+int launch_attention(const Units& u, int shift, cudaStream_t stream) {
+  int grid = 0;
+  const int err = grid_for(tc_residency, u.bw, u.nh, &grid);
+  if (err) return err;
   attention_tc_kernel<<<grid, UNIT_THREADS, UNIT_SMEM, stream>>>(u, shift);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// fp32: attention_core on the CUDA cores
-// ---------------------------------------------------------------------------
-
-// Kernel A, fp32: one CTA per window, the packed rows in shared memory.
-__global__ void __launch_bounds__(NTHREADS)
-window_attention_f32_kernel(const float* __restrict__ qkv,
-                            const float* __restrict__ bias,
-                            const int* __restrict__ flags,
-                            float* __restrict__ out, int C, int nh,
-                            int shift) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* scores = reinterpret_cast<float*>(smem);
-  float* buf = scores + NTOK * SLD;
-  const int C3 = 3 * C;
-  const int ld = padded_ld<float>(C3);
-  const size_t w = blockIdx.x;
-  const float* src = qkv + w * NTOK * C3;
-  for (int idx = threadIdx.x; idx < NTOK * C3; idx += NTHREADS)
-    buf[(idx / C3) * ld + idx % C3] = src[idx];
-  __syncthreads();
-  attention_core<float>(buf, ld, scores, bias, flags[w], C, nh, shift);
-  float* dst = out + w * NTOK * C;
-  for (int idx = threadIdx.x; idx < NTOK * C; idx += NTHREADS)
-    dst[idx] = buf[(idx / C) * ld + idx % C];
-}
-
-int launch_window_attention_f32(const void* qkv, const void* bias,
-                                const void* flags, void* out, int bw, int C,
-                                int nh, int shift, cudaStream_t stream) {
-  const size_t smem = NTOK * SLD * sizeof(float) +
-                      (size_t)NTOK * padded_ld<float>(3 * C) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      window_attention_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  window_attention_f32_kernel<<<bw, NTHREADS, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(bias),
-      static_cast<const int*>(flags), static_cast<float*>(out), C, nh, shift);
+int launch_attention(const UnitsOf<float>& u, int shift,
+                     cudaStream_t stream) {
+  int grid = 0;
+  const int err = grid_for(f32_residency, u.bw, u.nh, &grid);
+  if (err) return err;
+  attention_f32_kernel<<<grid, UNIT_THREADS, UNIT_F32_SMEM, stream>>>(u,
+                                                                     shift);
   return (int)cudaGetLastError();
 }
 
-// Kernel E, fp32: one CTA per (window, head) copies that head's (64, 32)
-// q, k and v blocks into the packed [q | k | v] rows attention_core reads
-// (C = 32, one head, the bias of head h).
-__global__ void __launch_bounds__(NTHREADS)
-window_attention_heads_f32_kernel(const float* __restrict__ q,
-                                  const float* __restrict__ k,
-                                  const float* __restrict__ v,
-                                  const float* __restrict__ bias,
-                                  const int* __restrict__ flags,
-                                  float* __restrict__ out, int nh, int shift) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* scores = reinterpret_cast<float*>(smem);
-  float* buf = scores + NTOK * SLD;
-  constexpr int ld = padded_ld<float>(3 * HD);
-  const size_t blk = blockIdx.x;  // window * nh + head
-  const size_t off = blk * NTOK * HD;
-  for (int idx = threadIdx.x; idx < NTOK * HD; idx += NTHREADS) {
-    const int t = idx / HD, d = idx % HD;
-    buf[t * ld + d] = q[off + idx];
-    buf[t * ld + HD + d] = k[off + idx];
-    buf[t * ld + 2 * HD + d] = v[off + idx];
-  }
-  __syncthreads();
-  const int w = (int)(blk / nh), h = (int)(blk % nh);
-  attention_core<float>(buf, ld, scores, bias + (size_t)h * NTOK * NTOK,
-                        flags[w], HD, 1, shift);
-  for (int idx = threadIdx.x; idx < NTOK * HD; idx += NTHREADS)
-    out[off + idx] = buf[(idx / HD) * ld + idx % HD];
+// Units of kernel E (q, k, v (BW, nh, 64, 32): one head's rows contiguous)
+// and of kernel A (qkv (BW, 64, 3C) -> out (BW, 64, C)), for T.
+template <typename T>
+UnitsOf<T> heads_units(const void* q, const void* k, const void* v,
+                       const void* bias, const void* flags, void* out, int bw,
+                       int nh) {
+  constexpr int blk = NTOK * HD;
+  return {static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out),
+          static_cast<const float*>(bias), static_cast<const int*>(flags),
+          bw, nh, nh * blk, blk, HD, nh * blk, blk, HD};
 }
 
-int launch_window_attention_heads_f32(const void* q, const void* k,
-                                      const void* v, const void* bias,
-                                      const void* flags, void* out, int bw,
-                                      int nh, int shift, cudaStream_t stream) {
-  // 41.5 KB: under the 48 KB a launch may take without opting in
-  const size_t smem = NTOK * SLD * sizeof(float) +
-                      (size_t)NTOK * padded_ld<float>(3 * HD) * sizeof(float);
-  window_attention_heads_f32_kernel<<<(unsigned)((size_t)bw * nh), NTHREADS,
-                                      smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<const int*>(flags), static_cast<float*>(out), nh, shift);
-  return (int)cudaGetLastError();
+template <typename T>
+UnitsOf<T> qkv_units(const void* qkv, const void* bias, const void* flags,
+                     void* out, int bw, int C, int nh) {
+  const T* x = static_cast<const T*>(qkv);
+  return {x, x + C, x + 2 * C, static_cast<T*>(out),
+          static_cast<const float*>(bias), static_cast<const int*>(flags),
+          bw, nh, NTOK * 3 * C, HD, 3 * C, NTOK * C, HD, C};
 }
 
 }  // namespace w2x
@@ -296,17 +354,11 @@ extern "C" int w2x_window_attention_heads(const void* q, const void* k,
                                           int bw, int nh, int shift,
                                           int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return w2x::launch_window_attention_heads_f32(q, k, v, bias, flags, out,
-                                                  bw, nh, shift, s);
-  using w2x::bf16;
-  constexpr int blk = w2x::NTOK * w2x::HD;  // one head's rows, contiguous
-  const w2x::Units u{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<bf16*>(out),
-                     static_cast<const float*>(bias),
-                     static_cast<const int*>(flags), bw, nh,
-                     nh * blk, blk, w2x::HD, nh * blk, blk, w2x::HD};
-  return w2x::launch_attention_tc(u, shift, s);
+  if (is_bf16)
+    return w2x::launch_attention(w2x::heads_units<w2x::bf16>(
+        q, k, v, bias, flags, out, bw, nh), shift, s);
+  return w2x::launch_attention(
+      w2x::heads_units<float>(q, k, v, bias, flags, out, bw, nh), shift, s);
 }
 
 // Kernel A. Every pointer 16-byte aligned (the wrapper checks).
@@ -314,19 +366,13 @@ extern "C" int w2x_window_attention_qkv(const void* qkv, const void* bias,
                                         const void* flags, void* out, int bw,
                                         int C, int nh, int shift, int is_bf16,
                                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
-    return w2x::launch_window_attention_f32(qkv, bias, flags, out, bw, C, nh,
-                                            shift, s);
   if (nh * w2x::HD != C) return (int)cudaErrorInvalidValue;
-  using w2x::bf16;
-  const bf16* x = static_cast<const bf16*>(qkv);
-  const w2x::Units u{x, x + C, x + 2 * C, static_cast<bf16*>(out),
-                     static_cast<const float*>(bias),
-                     static_cast<const int*>(flags), bw, nh,
-                     w2x::NTOK * 3 * C, w2x::HD, 3 * C,
-                     w2x::NTOK * C, w2x::HD, C};
-  return w2x::launch_attention_tc(u, shift, s);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return w2x::launch_attention(w2x::qkv_units<w2x::bf16>(
+        qkv, bias, flags, out, bw, C, nh), shift, s);
+  return w2x::launch_attention(
+      w2x::qkv_units<float>(qkv, bias, flags, out, bw, C, nh), shift, s);
 }
 
 // Registers per thread and resident CTAs per SM of the bf16 kernel.
@@ -335,7 +381,19 @@ extern "C" int w2x_attention_tc_info(int* regs, int* ctas_per_sm) {
   const cudaError_t err = cudaFuncGetAttributes(&a, w2x::attention_tc_kernel);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
-  return w2x::ctas_per_sm(ctas_per_sm);
+  return w2x::ctas_per_sm(w2x::tc_residency, ctas_per_sm);
+}
+
+// Registers and local (spill) bytes per thread and resident CTAs per SM
+// of the fp32 kernel.
+extern "C" int w2x_attention_f32_info(int* regs, int* local_bytes,
+                                      int* ctas_per_sm) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, w2x::attention_f32_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return w2x::ctas_per_sm(w2x::f32_residency, ctas_per_sm);
 }
 
 #ifdef W2X_PHASE_CLOCK

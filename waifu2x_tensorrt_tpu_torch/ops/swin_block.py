@@ -163,7 +163,8 @@ def block_operands(params, bias, dtype: torch.dtype, *,
 def swin_block_prepared(x, operands: BlockOperands, flags, *,
                         shift: int = 0, ws: int = 8):
     """One Swin block on prepared operands: the CUDA kernel for CUDA
-    tensors (bf16: tensor cores; fp32: CUDA cores), the plain twin for CPU
+    tensors (bf16: tensor cores; fp32: register-tiled FMA on the CUDA
+    cores, no TF32), the plain twin for CPU
     tensors (and meta ones, which count FLOPs). Counts kernel launches in
     ``fused_swin_block.launches``."""
     _check_x(x, flags, ws)
@@ -224,3 +225,17 @@ def fused_swin_block(x, params, bias, flags, *, num_heads: int,
 
 
 fused_swin_block.launches = 0
+
+
+def f32_occupancy(c: int) -> dict:
+    """Registers and spilled (local) bytes per thread, resident CTAs and
+    warps per SM of the fp32 kernel at width ``c``. Needs the card."""
+    import ctypes
+
+    lib = build.load_library()
+    regs, local, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    build.check(lib.w2x_swin_block_f32_info(
+        c, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(ctas)),
+        "swin block kernel info")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "ctas_per_sm": ctas.value, "warps_per_sm": 8 * ctas.value}

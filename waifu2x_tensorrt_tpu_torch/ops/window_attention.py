@@ -18,8 +18,10 @@ q, k, v (BW, nh, 64, 32) -> (BW, nh, 64, 32) in q's dtype.
 Both take bias (nh, 64, 64) fp32 and flags (BW,) int32 shift-boundary bits
 (bit0 bottom, bit1 right). On the card, bf16 runs one tensor-core kernel
 for both (``attention_tc_kernel``: (window, head) units through a
-cp.async ring, scores in registers), fp32 the CUDA-core ones; both want
-their tensors 16-byte aligned.
+cp.async ring, scores in registers), fp32 its CUDA-core counterpart
+(``attention_f32_kernel``: the same units and ring, fp32 FMA, the
+attention core kernel B's fp32 block shares); both want their tensors
+16-byte aligned.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from waifu2x_tensorrt_tpu_torch.ops.kernel_math import (
 )
 
 HEAD_DIM = 32
-MAX_DIM = 192  # shared-memory bound of kernels A and B (fp32 at C=192)
+MAX_DIM = 192  # the widest C kernel B is instantiated for
 
 
 def window_attention_qkv_plain(qkv, bias, flags, *, num_heads: int,
@@ -193,3 +195,17 @@ def tc_occupancy() -> dict:
                 "attention kernel info")
     return {"registers": regs.value, "ctas_per_sm": ctas.value,
             "warps_per_sm": 4 * ctas.value}
+
+
+def f32_occupancy() -> dict:
+    """Registers and spilled (local) bytes per thread, resident CTAs and
+    warps per SM of the fp32 kernel of A and E. Needs the card."""
+    import ctypes
+
+    lib = build.load_library()
+    regs, local, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    build.check(lib.w2x_attention_f32_info(
+        ctypes.byref(regs), ctypes.byref(local), ctypes.byref(ctas)),
+        "attention kernel info")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "ctas_per_sm": ctas.value, "warps_per_sm": 4 * ctas.value}

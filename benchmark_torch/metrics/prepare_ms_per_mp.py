@@ -1,0 +1,13 @@
+"""Device milliseconds per output megapixel of the traced window in the
+``w2x.prepare`` spans: the frame's upload, the tile gather and cast, and
+the carry's concat (``engine/renderer.py``), timed by the program's own
+events on the device's stream (``utils/profiling.stage_seconds``).
+Nothing where the program has no such spans."""
+
+from waifu2x_tensorrt_tpu_torch.utils import profiling
+
+
+def read(ctx):
+    stages = getattr(profiling, "stage_seconds", dict)()
+    t = stages.get("prepare")
+    return t * 1e3 / ctx.out_mp if t and ctx.out_mp else None

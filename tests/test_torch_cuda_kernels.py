@@ -46,7 +46,11 @@ the variant's kernel inside a graph capture; kernel B's fp32 kernel
 windows, shift 0 and 4 and every flags value, and with logits beyond 100,
 on prepared operands equal byte for byte to per-call ones; the fp32
 kernel of A and E at ragged and flagship counts; a captured tf32 chunk
-byte-identical to the eager one.
+byte-identical to the eager one; the program's spans
+(``utils/profiling.py``) on a traced stream: device seconds for every
+stage, summing to at least the profiler's busy time and at most the
+window, no ``w2x.*`` device event, one ``w2x.capture`` at a new chunk
+shape and no timing event recorded inside a capture.
 """
 
 import numpy as np
@@ -1071,3 +1075,120 @@ def test_kernel_b_launches_from_two_library_copies(dtype, captured_first):
             got = _launch_b(variant, x, ops, flags, 4)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (c, captured)
+
+
+def _small_swin(batch=3):
+    """swin_unet/art 2x behind an ``Upscaler`` at tile 64 (bf16)."""
+    from waifu2x_tensorrt_tpu_torch.engine.config import (
+        Precision,
+        RenderConfig,
+    )
+    from waifu2x_tensorrt_tpu_torch.engine.upscaler import Upscaler
+
+    up = Upscaler(allow_random_init=True, device="cuda")
+    up.load("swin_unet/art", 2, -1, RenderConfig(
+        precision=Precision.FP16, batch_size=batch, height=64, width=64,
+        scaling=2, overlap=(1 / 16, 1 / 16)))
+    return up
+
+
+def test_stage_spans_time_a_traced_stream():
+    """A traced stream (warmed first, every output fetched, ending in a
+    synchronize): prepare, model, finalize and fetch each have device
+    seconds, their sum covers the profiler's busy time (every kernel and
+    copy of the window lies inside a stage span on the one stream) and
+    lies inside the window, and no ``w2x.*`` event is a device event."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from waifu2x_tensorrt_tpu_torch.engine.upscaler import fetch_async
+    from waifu2x_tensorrt_tpu_torch.utils import profiling
+
+    up = _small_swin()
+    hw = (120, 200)
+    frames = [np.random.default_rng(i).integers(0, 256, (*hw, 3), np.uint8)
+              for i in range(4)]
+    stream = up.open_stream(hw)
+    stream.warm()
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handles = [fetch_async(o) for f in frames for o in stream.submit(f)]
+        handles += [fetch_async(o) for o in stream.flush()]
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    try:
+        seconds = profiling.stage_seconds()
+        assert len(handles) == len(frames)
+        assert set(seconds) == {"prepare", "model", "finalize", "fetch"}
+        assert all(t > 0 for t in seconds.values()), seconds
+        device = sorted((e.time_range.start, e.time_range.end)
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        assert device
+        busy_us, end = 0.0, -np.inf
+        for a, b in device:
+            busy_us += max(0.0, b - max(a, end))
+            end = max(end, b)
+        total = sum(seconds.values())
+        assert busy_us / 1e6 * 0.99 <= total <= window_s, (busy_us, seconds,
+                                                           window_s)
+        assert not [e.name for e in prof.events()
+                    if e.name.startswith("w2x.")
+                    and e.device_type == DeviceType.CUDA]
+    finally:
+        profiling.reset()
+
+
+def test_first_call_at_a_new_chunk_shape_is_one_capture():
+    """Under a profiler, the first call at a chunk shape is one
+    ``w2x.capture`` span (kind, shape and the capture's figures) inside a
+    ``w2x.model`` span whose events lie outside the capture; the next call
+    is a replay that names kernel B's launches. A stage span entered while
+    its stream captures records no event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
+    from waifu2x_tensorrt_tpu_torch.utils import profiling
+
+    up = _small_swin()
+    pl = up._pipeline
+    x = torch.rand((5, 64, 64, 3), generator=torch.Generator().manual_seed(
+        2)).cuda().bfloat16()
+    profiling.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pl.run_chunk(x, False, (0, 1))
+            pl.run_chunk(x, False, (2, 2))
+            graph = torch.cuda.CUDAGraph()
+            static = x.clone()
+            with torch.cuda.graph(graph):
+                with profiling.span("model", static.device) as counts:
+                    static.mul_(2)
+        torch.cuda.synchronize()
+        record = profiling.records()
+        assert [s.name for s in record] == ["model", "capture", "model",
+                                            "model"]
+        first, capture, replay, inside = record
+        assert first.counts == {"n": 5, "program": "capture"}
+        assert first.frames == (0, 1) and first.events is not None
+        assert capture.counts["kind"] == "model"
+        assert capture.counts["shape"] == "5x64x64x3"
+        assert capture.counts["capture_s"] > 0 and capture.counts[
+            "eager_s"] > 0 and capture.counts["pool_bytes"] >= 0
+        assert capture.events is None
+        (g,) = pl.model_prog.graphs.values()
+        assert replay.counts == {"n": 5, "program": "replay",
+                                 "launches_B": g.launches[fused_swin_block]}
+        assert inside.events is None and counts == {}
+        assert set(profiling.stage_seconds()) == {"model"}
+        names = [e.name for e in prof.events()]
+        assert names.count("w2x.capture") == 1
+        assert names.count("w2x.model") == 3
+    finally:
+        profiling.reset()

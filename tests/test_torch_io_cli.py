@@ -16,7 +16,7 @@ the golden gate (max 2 LSB, at most 1e-4 of the values changed) against
 the JAX CLI's, the clip's raw bytes and the stitched clip included; the
 messages, exit codes and ``--metrics-json`` reports are the JAX CLI's.
 The port alone then shows ``--resume`` (of whole files and of a segment),
-and ``--profile``.
+and ``--profile`` (a trace holding the program's spans).
 """
 
 import contextlib
@@ -257,3 +257,19 @@ def test_segment_resume_keeps_finished_parts(runs, tmp_path, monkeypatch):
 
 def test_profile_writes_a_trace(runs):
     assert list((runs["root"] / "prof").glob("*.pt.trace.json"))
+
+
+def test_profile_trace_holds_program_spans(runs):
+    """The port's stage spans are in the ``--profile`` trace, with their
+    counts as arguments, and the record is empty once ``trace`` ends."""
+    from waifu2x_tensorrt_tpu_torch.utils import profiling
+
+    (path,) = (runs["root"] / "prof").glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = {}
+    for e in events:
+        if e.get("name", "").startswith("w2x."):
+            spans.setdefault(e["name"], []).append(e.get("args", {}))
+    assert {"w2x.prepare", "w2x.model", "w2x.finalize"} <= set(spans)
+    assert all(a.get("n", 0) > 0 for a in spans["w2x.model"])
+    assert profiling.records() == []

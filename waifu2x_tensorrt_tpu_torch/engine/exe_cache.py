@@ -39,6 +39,11 @@ replay does not run. A capture records how many launches of each kernel it
 recorded and takes them off the counters again (nothing ran); every replay
 adds them.
 
+Under a profiler session a capture is the host span ``w2x.capture``
+(``utils/profiling.py``: the tag's kind, the input's shape, and the
+eager, capture and pool figures above in the record);
+``trace_counts`` says what a call will run, for its caller's span.
+
 On the CPU (``enabled`` is False there: it has no graphs) a
 ``CachedProgram`` calls ``fn``. Which paths are captured is decided here,
 statically: a capture that fails raises; nothing falls back to eager.
@@ -53,6 +58,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from waifu2x_tensorrt_tpu_torch.utils import profiling
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 
@@ -227,9 +234,27 @@ class CachedProgram:
             out, self.graphs[key] = self._capture(args)
             return out
 
+    def trace_counts(self, *args) -> dict:
+        """What a call with ``args`` runs, as counts of a trace span:
+        ``program`` (``eager`` on the CPU, ``capture`` or ``replay``) and,
+        for a replay, the launches of each kernel letter its graph makes
+        (``launches_B``)."""
+        if not enabled(args[0].device):
+            return {"program": "eager"}
+        graph = self.graphs.get(self.key(*args))
+        if graph is None:
+            return {"program": "capture"}
+        counts = {"program": "replay"}
+        for letter, wrapper in launch_counters().items():
+            if wrapper in graph.launches:
+                counts[f"launches_{letter}"] = graph.launches[wrapper]
+        return counts
+
     def _capture(self, args):
         device = args[0].device
-        with torch.cuda.device(device):
+        with torch.cuda.device(device), profiling.span(
+                "capture", kind=self.tag.split("|", 1)[0],
+                shape="x".join(map(str, args[0].shape))) as counts:
             current = torch.cuda.current_stream(device)
             side = self.pool.side_stream(device)
             t0 = time.perf_counter()
@@ -259,6 +284,9 @@ class CachedProgram:
                 if w.launches != n:  # recorded, not run
                     launches[w] = w.launches - n
                     w.launches = n
+            if counts is not None:
+                counts.update(eager_s=eager_s, capture_s=capture_s,
+                              pool_bytes=pool_bytes)
         self.pool.bytes += pool_bytes
         return out, _Graph(graph, static_args, static_out, launches,
                            pool_bytes, eager_s, capture_s)

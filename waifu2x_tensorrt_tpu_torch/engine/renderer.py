@@ -41,6 +41,12 @@ module is called. ``RendererCache`` (``fuse_frame``) makes a whole frame
 one program (``make_render_fn``): one graph replay a frame. Frames go to
 the card through pinned memory, without a synchronize. Sharding is not
 ported.
+
+Under a profiler session (``utils/profiling.py``) the stages are spans:
+``w2x.prepare`` (upload, gather, cast, carry), ``w2x.model`` (a chunk
+program), ``w2x.finalize`` (kernel C), each timed on the device's stream,
+inside ``w2x.submit`` / ``w2x.flush`` when streamed. None is inside a
+captured function, so the fused path's frame is unspanned.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from waifu2x_tensorrt_tpu_torch.tiling import (
     dihedral_inverse,
     plan_tiles,
 )
+from waifu2x_tensorrt_tpu_torch.utils import profiling
 from waifu2x_tensorrt_tpu_torch.utils.logging import Logger, Severity
 
 
@@ -304,6 +311,7 @@ class ChunkedPipeline:
         self.model_prog_px = (self._make_model_prog(module_pack_x)
                               if module_pack_x is not None else None)
         self._flops: dict[tuple, float] = {}
+        self._renders = 0
 
     def _make_model_prog(self, module):
         return exe_cache.cached_program(
@@ -350,6 +358,18 @@ class ChunkedPipeline:
         prog = self.model_prog_px if use_pack_x else self.model_prog
         return prog(tiles)
 
+    def run_chunk(self, tiles: torch.Tensor, use_pack_x: bool,
+                  frames: tuple[int, int]) -> torch.Tensor:
+        """``run_model`` inside its ``w2x.model`` span; ``frames`` (first,
+        last) are the frames the chunk's tiles belong to."""
+        if not profiling.active():
+            return self.run_model(tiles, use_pack_x)
+        prog = self.model_prog_px if use_pack_x else self.model_prog
+        with profiling.span("model", tiles.device, frames,
+                            n=int(tiles.shape[0]),
+                            **prog.trace_counts(tiles)):
+            return self.run_model(tiles, use_pack_x)
+
     def flops_per_frame(self, frame_hw: tuple[int, int]) -> float:
         """Model FLOPs a frame at this geometry (the JAX package's
         ``ChunkedPipeline.flops_per_frame``, the MFU numerator): the
@@ -375,19 +395,26 @@ class ChunkedPipeline:
         return total
 
     def render(self, frame_u8, progress=None) -> torch.Tensor:
-        frame = _as_frame(frame_u8, self._device)
-        prepare, finalize, _plan, n_chunks = self.get(frame.shape[:2])
+        frames = (self._renders, self._renders)
+        self._renders += 1
+        with profiling.span("prepare", self._device, frames):
+            frame = _as_frame(frame_u8, self._device)
+            prepare, finalize, _plan, n_chunks = self.get(frame.shape[:2])
+            with torch.inference_mode():
+                chunks = prepare(frame)
         outs = []
         t_prev = time.perf_counter()
         with torch.inference_mode():
-            for i, c in enumerate(prepare(frame)):
-                outs.append(self.run_model(c, prepare.use_pack_x))
+            for i, c in enumerate(chunks):
+                outs.append(self.run_chunk(c, prepare.use_pack_x, frames))
                 if progress is not None:
                     t_now = time.perf_counter()
                     progress(i + 1, n_chunks,
                              1.0 / max(t_now - t_prev, 1e-9))
                     t_prev = t_now
-            return finalize(*outs)
+            with profiling.span("finalize", self._device, frames,
+                                pieces=len(outs)):
+                return finalize(*outs)
 
 
 def _plain_flops(module, shape, dtype) -> float:
@@ -490,6 +517,13 @@ class TileStream:
         self._carry: Optional[torch.Tensor] = None  # (r, th, tw, 3) tiles
         self._outs: list = []        # [model output, rows consumed]
         self._pending = 0            # frames submitted, not yet finalized
+        self._submitted = 0          # frames submitted; a frame's id is
+        # its number here, and tile row g (counting every row the stream
+        # ran) belongs to frame g // tiles a frame
+
+    def _frames_of(self, row: int, n: int) -> tuple[int, int]:
+        """The frames of rows ``row .. row + n - 1``."""
+        return row // self._n_steps, (row + n - 1) // self._n_steps
 
     def _avail_out(self) -> int:
         return sum(int(a.shape[0]) - used for a, used in self._outs)
@@ -510,7 +544,9 @@ class TileStream:
                     self._outs[0][1] = used + take
             # finalize reads the pieces where they are (kernel C takes a
             # table of tile addresses): no concat
-            with torch.inference_mode():
+            frame = self._submitted - self._pending
+            with profiling.span("finalize", self._pl.device, (frame, frame),
+                                pieces=len(pieces)), torch.inference_mode():
                 ready.append(self._fin(*pieces))
             self._pending -= 1
         return ready
@@ -518,37 +554,53 @@ class TileStream:
     def submit(self, frame_u8) -> list:
         """Feed one frame; returns the frame outputs (device u8 tensors, in
         submission order) that became ready."""
-        frame = _as_frame(frame_u8, self._pl.device)
-        if tuple(frame.shape[:2]) != self._hw:
-            raise ValueError(f"stream expects {self._hw} frames, got "
-                             f"{tuple(frame.shape[:2])}")
-        with torch.inference_mode():
-            tiles = self._prep_flat(frame)
-            if self._carry is not None:
-                tiles = torch.cat([self._carry, tiles], 0)
-        self._pending += 1
-        k = int(tiles.shape[0]) // self._chunk
-        chunks = tiles[:k * self._chunk].split(self._chunk) if k else ()
-        self._carry = tiles[k * self._chunk:] if tiles.shape[0] % self._chunk \
-            else None
-        t_prev = time.perf_counter()
-        for i, c in enumerate(chunks):
-            self._outs.append([self._pl.run_model(c, self._use_px), 0])
-            if self._progress is not None:
-                t_now = time.perf_counter()
-                self._progress(i + 1, len(chunks),
-                               1.0 / max(t_now - t_prev, 1e-9))
-                t_prev = t_now
-        return self._drain()
+        n, chunk = self._n_steps, self._chunk
+        frame_id = self._submitted
+        carried = 0 if self._carry is None else int(self._carry.shape[0])
+        row = frame_id * n - carried  # the stream's first row not yet run
+        k = (carried + n) // chunk
+        with profiling.span("submit", frames=(frame_id, frame_id), tiles=n,
+                            carried=carried, chunks=k,
+                            ready=(row + k * chunk) // n - row // n):
+            with profiling.span("prepare", self._pl.device,
+                                (row // n, frame_id)):
+                frame = _as_frame(frame_u8, self._pl.device)
+                if tuple(frame.shape[:2]) != self._hw:
+                    raise ValueError(f"stream expects {self._hw} frames, "
+                                     f"got {tuple(frame.shape[:2])}")
+                with torch.inference_mode():
+                    tiles = self._prep_flat(frame)
+                    if self._carry is not None:
+                        tiles = torch.cat([self._carry, tiles], 0)
+            self._submitted += 1
+            self._pending += 1
+            chunks = tiles[:k * chunk].split(chunk) if k else ()
+            self._carry = tiles[k * chunk:] if (carried + n) % chunk \
+                else None
+            t_prev = time.perf_counter()
+            for i, c in enumerate(chunks):
+                self._outs.append([self._pl.run_chunk(
+                    c, self._use_px,
+                    self._frames_of(row + i * chunk, chunk)), 0])
+                if self._progress is not None:
+                    t_now = time.perf_counter()
+                    self._progress(i + 1, len(chunks),
+                                   1.0 / max(t_now - t_prev, 1e-9))
+                    t_prev = t_now
+            return self._drain()
 
     def flush(self) -> list:
         """Run the carried tail (one exact-size model call) and return the
         remaining frame outputs."""
-        if self._carry is not None:
-            self._outs.append([self._pl.run_model(self._carry,
-                                                  self._use_px), 0])
-            self._carry = None
-        return self._drain()
+        tail = 0 if self._carry is None else int(self._carry.shape[0])
+        with profiling.span("flush", tail=tail):
+            if tail:
+                row = self._submitted * self._n_steps - tail
+                self._outs.append([self._pl.run_chunk(
+                    self._carry, self._use_px, self._frames_of(row, tail)),
+                    0])
+                self._carry = None
+            return self._drain()
 
     def warm(self) -> int:
         """Run one carry cycle of zero frames through a throwaway stream

@@ -74,6 +74,7 @@ from waifu2x_tensorrt_tpu_torch.engine.renderer import (
 )
 from waifu2x_tensorrt_tpu_torch.models import onnx_backend, registry
 from waifu2x_tensorrt_tpu_torch.models.onnx_graph import read_graph
+from waifu2x_tensorrt_tpu_torch.utils import profiling
 from waifu2x_tensorrt_tpu_torch.utils.hashing import device_kind
 from waifu2x_tensorrt_tpu_torch.utils.logging import Logger, Severity
 
@@ -530,10 +531,14 @@ class Upscaler:
 class _HostCopy:
     """A device frame on its way into pinned host memory: the copy and an
     event after it are queued on the frame's stream; ``np.asarray`` waits
-    on the event and returns a view of the pinned C-contiguous buffer."""
+    on the event and returns a view of the pinned C-contiguous buffer.
+    Under a profiler session the pinned allocation, the dense copy and the
+    DtoH are the stage span ``w2x.fetch``."""
 
     def __init__(self, frame: torch.Tensor) -> None:
-        with torch.cuda.device(frame.device):
+        with profiling.span("fetch", frame.device,
+                            bytes=frame.numel() * frame.element_size()), \
+                torch.cuda.device(frame.device):
             self._host = torch.empty(tuple(frame.shape), dtype=frame.dtype,
                                      pin_memory=True)
             # a cropped output is a strided view: made dense on the device

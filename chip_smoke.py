@@ -717,6 +717,7 @@ def _zero_counters():
     counters = _counters()
     for f in counters.values():
         f.launches = 0
+    counters["B"].direct_launches = 0
     return counters
 
 
@@ -747,6 +748,7 @@ def phase_main_path(torch, smi, report):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n5 = {k: f.launches for k, f in counters.items()}
+    direct5 = counters["B"].direct_launches
     if len(outs) != 10 or any(tuple(o.shape) != (2880, 5120, 3)
                               for o in outs):
         raise AssertionError("stream returned wrong outputs")
@@ -767,6 +769,10 @@ def phase_main_path(torch, smi, report):
     if {k: n5[k] for k in want} != want or any(n5[k] for k in "ADEF"):
         raise AssertionError(f"phase 5 did not launch kernels B and C "
                              f"alone, as expected: {n5}")
+    print(f"  phase 5 kernel B launches on (B, H, W, C) activations: "
+          f"{direct5} of {n5['B']}", flush=True)
+    if direct5 != n5["B"]:
+        raise AssertionError("phase 5 launched kernel B on window copies")
     # frame 3's 18 tiles straddle two stream chunks (3 * 18 = 54 = 3 * 16
     # + 6): its streamed output against its single-frame render. The
     # render runs tiles 16-17 as a 2-tile chunk, for which cuBLAS and
@@ -853,29 +859,32 @@ def phase_fused_block_false(torch, smi, report):
 @contextlib.contextmanager
 def _swin_block_as(fn, plain_finalize=False):
     """Inside the context every fused Swin block runs ``fn(x, operands,
-    flags, shift=, ws=)`` in place of kernel B, and pipelines made there finalize with the plain scan in
-    place of kernel C when ``plain_finalize`` is set."""
+    shift=, ws=)`` on its (B, H, W, C) activation in place of kernel B,
+    and pipelines made there finalize with the plain scan in place of
+    kernel C when ``plain_finalize`` is set."""
     import waifu2x_tensorrt_tpu_torch.engine.renderer as renderer
     import waifu2x_tensorrt_tpu_torch.models.swin_unet as swin
     from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import finalize_scan
 
-    saved = (swin.swin_block_prepared, renderer.make_finalize_epilogue)
-    swin.swin_block_prepared = fn
+    saved = (swin.swin_block_bhwc, renderer.make_finalize_epilogue)
+    swin.swin_block_bhwc = fn
     if plain_finalize:
         renderer.make_finalize_epilogue = (
             lambda plan, device: lambda *outs: finalize_scan(outs, plan))
     try:
         yield
     finally:
-        swin.swin_block_prepared, renderer.make_finalize_epilogue = saved
+        swin.swin_block_bhwc, renderer.make_finalize_epilogue = saved
 
 
-def _plain_prepared(x, operands, flags, **kw):
-    """Kernel B's plain twin on a block's prepared operands."""
-    from waifu2x_tensorrt_tpu_torch.ops.swin_block import swin_block_plain
+def _plain_block(x, operands, **kw):
+    """Kernel B's plain twin on a block's activation and prepared
+    operands."""
+    from waifu2x_tensorrt_tpu_torch.ops.swin_block import (
+        swin_block_bhwc_plain,
+    )
 
-    return swin_block_plain(x, operands.params(), operands.bias, flags,
-                            num_heads=operands.num_heads, **kw)
+    return swin_block_bhwc_plain(x, operands, **kw)
 
 
 def _unit_scale_params(module, seed):
@@ -918,7 +927,7 @@ def phase_network_gate(torch):
     counters = _zero_counters()
     got = up.render(frame)  # two chunks (16 + 2 tiles): fp32 B 20, C 1
     n6 = {name: f.launches for name, f in counters.items()}
-    with _swin_block_as(_plain_prepared, plain_finalize=True):
+    with _swin_block_as(_plain_block, plain_finalize=True):
         want = _load(torch, Precision.TF32).render(frame)
     ok, dmax, frac = _golden_gate(got, want)
     print(f"  phase 6a tf32 frame, kernel path vs all-plain path: max "
@@ -952,7 +961,7 @@ def phase_network_gate(torch):
             ("unit-scale", lambda m: _unit_scale_params(m, seed=1))):
         k32 = forward(torch.float32, weights)
         k16 = forward(torch.bfloat16, weights)
-        with _swin_block_as(_plain_prepared):
+        with _swin_block_as(_plain_block):
             p32 = forward(torch.float32, weights)
             p16 = forward(torch.bfloat16, weights)
         with _swin_block_as(lambda x, *args, **kw: x):
@@ -1461,7 +1470,7 @@ def phase_tta_whole_frame(torch, smi, report):
     if out.shape != (2048, 2048, 3) or n["B"] <= 0 or n["C"] != 1:
         raise AssertionError(f"phase 12a: render did not run B and C: {n}")
     got = _upscaler(*args, Precision.TF32, 128, 8, tta=True).render(frame)
-    with _swin_block_as(_plain_prepared, plain_finalize=True):
+    with _swin_block_as(_plain_block, plain_finalize=True):
         want = _upscaler(*args, Precision.TF32, 128, 8,
                          tta=True).render(frame)
     ok, dmax, frac = _golden_gate(got, want)
@@ -1507,7 +1516,7 @@ def phase_tta_whole_frame(torch, smi, report):
                     4).render(tall)
     n = {k: f.launches for k, f in counters.items()}
     counts["c"] = n
-    with _swin_block_as(_plain_prepared, plain_finalize=True):
+    with _swin_block_as(_plain_block, plain_finalize=True):
         want = _upscaler("swin_unet/art", 2, -1, Precision.TF32, 0,
                          4).render(tall)
     ok, dmax, frac = _golden_gate(got, want)

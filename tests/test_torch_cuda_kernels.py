@@ -13,7 +13,12 @@ under each flags value and with logits beyond 100; kernel B's bf16
 tensor-core kernel also at C 96 / 3 heads and C 192 / 6 heads with window
 counts of 1, 37 and full CTAs, on prepared operands (the same bytes as
 per-call ones, one launch counted), and with logits beyond 100 under the
-shift mask; kernel C byte-identical
+shift mask; kernel B on (B, H, W, C) activations (``swin_block_bhwc``:
+the roll and the window partition in its addressing) byte-identical to
+the roll, window split, windowed kernel, merge and roll back it
+replaces, bf16 and fp32, C 96 and 192, shift 0 and 4, square and
+rectangular window grids, batches 1, 3 and 16, one window and a count
+that leaves the last CTA one window; kernel C byte-identical
 to the scan, with whole chunks and TileStream pieces that start
 mid-chunk, at scale 2 and 4, in bf16 and fp32, on a single tile, 1-row
 and 1-column grids, rows whose bytes are not a multiple of 16 and T up to
@@ -229,6 +234,54 @@ def test_kernel_b_fp32_every_flag(c, nh, fl):
                                     shift=4),
                 sb.swin_block_plain(x, params, bias, flags, num_heads=nh,
                                     shift=4))
+
+
+def _rolled_windows_block(x, ops, shift):
+    """The composition that kernel B's addressing replaces: roll by
+    -shift, window split, the windowed kernel, window merge, roll back."""
+    from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
+
+    b, h, w, c = x.shape
+    if shift:
+        x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+    out = sb.swin_block_prepared(
+        sb.window_split(x, 8).reshape(-1, 64, c).contiguous(), ops,
+        sb.flags_tensor(b, h // 8, w // 8, x.device), shift=shift)
+    out = sb.window_merge(out.reshape(b, -1, 64, c), h, w, 8)
+    return torch.roll(out, (shift, shift), dims=(1, 2)) if shift else out
+
+
+@pytest.mark.parametrize("b,nwy,nwx", [
+    (1, 16, 16), (3, 8, 8), (16, 16, 16), (1, 46, 80), (3, 3, 5), (1, 1, 1)])
+@pytest.mark.parametrize("c,nh", [(96, 3), (192, 6)])
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_kernel_b_on_activations_is_the_rolled_windows_block(
+        dtype, shift, c, nh, b, nwy, nwx):
+    """Kernel B on a (B, H, W, C) activation (``swin_block_bhwc``) against
+    the roll, split, windowed kernel, merge and roll back it replaces,
+    byte for byte: each window sees the same 64 tokens in the same order.
+    Grids of 16 x 16 and 8 x 8 windows (the flagship's tiles at C 96 and
+    C 192), 46 x 80 (a 720p frame padded to 368 x 640), 3 x 5 with 3
+    images (45 windows: the last bf16 CTA holds one) and one window (the
+    roll wraps inside it). One launch, counted as direct."""
+    from waifu2x_tensorrt_tpu_torch.ops import swin_block as sb
+
+    _x, _q, params, bias, _f = _inputs(1, c, nh, c + nwy + nwx + shift)
+    ops = sb.block_operands(params, bias, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(b * nwy * nwx + c)
+    x = torch.randn((b, 8 * nwy, 8 * nwx, c), generator=gen,
+                    device="cuda").to(dtype)
+    before = (sb.fused_swin_block.launches,
+              sb.fused_swin_block.direct_launches)
+    got = sb.swin_block_bhwc(x, ops, shift=shift)
+    assert (sb.fused_swin_block.launches,
+            sb.fused_swin_block.direct_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = _rolled_windows_block(x, ops, shift)
+    assert got.shape == x.shape and got.dtype == dtype
+    assert torch.equal(got, want)
 
 
 def test_kernel_b_wrapper_checks():
@@ -945,11 +998,12 @@ def test_captured_chunk_is_the_eager_chunk():
     with torch.inference_mode():
         want = pl.model_prog.fn(x)
     before = fused_swin_block.launches
+    direct = fused_swin_block.direct_launches
     first = pl.run_model(x)
     assert fused_swin_block.launches == before + 10  # the eager run only
     (graph,) = pl.model_prog.graphs.values()
-    assert {w.__name__: n for w, n in graph.launches.items()} == {
-        "fused_swin_block": 10}
+    # every B launch of the chunk reads and writes the activation itself
+    assert graph.launches == {"launches_B": 10, "direct_B": 10}
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -957,6 +1011,7 @@ def test_captured_chunk_is_the_eager_chunk():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert fused_swin_block.launches == before + 10 + 3 * 10
+    assert fused_swin_block.direct_launches == direct + 10 + 3 * 10
     assert torch.equal(first, want)
     for r in replays:
         assert torch.equal(r, want)
@@ -1036,8 +1091,8 @@ def _launch_b(lib, x, ops, flags, shift):
     code = lib.w2x_swin_block(
         x.data_ptr(), *[t.data_ptr() for t in ops.tensors],
         ops.bias.data_ptr(), flags.data_ptr(), out.data_ptr(), x.shape[0],
-        x.shape[2], ops.num_heads, shift, int(x.dtype == torch.bfloat16),
-        build.stream_handle(x.device))
+        x.shape[2], ops.num_heads, shift, 8, 8, 0,
+        int(x.dtype == torch.bfloat16), build.stream_handle(x.device))
     build.check(code, "swin block kernel")
     return out
 
@@ -1152,7 +1207,6 @@ def test_first_call_at_a_new_chunk_shape_is_one_capture():
     its stream captures records no event."""
     from torch.profiler import ProfilerActivity, profile
 
-    from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
     from waifu2x_tensorrt_tpu_torch.utils import profiling
 
     up = _small_swin()
@@ -1182,9 +1236,8 @@ def test_first_call_at_a_new_chunk_shape_is_one_capture():
         assert capture.counts["capture_s"] > 0 and capture.counts[
             "eager_s"] > 0 and capture.counts["pool_bytes"] >= 0
         assert capture.events is None
-        (g,) = pl.model_prog.graphs.values()
         assert replay.counts == {"n": 5, "program": "replay",
-                                 "launches_B": g.launches[fused_swin_block]}
+                                 "launches_B": 10, "direct_B": 10}
         assert inside.events is None and counts == {}
         assert set(profiling.stage_seconds()) == {"model"}
         names = [e.name for e in prof.events()]

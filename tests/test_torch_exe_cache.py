@@ -9,7 +9,11 @@
   eager function byte for byte, with no graph kept; ``store_dir()`` is
   None (nothing is persisted);
 - the pipeline's model programs and ``RendererCache``'s whole-frame
-  programs carry the JAX package's tags (``model|``, ``fused|``).
+  programs carry the JAX package's tags (``model|``, ``fused|``);
+- a graph's launch record: what a capture counted is taken off the
+  counters and named (``launches_B``, ``direct_B``), each replay adds it
+  back, and a replay's trace counts carry it (the graph itself is a stub:
+  the CPU has none).
 """
 
 import numpy as np
@@ -123,3 +127,40 @@ def test_programs_carry_the_jax_tags(family, scale, noise, arch):
     assert rc.get((40, 56)) is prog and rc.get((40, 64)) is not prog
     assert prog.pool is rc.pool
     assert prog.n_chunks == -(-prog.plan.tile_count // 2)
+
+
+class _StubGraph:
+    def replay(self):
+        pass
+
+
+def test_graph_launch_record_counts_direct_b(monkeypatch):
+    from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
+
+    before = exe_cache.counter_values()
+    assert set(before) == {"launches_A", "launches_B", "launches_C",
+                           "launches_D", "launches_E", "launches_F",
+                           "direct_B"}
+    # a flagship chunk's capture: 10 launches of B, all on activations,
+    # and one of C
+    fused_swin_block.launches += 10
+    fused_swin_block.direct_launches += 10
+    exe_cache.graph_counters()["launches_C"][0].launches += 1
+    recorded = exe_cache.take_recorded(before)
+    assert recorded == {"launches_B": 10, "direct_B": 10, "launches_C": 1}
+    assert exe_cache.counter_values() == before  # recorded, not run
+    x = torch.zeros((2, 8, 8, 3))
+    graph = exe_cache._Graph(_StubGraph(), (x.clone(),), x.clone(),
+                             recorded, 0, 0.0, 0.0)
+    for _ in range(3):
+        graph.replay((x,))
+    after = exe_cache.counter_values()
+    assert {k: after[k] - before[k] for k in before if after[k] != before[
+        k]} == {"launches_B": 30, "direct_B": 30, "launches_C": 3}
+    prog = exe_cache.cached_program(lambda t: t, tag="model|x")
+    prog.graphs[prog.key(x)] = graph
+    monkeypatch.setattr(exe_cache, "enabled", lambda device=None: True)
+    assert prog.trace_counts(x) == {"program": "replay", "launches_B": 10,
+                                    "direct_B": 10, "launches_C": 1}
+    assert prog.trace_counts(torch.zeros((1, 8, 8, 3))) == {
+        "program": "capture"}

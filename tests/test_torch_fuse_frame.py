@@ -17,7 +17,9 @@ PyTorch port on the CPU, against the JAX package.
   0.85 and 1.0 of it: the port counts the products and convolutions of
   the plain path (``FlopCounterMode``), XLA's cost analysis also counts
   the elementwise work (LayerNorm, GELU, softmax, bias adds, the TTA
-  mean), which is the larger share in a narrow swin.
+  mean), which is the larger share in a narrow swin; a swin with
+  ``fused_block`` (kernel B on CUDA: its activations on the meta device
+  need not be contiguous) counts what the dense blocks count.
 """
 
 import jax
@@ -157,3 +159,15 @@ def test_flops_per_frame_against_jax(models, name, tta, hw):
     tmodule, tspec = treg.create_model(family, scale, noise, **arch)
     got = ChunkedPipeline(tmodule, tspec, cfg, "cpu").flops_per_frame(hw)
     assert 0.85 * want <= got <= want, (got, want, got / want)
+
+
+def test_flops_per_frame_of_fused_blocks():
+    family, scale, noise, arch = MODELS["swin"]
+    cfg, _jcfg = _cfgs(False, 64, scale)
+    counts = []
+    for fused in (False, True):
+        module, spec = treg.create_model(family, scale, noise,
+                                         fused_block=fused, **arch)
+        counts.append(ChunkedPipeline(module, spec, cfg,
+                                      "cpu").flops_per_frame((90, 130)))
+    assert counts[1] == counts[0] > 0, counts

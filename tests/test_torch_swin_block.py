@@ -3,6 +3,9 @@ against the JAX package: the Pallas ``fused_swin_block`` in interpret mode
 and the flax dense ``SwinBlock``, fp32, C=64 / 2 heads, shift 0 and 4
 (atol 1e-4); in bf16 against the flax dense bf16 block by the repo's rule
 |port_bf16 - flax_fp32| <= max(2 |flax_bf16 - flax_fp32|, 0.02).
+``swin_block_bhwc`` (the block on a (B, H, W, C) activation) on the CPU
+against the Pallas kernel on the JAX-rolled and split input, merged and
+rolled back, on square and rectangular window grids.
 
 Each framework gets its own copy of every array (``jnp.array``,
 ``torch.tensor``, ``np.array``): on the CPU ``jnp.asarray`` and
@@ -17,14 +20,21 @@ import pytest
 import torch
 
 from waifu2x_tensorrt_tpu.models.swin_unet import SwinBlock as FlaxSwinBlock
-from waifu2x_tensorrt_tpu.models.swin_unet import _shift_flags
+from waifu2x_tensorrt_tpu.models.swin_unet import (
+    _shift_flags,
+    _window_merge,
+    _window_split,
+)
 from waifu2x_tensorrt_tpu.ops.swin_block import (
     fused_swin_block as jax_fused_block,
 )
 from waifu2x_tensorrt_tpu_torch.models.swin_unet import SwinBlock
 from waifu2x_tensorrt_tpu_torch.ops.swin_block import (
+    block_operands,
     fused_swin_block,
+    swin_block_bhwc,
     swin_block_plain,
+    swin_block_prepared,
 )
 
 C, NH, N = 64, 2, 64
@@ -145,3 +155,60 @@ def test_wrapper_runs_plain_twin_on_cpu():
     with pytest.raises(ValueError, match="qkv_kernel"):
         bad = dict(params, qkv_kernel=params["qkv_kernel"][:, :C])
         fused_swin_block(x, bad, bias, flags, num_heads=NH)
+
+
+def _torch_operands(params, bias):
+    return block_operands({k: torch.tensor(v) for k, v in params.items()},
+                          torch.tensor(bias), torch.float32)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 16, 24), (1, 8, 40), (3, 16, 16)])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_bhwc_plain_matches_pallas_on_rolled_windows(shift, b, h, w):
+    """The block on the activation (``swin_block_bhwc``, its plain twin on
+    the CPU) is the JAX package's kernel B on the windows of the input
+    rolled by -shift, merged and rolled back: the composition that the
+    CUDA kernel's address function replaces."""
+    rng = np.random.default_rng(20 + shift + h + w)
+    params = _kernel_params(rng)
+    bias = rng.normal(0, 0.2, (NH, N, N)).astype(np.float32)
+    x = rng.normal(0, 1, (b, h, w, C)).astype(np.float32)
+    xw = _window_split(jnp.roll(jnp.array(x), (-shift, -shift),
+                                axis=(1, 2)), 8)
+    yw = jax_fused_block(
+        xw.reshape(-1, N, C), {k: jnp.array(v) for k, v in params.items()},
+        jnp.array(bias), jnp.array(np.tile(_shift_flags(h // 8, w // 8), b)),
+        num_heads=NH, shift=shift, block_windows=4, interpret=True)
+    want = np.array(jnp.roll(_window_merge(yw.reshape(b, -1, N, C), h, w,
+                                           8), (shift, shift), axis=(1, 2)))
+    before = fused_swin_block.direct_launches
+    got = swin_block_bhwc(torch.tensor(x), _torch_operands(params, bias),
+                          shift=shift).numpy()
+    assert fused_swin_block.direct_launches == before  # the plain twin
+    assert got.shape == (b, h, w, C)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_windowed_layout_is_the_one_window_geometry():
+    """An 8 x 8 activation without a roll is one window: the block on it
+    is ``swin_block_prepared`` on its 64 tokens, byte for byte."""
+    rng = np.random.default_rng(31)
+    ops = _torch_operands(_kernel_params(rng),
+                          rng.normal(0, 0.2, (NH, N, N)).astype(np.float32))
+    x = torch.tensor(rng.normal(0, 1, (5, 8, 8, C)).astype(np.float32))
+    flags = torch.zeros(5, dtype=torch.int32)
+    want = swin_block_prepared(x.reshape(5, N, C), ops, flags)
+    assert torch.equal(swin_block_bhwc(x, ops), want.reshape(5, 8, 8, C))
+
+
+def test_bhwc_rejects_what_the_kernel_does_not_take():
+    rng = np.random.default_rng(32)
+    ops = _torch_operands(_kernel_params(rng),
+                          rng.normal(0, 0.2, (NH, N, N)).astype(np.float32))
+    x = torch.zeros((2, 16, 16, C))
+    for bad in (torch.zeros((2, 12, 16, C)), torch.zeros((2, 16, 20, C)),
+                torch.zeros((16, 16, C)), torch.zeros((2, 16, 16, 32))):
+        with pytest.raises(ValueError):
+            swin_block_bhwc(bad, ops, shift=4)
+    with pytest.raises(ValueError):  # window 8, shift 0 or 4 only
+        swin_block_bhwc(x, ops, shift=2)

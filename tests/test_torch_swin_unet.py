@@ -40,6 +40,37 @@ def test_forward_matches_flax_dense(scale, tile, fused):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
+def test_fused_blocks_run_on_the_activation(monkeypatch):
+    """With ``fused_block`` every Swin block of the flagship's depths (2,
+    2, 6, 2, 2: 10 blocks) is one call of ``swin_block_bhwc`` on its
+    (B, H, W, C) activation, and the forward still matches flax."""
+    from waifu2x_tensorrt_tpu_torch.models import swin_unet
+
+    arch = dict(base_dim=32, depths=(2, 2, 6, 2, 2))
+    flax_mod = FlaxSwinUNet(scale=4, **arch)
+    params = jreg.init_params(flax_mod, tile=32, seed=7)
+    x = np.random.default_rng(7).random((1, 32, 32, 3)).astype(np.float32)
+    want = np.array(flax_mod.apply({"params": params}, jnp.array(x)))
+    module, _ = treg.create_model("swin_unet/art", 4, -1, fused_block=True,
+                                  **arch)
+    treg.load_into(module, jreg._flatten(params))
+    shapes = []
+    block = swin_unet.swin_block_bhwc
+
+    def counted(x, operands, **kw):
+        assert x.is_contiguous()
+        shapes.append((tuple(x.shape), kw["shift"]))
+        return block(x, operands, **kw)
+
+    monkeypatch.setattr(swin_unet, "swin_block_bhwc", counted)
+    with torch.no_grad():
+        got = module(torch.tensor(x)).numpy()
+    assert shapes == ([((1, 16, 16, 32), s) for s in (0, 4)]
+                      + [((1, 8, 8, 64), s) for s in (0, 4) * 3]
+                      + [((1, 16, 16, 32), s) for s in (0, 4)])
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
 def test_pixel_shuffle_is_torch_crd_order():
     from waifu2x_tensorrt_tpu_torch.models.swin_unet import _pixel_shuffle
 

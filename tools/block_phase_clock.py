@@ -94,8 +94,8 @@ def main() -> int:
         code = lib.w2x_swin_block(
             x.data_ptr(), *[t.data_ptr() for t in ops.tensors],
             ops.bias.data_ptr(), flags.data_ptr(), out.data_ptr(),
-            x.shape[0], x.shape[2], ops.num_heads, args.shift, int(not fp32),
-            build.stream_handle(x.device))
+            x.shape[0], x.shape[2], ops.num_heads, args.shift, 8, 8, 0,
+            int(not fp32), build.stream_handle(x.device))
         build.check(code, "swin block kernel")
 
     def median_ms(fn):

@@ -11,7 +11,11 @@ digest of the output's bytes:
   same qkv values in its unpacked layout;
 - C on ``chip_smoke._finalize_case`` (the 720p -> 4x plan);
 - D at r 4 and 2 on phase 8's seeded (16, 256, 256, 3 r^2) values;
-- F at the probe's four shapes, 5 serialized products.
+- F at the probe's four shapes, 5 serialized products;
+- the flagship model (``chip_smoke._load``: swin_unet/art 4x, seeded
+  weights) called eagerly on a seeded chunk of 4 tiles of 256, and
+  rendering a seeded 720p frame through its captured chunk programs,
+  bf16 (the CLI's fp16) and fp32 (tf32).
 
 bf16 (the default) runs the bf16 and integer paths; fp32 the fp32 ones
 (TF32 off). ``--root DIR`` imports ``waifu2x_tensorrt_tpu_torch`` from DIR
@@ -87,6 +91,21 @@ def main() -> int:
                     qs, bias, flags, num_heads=nh, shift=shift))
                 show(f"E {case}", wa.fused_window_attention(
                     *heads, bias, flags, shift=shift))
+    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
+
+    tiles = torch.rand((4, 256, 256, 3), generator=torch.Generator(
+    ).manual_seed(15)).cuda()
+    frame = np.random.default_rng(15).integers(0, 256, (720, 1280, 3),
+                                               np.uint8)
+    for dt in dtypes:
+        name = "bf16" if dt == torch.bfloat16 else "fp32"
+        up = cs._load(torch, Precision.FP16 if dt == torch.bfloat16
+                      else Precision.TF32)
+        with torch.inference_mode():
+            show(f"model swin_unet/art 4x {name} (4, 256, 256, 3)",
+                 up._pipeline.model_prog.fn(tiles.to(dt)))
+        show(f"render swin_unet/art 4x {name} 720p",
+             torch.from_numpy(up.render(frame)))
     if torch.bfloat16 in dtypes:
         fin, plan, outs = cs._finalize_case(torch)
         show(f"C 720p -> 4x (T {plan.tile_count})", fin(*outs))

@@ -14,6 +14,11 @@ shapes, each beside its bound and its share of it:
 - E in bf16 and fp32 at (BW 4096, nh 3) on the same values, beside SDPA;
 - B in bf16 and fp32 on prepared operands at both shapes, beside the
   chain of library calls ``chip_smoke._block_chain`` in the same dtype;
+- B in bf16 and fp32 on the model's activations (``swin_block_bhwc``,
+  where the version has it) at the same windows, (16, 128, 128, 96) and
+  (16, 64, 64, 192), shift 4, beside the windowed kernel plus the roll,
+  window split, merge and roll back (torch ops, timed alone) that the
+  activation layout replaces;
 - each fp32 row against its bound at 67 TFLOP/s (TF32 is off);
 - C on the 720p -> 4x plan, alone (``finalize_gather`` on a table built
   once) and through the wrapper per call (table upload included); D in
@@ -40,6 +45,18 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def _rolled_copies(torch, x, shift):
+    """What a shifted block did around the windowed kernel B: roll by
+    -shift, window split (a copy), window merge (a copy), roll back."""
+    b, h, w, c = x.shape
+    x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+    xw = x.reshape(b, h // 8, 8, w // 8, 8, c).permute(
+        0, 1, 3, 2, 4, 5).reshape(-1, 64, c).contiguous()
+    out = xw.reshape(b, h // 8, w // 8, 8, 8, c).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+    return torch.roll(out, (shift, shift), dims=(1, 2))
 
 
 def main() -> int:
@@ -81,6 +98,7 @@ def main() -> int:
             line += (f"; {yard_name} {lm:.4f} ms, kernel / {yard_name} "
                      f"{ms / lm:.2f}x")
         print(line, flush=True)
+        return ms
 
     for bw, c, nh in ((4096, 96, 3), (1024, 192, 6)):
         x, qkv, params, bias, flags = cs._block_inputs(
@@ -111,10 +129,23 @@ def main() -> int:
             name = "bf16" if xs.dtype == torch.bfloat16 else "fp32"
             ops = sb.block_operands(params, bias, xs.dtype)
             chain = cs._block_chain(torch, params, c, nh, xs.dtype)
-            show(f"kernel B {name} BW {bw} C {c} (prepared operands)",
-                 lambda: sb.swin_block_prepared(xs, ops, flags, shift=4),
-                 cs._block_work(bw, c, nh, xs.element_size()),
-                 lambda: chain(xs, masks[xs.dtype]), "library chain")
+            windowed = show(
+                f"kernel B {name} BW {bw} C {c} (prepared operands)",
+                lambda: sb.swin_block_prepared(xs, ops, flags, shift=4),
+                cs._block_work(bw, c, nh, xs.element_size()),
+                lambda: chain(xs, masks[xs.dtype]), "library chain")
+            side = 128 if c == 96 else 64
+            act = xs.reshape(16, side // 8, side // 8, 8, 8, c).permute(
+                0, 1, 3, 2, 4, 5).reshape(16, side, side, c).contiguous()
+            copies = cs._median_ms(lambda: _rolled_copies(torch, act, 4))
+            print(f"kernel B {name} windowed + roll and window copies "
+                  f"(16, {side}, {side}, {c}) shift 4: {windowed:.4f} + "
+                  f"{copies:.4f} = {windowed + copies:.4f} ms", flush=True)
+            if hasattr(sb, "swin_block_bhwc"):
+                show(f"kernel B {name} on activations (16, {side}, {side}, "
+                     f"{c}) shift 4",
+                     lambda: sb.swin_block_bhwc(act, ops, shift=4),
+                     cs._block_work(bw, c, nh, xs.element_size()))
 
     fin, plan, outs = cs._finalize_case(torch)
     work = cs._finalize_work(plan, outs[0].element_size())

@@ -334,7 +334,7 @@ def _time_b32(torch, cs, build, fns):
                 build.check(fn(x.data_ptr(),
                                *[t.data_ptr() for t in ops.tensors],
                                ops.bias.data_ptr(), flags.data_ptr(),
-                               out.data_ptr(), bw, c, nh, 4, 0,
+                               out.data_ptr(), bw, c, nh, 4, 8, 8, 0, 0,
                                build.stream_handle(x.device)), name)
 
             call()

@@ -35,9 +35,10 @@ captured program reads the module's parameters and kernel B's operands
 where they lay at capture: load weights before the first call.
 
 Launch counts: the kernel wrappers count their launches in Python, which a
-replay does not run. A capture records how many launches of each kernel it
-recorded and takes them off the counters again (nothing ran); every replay
-adds them.
+replay does not run. A capture records how many launches each counter of
+``graph_counters`` counted (each kernel's, and kernel B's on activations)
+and takes them off the counters again (nothing ran); every replay adds
+them.
 
 Under a profiler session a capture is the host span ``w2x.capture``
 (``utils/profiling.py``: the tag's kind, the input's shape, and the
@@ -154,6 +155,36 @@ def launch_counters() -> dict:
             "E": fused_window_attention, "F": mma_probe}
 
 
+def graph_counters() -> dict:
+    """Every launch counter a captured graph keeps, as (wrapper,
+    attribute), by its name in a span's counts: ``launches_<letter>``, each
+    kernel's ``.launches``, and ``direct_B``, kernel B's launches on
+    (B, H, W, C) activations (``fused_swin_block.direct_launches``)."""
+    counters = {f"launches_{letter}": (wrapper, "launches")
+                for letter, wrapper in launch_counters().items()}
+    counters["direct_B"] = (counters["launches_B"][0], "direct_launches")
+    return counters
+
+
+def counter_values() -> dict:
+    """Each of ``graph_counters`` now, by name."""
+    return {name: getattr(wrapper, attr)
+            for name, (wrapper, attr) in graph_counters().items()}
+
+
+def take_recorded(before: dict) -> dict:
+    """The launches counted since ``before`` (``counter_values``), by name,
+    for each counter that moved; the counters are set back to ``before``,
+    since a capture records its launches but runs none."""
+    recorded = {}
+    for name, (wrapper, attr) in graph_counters().items():
+        n = getattr(wrapper, attr) - before[name]
+        if n:
+            recorded[name] = n
+            setattr(wrapper, attr, before[name])
+    return recorded
+
+
 def _reserved_bytes(device) -> int:
     return torch.cuda.memory_stats(device).get("reserved_bytes.all.current",
                                                0)
@@ -191,7 +222,9 @@ class _Graph:
         self.graph = graph
         self.static_args = static_args
         self.static_out = static_out
-        self.launches = launches        # {wrapper: launches a replay}
+        self.launches = launches        # {counter name: launches a replay}
+        counters = graph_counters()
+        self._adds = [(*counters[name], n) for name, n in launches.items()]
         self.pool_bytes = pool_bytes    # the pool's growth at capture
         self.eager_s = eager_s          # the first, eager run (host clock)
         self.capture_s = capture_s
@@ -200,8 +233,8 @@ class _Graph:
         for static, a in zip(self.static_args, args):
             static.copy_(a)
         self.graph.replay()
-        for wrapper, n in self.launches.items():
-            wrapper.launches += n
+        for wrapper, attr, n in self._adds:
+            setattr(wrapper, attr, getattr(wrapper, attr) + n)
         return self.static_out.clone()
 
 
@@ -237,18 +270,14 @@ class CachedProgram:
     def trace_counts(self, *args) -> dict:
         """What a call with ``args`` runs, as counts of a trace span:
         ``program`` (``eager`` on the CPU, ``capture`` or ``replay``) and,
-        for a replay, the launches of each kernel letter its graph makes
-        (``launches_B``)."""
+        for a replay, the launches its graph makes, by counter name
+        (``launches_B``, ``direct_B``: ``graph_counters``)."""
         if not enabled(args[0].device):
             return {"program": "eager"}
         graph = self.graphs.get(self.key(*args))
         if graph is None:
             return {"program": "capture"}
-        counts = {"program": "replay"}
-        for letter, wrapper in launch_counters().items():
-            if wrapper in graph.launches:
-                counts[f"launches_{letter}"] = graph.launches[wrapper]
-        return counts
+        return {"program": "replay", **graph.launches}
 
     def _capture(self, args):
         device = args[0].device
@@ -270,8 +299,7 @@ class CachedProgram:
                 raise TypeError(f"{self.tag}: a captured program returns "
                                 f"one tensor, not {type(out).__name__}")
             static_args = tuple(a.clone() for a in args)
-            counters = list(launch_counters().values())
-            before = [w.launches for w in counters]
+            before = counter_values()
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             with torch.cuda.graph(graph, pool=self.pool.handle()):
@@ -279,11 +307,7 @@ class CachedProgram:
                 static_out = self.fn(*static_args)
             pool_bytes = _reserved_bytes(device) - reserved
             capture_s = time.perf_counter() - t0
-            launches = {}
-            for w, n in zip(counters, before):
-                if w.launches != n:  # recorded, not run
-                    launches[w] = w.launches - n
-                    w.launches = n
+            launches = take_recorded(before)
             if counts is not None:
                 counts.update(eager_s=eager_s, capture_s=capture_s,
                               pool_bytes=pool_bytes)

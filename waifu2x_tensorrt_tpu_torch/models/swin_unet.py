@@ -16,9 +16,10 @@ Kernel B's operands are the exception: each ``SwinBlock`` builds them
 once per dtype and keeps them until a parameter changes or moves.
 
 ``fused_block=True`` runs each Swin block through kernel B
-(``ops/swin_block.py``); otherwise the block is the dense math with
-window attention through kernel A (``ops/window_attention.py``). On CPU
-tensors both kernels' wrappers run their plain twins.
+(``ops/swin_block.py``) on the activation itself; otherwise the block is
+the dense math with window attention through kernel A
+(``ops/window_attention.py``). On CPU tensors both kernels' wrappers run
+their plain twins.
 
 ``packed_x_head=True`` (scale > 1) ends in kernel D
 (``ops/head_pack.py``): the clamped depth-to-space writes the packed-x16
@@ -42,7 +43,10 @@ from waifu2x_tensorrt_tpu_torch.ops.head_pack import PACK_X, pack_head_x16
 from waifu2x_tensorrt_tpu_torch.ops.swin_block import (
     BlockOperands,
     block_operands,
-    swin_block_prepared,
+    flags_tensor,
+    swin_block_bhwc,
+    window_merge,
+    window_split,
 )
 from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
     fused_window_attention_qkv,
@@ -61,34 +65,6 @@ def _relative_position_index(ws: int) -> np.ndarray:
     rel = coords[:, :, None] - coords[:, None, :]
     rel = rel.transpose(1, 2, 0) + (ws - 1)
     return (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).astype(np.int64)
-
-
-def _window_split(x, ws: int):
-    """(B, H, W, C) -> (B, nH*nW, ws*ws, C)."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, (h // ws) * (w // ws), ws * ws, c)
-
-
-def _window_merge(x, h: int, w: int, ws: int):
-    """Inverse of _window_split."""
-    b, c = x.shape[0], x.shape[-1]
-    x = x.reshape(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h, w, c)
-
-
-def _shift_flags(n_wy: int, n_wx: int) -> np.ndarray:
-    """Per-window boundary flags for the analytic shift mask: bit0 = window
-    is in the last (rolled) row, bit1 = last column."""
-    flags = np.zeros((n_wy, n_wx), dtype=np.int32)
-    flags[-1, :] |= 1
-    flags[:, -1] |= 2
-    return flags.reshape(-1)
-
-
-@functools.lru_cache(maxsize=64)
-def _flags_tensor(b: int, n_wy: int, n_wx: int, device: torch.device):
-    return torch.from_numpy(np.tile(_shift_flags(n_wy, n_wx), b)).to(device)
 
 
 def _pixel_shuffle(x, r: int):
@@ -147,17 +123,17 @@ class WindowAttention(nn.Module):
         ws = self.window
         if self.shift:
             x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
-        xw = _window_split(x, ws)
+        xw = window_split(x, ws)
         nw, n = xw.shape[1], xw.shape[2]
         qkv = _linear(xw, self.qkv, x.dtype)
         out = fused_window_attention_qkv(
             qkv.reshape(b * nw, n, 3 * c).contiguous(),
             _bias_from_table(self.relative_position_bias_table,
                              self.num_heads, ws),
-            _flags_tensor(b, h // ws, w // ws, x.device),
+            flags_tensor(b, h // ws, w // ws, x.device),
             num_heads=self.num_heads, shift=self.shift, ws=ws,
         ).reshape(b, nw, n, c)
-        out = _window_merge(_linear(out, self.proj, x.dtype), h, w, ws)
+        out = window_merge(_linear(out, self.proj, x.dtype), h, w, ws)
         if self.shift:
             out = torch.roll(out, (self.shift, self.shift), dims=(1, 2))
         return out
@@ -166,10 +142,11 @@ class WindowAttention(nn.Module):
 class SwinBlock(nn.Module):
     """Pre-norm transformer block: W-MSA/SW-MSA + 2x-expansion GELU MLP.
 
-    With ``fused_block`` the whole block is kernel B on window tokens; the
-    cyclic roll and the window partition/merge stay outside it (the roll
-    commutes with the pointwise LayerNorms, so rolling the raw input first
-    equals the dense path's LN-then-roll)."""
+    With ``fused_block`` the whole block is kernel B on the (B, H, W, C)
+    activation: the kernel addresses each window's tokens through the
+    cyclic roll and the window partition itself (the roll commutes with
+    the pointwise LayerNorms, so rolling the raw input first equals the
+    dense path's LN-then-roll)."""
 
     def __init__(self, dim: int, num_heads: int, shift: int = 0,
                  mlp_ratio: int = 2, fused_block: bool = False, *,
@@ -237,22 +214,8 @@ class SwinBlock(nn.Module):
         return x + _linear(y, self.mlp_fc2, dt)
 
     def _fused(self, x):
-        b, h, w, c = x.shape
-        ws = WINDOW
-        if self.shift:
-            x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
-        xw = _window_split(x, ws)
-        nw = xw.shape[1]
-        out = swin_block_prepared(
-            xw.reshape(b * nw, ws * ws, c).contiguous(),
-            self.operands(x.dtype),
-            _flags_tensor(b, h // ws, w // ws, x.device),
-            shift=self.shift, ws=ws,
-        ).reshape(b, nw, ws * ws, c)
-        out = _window_merge(out, h, w, ws)
-        if self.shift:
-            out = torch.roll(out, (self.shift, self.shift), dims=(1, 2))
-        return out
+        return swin_block_bhwc(x, self.operands(x.dtype), shift=self.shift,
+                               ws=WINDOW)
 
 
 class SwinStage(nn.Module):

@@ -38,7 +38,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points (argument order of the csrc launchers)
 _SIGNATURES = {
     "w2x_window_attention_qkv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "w2x_swin_block": [_P] * 15 + [_P, _I, _I, _I, _I, _I, _P],
+    "w2x_swin_block": [_P] * 16 + [_I] * 8 + [_P],
     "w2x_finalize_gather": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "w2x_head_pack": [_P, _P, _I, _I, _I, _I, _I, _P],
     "w2x_window_attention_heads": [_P] * 6 + [_I] * 4 + [_P],

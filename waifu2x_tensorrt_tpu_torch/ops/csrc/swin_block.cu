@@ -7,6 +7,17 @@
 //   (C -> 2C) -> erf GELU -> fc2 -> residual
 // on x (BW, 64, C), C = 32 * nh (96/3 and 192/6 on the flagship).
 //
+// Both instantiations read x and write out as (B, H, W, C) activations
+// (H, W multiples of 8) rolled by `roll` pixels (Geometry, WindowRows
+// below): window win is (b, wy, wx) of B x H/8 x W/8, and its token
+// (i, j) lies at row (8 wy + i + roll) mod H and column (8 wx + j + roll)
+// mod W of image b. Reading and writing through that address function is
+// the cyclic roll, the window partition and their inverses in one step,
+// so the model calls the kernel on its activation with no copy around it.
+// A token is C contiguous values, so the loads and stores keep their
+// 16-byte and 32-bit accesses. The windowed (BW, 64, C) layout is the
+// case H = W = 8, roll 0.
+//
 // What bounds it on the H100: 1024 * C^2 + 524288 * nh FLOP per window
 // (45 GFLOP per launch at BW 4096, C 96; 42 at BW 1024, C 192) against
 // 4 * 64 * C bytes of activations in and out (101 MB; 50 MB), so the
@@ -93,12 +104,13 @@
 //     into fc2's accumulators. The 64 x 2C hidden is never stored.
 //   - A ragged last CTA (odd BW, two windows a CTA) computes its empty
 //     slot on a copy of the last window and stores nothing for it.
-//   Measured on an H100 (tools/kernel_times.py, PERF.md section 6): 1.71-
-//   1.73 ms at (BW 4096, C 96), 39% of the bound, and 1.52 ms at (1024,
-//   192), 41%: 0.58x and 0.91x a chain of fp32 library calls for the
-//   same block, against 4.58 / 6.35 ms for the first port's kernel. Its
-//   phase clocks and the layouts it was chosen against
-//   (tools/kernel_variants.py --kernel B32): PERF.md.
+//   Measured on an H100 (tools/kernel_times.py, PERF.md section 6): 1.69
+//   ms at (BW 4096, C 96), 40% of the bound, and 1.57 ms at (1024, 192),
+//   40% (1.50 ms with windowed addressing, before the activation layout:
+//   its row wraps cost registers at C 192): 0.58x and 0.93x a chain of
+//   fp32 library calls for the same block, against 4.58 / 6.35 ms for the
+//   first port's kernel. Its phase clocks and the layouts it was chosen
+//   against (tools/kernel_variants.py --kernel B32): PERF.md.
 //
 // Rounding points mirror _block_body (swin_block.py:67-177) in both: LN
 // output rounded to T; GEMMs accumulate in fp32, add the fp32 bias, then
@@ -187,6 +199,43 @@ int set_smem_limit(const void* kernel, int bytes) {
 }
 
 }  // namespace
+
+// x and out of a launch: (B, H, W, C), H and W multiples of 8, rolled by
+// `roll` (0 <= roll < 8) pixels up and left.
+struct Geometry {
+  int h, w, roll;
+};
+
+// Where the tokens of window `win` lie: token r (row r / 8, column r % 8
+// of the window) is the activation's token index token(r), (b H + y) W +
+// x. Since roll < 8 <= H, W, one wrap at the bottom and right edges
+// suffices. 32-bit: the wrapper keeps B H W C below 2^31.
+struct WindowRows {
+  int img, y0, x0, h, w;
+  __device__ __forceinline__ WindowRows(const Geometry& g, int win)
+      : h(g.h), w(g.w) {
+    const int nwx = g.w / WS, nw = (g.h / WS) * nwx;
+    const int b = win / nw, k = win - b * nw, wy = k / nwx;
+    img = b * g.h * g.w;
+    y0 = WS * wy + g.roll;
+    x0 = WS * (k - wy * nwx) + g.roll;
+  }
+  __device__ __forceinline__ int token(int r) const {
+    int y = y0 + r / WS, x = x0 + r % WS;
+    if (y >= h) y -= h;
+    if (x >= w) x -= w;
+    return img + y * w + x;
+  }
+};
+
+// v, which the compiler may not assume equal to v: a WindowRows built on
+// it is computed anew rather than kept in registers from an earlier one
+// (the fp32 kernel builds one before the heads loop and two after it; kept
+// live across the loop, its values cost that loop spilled registers).
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores, weights staged in shared memory
@@ -415,7 +464,7 @@ __global__ void __launch_bounds__(TC_THREADS, C <= 96 ? 2 : 1)
 swin_block_tc_kernel(const bf16* __restrict__ x, BlockParams p,
                      const float* __restrict__ bias,
                      const int* __restrict__ flags, bf16* __restrict__ out,
-                     int bw, int shift) {
+                     int bw, int shift, Geometry geo) {
   using L = TcLayout<C>;
   constexpr int NC = C / 8;  // n8 tiles across C
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -430,15 +479,17 @@ swin_block_tc_kernel(const bf16* __restrict__ x, BlockParams p,
   bf16* hbuf = smem + 2 * L::STAGE + slot * L::WIN;  // 64 x LDH: x, LN1, LN2
   bf16* kv = hbuf + NTOK * L::LDH;                   // 64 x LDKV: K | V, x1
   bf16* hrows = hbuf + r0 * L::LDH;                  // this warp's rows
-  const bf16* xw = x + (size_t)win * NTOK * C;
   const int ra = r0 + g, rb = r0 + g + 8;  // this thread's two rows
   W2X_CLOCK_START();
 
   // this warp's 16 rows of x -> hbuf (one copy group), then weight tile 0
+  {
+    const WindowRows rows(geo, win);
 #pragma unroll
-  for (int i = lane; i < 16 * (C / 8); i += 32) {
-    const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
-    tc::cp_async16(hrows + r * L::LDH + c, xw + (size_t)(r0 + r) * C + c);
+    for (int i = lane; i < 16 * (C / 8); i += 32) {
+      const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+      tc::cp_async16(hrows + r * L::LDH + c, x + rows.token(r0 + r) * C + c);
+    }
   }
   tc::cp_async_commit();
   WeightStream<C> ws{smem, static_cast<const bf16*>(p.qkvk),
@@ -619,18 +670,23 @@ swin_block_tc_kernel(const bf16* __restrict__ x, BlockParams p,
   }
 
   // x1 = x + round(attn Wproj + b), in place of pacc
+  {
+    const WindowRows rows(geo, win);
+    const bf16* xa_row = x + rows.token(ra) * C;
+    const bf16* xb_row = x + rows.token(rb) * C;
 #pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const int col = 8 * j + 2 * t;
-    const float b0 = p.projb[col], b1 = p.projb[col + 1];
-    const float2 xa = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(xw + ra * C + col));
-    const float2 xb = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(xw + rb * C + col));
-    pacc[j][0] = round_to<bf16>(xa.x + round_to<bf16>(pacc[j][0] + b0));
-    pacc[j][1] = round_to<bf16>(xa.y + round_to<bf16>(pacc[j][1] + b1));
-    pacc[j][2] = round_to<bf16>(xb.x + round_to<bf16>(pacc[j][2] + b0));
-    pacc[j][3] = round_to<bf16>(xb.y + round_to<bf16>(pacc[j][3] + b1));
+    for (int j = 0; j < NC; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float b0 = p.projb[col], b1 = p.projb[col + 1];
+      const float2 xa = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xa_row + col));
+      const float2 xb = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xb_row + col));
+      pacc[j][0] = round_to<bf16>(xa.x + round_to<bf16>(pacc[j][0] + b0));
+      pacc[j][1] = round_to<bf16>(xa.y + round_to<bf16>(pacc[j][1] + b1));
+      pacc[j][2] = round_to<bf16>(xb.x + round_to<bf16>(pacc[j][2] + b0));
+      pacc[j][3] = round_to<bf16>(xb.y + round_to<bf16>(pacc[j][3] + b1));
+    }
   }
   __syncwarp();  // this warp's ldmatrix reads of LN1 rows are done
   layernorm_frag<NC>(pacc, p.n2s, p.n2b, hbuf + ra * L::LDH,
@@ -675,7 +731,9 @@ swin_block_tc_kernel(const bf16* __restrict__ x, BlockParams p,
 
   // out = x1 + round(g Wfc2 + b)
   if (!live) return;
-  bf16* ow = out + (size_t)win * NTOK * C;
+  const WindowRows rows(geo, win);
+  bf16* oa_row = out + rows.token(ra) * C;
+  bf16* ob_row = out + rows.token(rb) * C;
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     const int col = 8 * j + 2 * t;
@@ -684,10 +742,10 @@ swin_block_tc_kernel(const bf16* __restrict__ x, BlockParams p,
         *reinterpret_cast<const __nv_bfloat162*>(kv + ra * L::LDKV + col));
     const float2 xb = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(kv + rb * L::LDKV + col));
-    *reinterpret_cast<uint32_t*>(ow + ra * C + col) =
+    *reinterpret_cast<uint32_t*>(oa_row + col) =
         tc::pack_bf16(xa.x + round_to<bf16>(oacc[j][0] + b0),
                       xa.y + round_to<bf16>(oacc[j][1] + b1));
-    *reinterpret_cast<uint32_t*>(ow + rb * C + col) =
+    *reinterpret_cast<uint32_t*>(ob_row + col) =
         tc::pack_bf16(xb.x + round_to<bf16>(oacc[j][2] + b0),
                       xb.y + round_to<bf16>(oacc[j][3] + b1));
   }
@@ -697,7 +755,8 @@ swin_block_tc_kernel(const bf16* __restrict__ x, BlockParams p,
 template <int C>
 int launch_swin_block_tc(const void* x, const BlockParams& p,
                          const void* bias, const void* flags, void* out,
-                         int bw, int shift, cudaStream_t stream) {
+                         int bw, int shift, Geometry geo,
+                         cudaStream_t stream) {
   using L = TcLayout<C>;
   static_assert(is_width(C), "set_smem_limit's table counts kWidths only");
   const int err = set_smem_limit((const void*)swin_block_tc_kernel<C>,
@@ -706,7 +765,8 @@ int launch_swin_block_tc(const void* x, const BlockParams& p,
   const int grid = (bw + TC_WPC - 1) / TC_WPC;
   swin_block_tc_kernel<C><<<grid, TC_THREADS, L::SMEM, stream>>>(
       static_cast<const bf16*>(x), p, static_cast<const float*>(bias),
-      static_cast<const int*>(flags), static_cast<bf16*>(out), bw, shift);
+      static_cast<const int*>(flags), static_cast<bf16*>(out), bw, shift,
+      geo);
   return (int)cudaGetLastError();
 }
 
@@ -970,7 +1030,7 @@ __global__ void __launch_bounds__(F32Layout<C>::THREADS, F32_MIN_CTAS)
 swin_block_f32_kernel(const float* __restrict__ x, BlockParams p,
                       const float* __restrict__ bias,
                       const int* __restrict__ flags, float* __restrict__ out,
-                      int bw, int shift) {
+                      int bw, int shift, Geometry geo) {
   using L = F32Layout<C>;
   constexpr int TM = L::TM, NSC = L::NSC;
   constexpr int RR = L::RR, CALLS = L::CALLS;
@@ -986,8 +1046,6 @@ swin_block_f32_kernel(const float* __restrict__ x, BlockParams p,
   float* qb = hbuf + NTOK * C;  // later the GELU rows of an MLP chunk
   float* kb = qb + NTOK * attn_f32::LDQK;
   float* vb = kb + NTOK * attn_f32::LDQK;
-  const float* xw = x + (size_t)win * NTOK * C;
-  float* ow = out + (size_t)win * NTOK * C;
   WeightStreamF32<C> ws{smem, static_cast<const float*>(p.qkvk),
                         static_cast<const float*>(p.projk),
                         static_cast<const float*>(p.fc1k),
@@ -997,12 +1055,13 @@ swin_block_f32_kernel(const float* __restrict__ x, BlockParams p,
 
   float acc[TM][C / 8];  // x, then proj's sum over heads, x1, the MLP's
   {                      // sum over chunks
+    const WindowRows rows(geo, win);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int s = 0; s < NSC; ++s) {
         const float4 v =
-            ld4(xw + (rg + L::RG * i) * C + 4 * cg + 32 * s);
+            ld4(x + rows.token(rg + L::RG * i) * C + 4 * cg + 32 * s);
         acc[i][4 * s] = v.x;
         acc[i][4 * s + 1] = v.y;
         acc[i][4 * s + 2] = v.z;
@@ -1073,21 +1132,24 @@ swin_block_f32_kernel(const float* __restrict__ x, BlockParams p,
 
   // x1 = x + (attn Wproj + b): to the output rows, which hold it until the
   // end (the same thread reads it back), and on to LN2 -> h
+  {
+    const WindowRows rows(geo, opaque(win));
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int s = 0; s < NSC; ++s) {
-      const int off = (rg + L::RG * i) * C + 4 * cg + 32 * s;
-      const float4 xv = ld4(xw + off);
-      const float* b = p.projb + 4 * cg + 32 * s;
-      float* v = &acc[i][4 * s];
-      v[0] = xv.x + (v[0] + b[0]);
-      v[1] = xv.y + (v[1] + b[1]);
-      v[2] = xv.z + (v[2] + b[2]);
-      v[3] = xv.w + (v[3] + b[3]);
-      if (live) *reinterpret_cast<float4*>(ow + off) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
+      for (int s = 0; s < NSC; ++s) {
+        const int off = rows.token(rg + L::RG * i) * C + 4 * cg + 32 * s;
+        const float4 xv = ld4(x + off);
+        const float* b = p.projb + 4 * cg + 32 * s;
+        float* v = &acc[i][4 * s];
+        v[0] = xv.x + (v[0] + b[0]);
+        v[1] = xv.y + (v[1] + b[1]);
+        v[2] = xv.z + (v[2] + b[2]);
+        v[3] = xv.w + (v[3] + b[3]);
+        if (live) *reinterpret_cast<float4*>(out + off) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+  }
   layernorm_rows<C>(acc, p.n2s, p.n2b, hbuf, rg, cg);
   W2X_CLOCK_PHASE(3);
 
@@ -1120,15 +1182,16 @@ swin_block_f32_kernel(const float* __restrict__ x, BlockParams p,
 
   // out = x1 + (g Wfc2 + b)
   if (!live) return;
+  const WindowRows rows(geo, opaque(win));
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int s = 0; s < NSC; ++s) {
-      const int off = (rg + L::RG * i) * C + 4 * cg + 32 * s;
-      const float4 x1 = ld4(ow + off);
+      const int off = rows.token(rg + L::RG * i) * C + 4 * cg + 32 * s;
+      const float4 x1 = ld4(out + off);
       const float* b = p.fc2b + 4 * cg + 32 * s;
       const float* v = &acc[i][4 * s];
-      *reinterpret_cast<float4*>(ow + off) =
+      *reinterpret_cast<float4*>(out + off) =
           make_float4(x1.x + (v[0] + b[0]), x1.y + (v[1] + b[1]),
                       x1.z + (v[2] + b[2]), x1.w + (v[3] + b[3]));
     }
@@ -1138,7 +1201,8 @@ swin_block_f32_kernel(const float* __restrict__ x, BlockParams p,
 template <int C>
 int launch_swin_block_f32(const void* x, const BlockParams& p,
                           const void* bias, const void* flags, void* out,
-                          int bw, int shift, cudaStream_t stream) {
+                          int bw, int shift, Geometry geo,
+                          cudaStream_t stream) {
   using L = F32Layout<C>;
   static_assert(is_width(C), "set_smem_limit's table counts kWidths only");
   const int err = set_smem_limit((const void*)swin_block_f32_kernel<C>,
@@ -1147,14 +1211,17 @@ int launch_swin_block_f32(const void* x, const BlockParams& p,
   const int grid = (bw + L::WPC - 1) / L::WPC;
   swin_block_f32_kernel<C><<<grid, L::THREADS, L::SMEM, stream>>>(
       static_cast<const float*>(x), p, static_cast<const float*>(bias),
-      static_cast<const int*>(flags), static_cast<float*>(out), bw, shift);
+      static_cast<const int*>(flags), static_cast<float*>(out), bw, shift,
+      geo);
   return (int)cudaGetLastError();
 }
 
 }  // namespace w2x
 
 // GEMM weights: (in, out) for fp32 (is_bf16 = 0), (out, in) for bf16;
-// C = 32 * nh, one of kWidths.
+// C = 32 * nh, one of kWidths. x and out: (B, h, w, C) rolled by roll
+// (Geometry), bw = B (h / 8) (w / 8) windows; the windowed (BW, 64, C)
+// layout is h = w = 8, roll 0.
 extern "C" int w2x_swin_block(const void* x, const void* n1s, const void* n1b,
                               const void* qkvk, const void* qkvb,
                               const void* projk, const void* projb,
@@ -1162,8 +1229,8 @@ extern "C" int w2x_swin_block(const void* x, const void* n1s, const void* n1b,
                               const void* fc1k, const void* fc1b,
                               const void* fc2k, const void* fc2b,
                               const void* bias, const void* flags, void* out,
-                              int bw, int C, int nh, int shift, int is_bf16,
-                              void* stream) {
+                              int bw, int C, int nh, int shift, int h, int w,
+                              int roll, int is_bf16, void* stream) {
   w2x::BlockParams p;
   p.n1s = static_cast<const float*>(n1s);
   p.n1b = static_cast<const float*>(n1b);
@@ -1178,13 +1245,17 @@ extern "C" int w2x_swin_block(const void* x, const void* n1s, const void* n1b,
   p.fc2k = fc2k;
   p.fc2b = static_cast<const float*>(fc2b);
   if (nh * w2x::HD != C) return (int)cudaErrorInvalidValue;
+  if (h < w2x::WS || w < w2x::WS || h % w2x::WS || w % w2x::WS || roll < 0 ||
+      roll >= w2x::WS || bw % ((h / w2x::WS) * (w / w2x::WS)))
+    return (int)cudaErrorInvalidValue;
+  const w2x::Geometry geo{h, w, roll};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return w2x::with_width(C, [&](auto width) {
     constexpr int kC = decltype(width)::value;
     return is_bf16 ? w2x::launch_swin_block_tc<kC>(x, p, bias, flags, out, bw,
-                                                   shift, s)
+                                                   shift, geo, s)
                    : w2x::launch_swin_block_f32<kC>(x, p, bias, flags, out,
-                                                    bw, shift, s);
+                                                    bw, shift, geo, s);
   });
 }
 

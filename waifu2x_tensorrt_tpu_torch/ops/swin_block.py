@@ -18,12 +18,21 @@ The kernel reads its operands in its own layout: ``block_operands`` builds
 them once (``BlockOperands``), ``swin_block_prepared`` runs the block on
 them. ``fused_swin_block`` builds them per call, for the tests and the
 ``ops`` API; the model caches them (``models/swin_unet.SwinBlock``).
+
+``swin_block_bhwc`` runs the block on the model's (B, H, W, C) activation
+itself: the kernel reads each window's tokens where the cyclic roll and
+the window partition would put them and writes each result back to the
+address it came from, so no roll, split or merge surrounds it. The
+windowed (BW, 64, C) layout of ``swin_block_prepared`` is the kernel's
+case H = W = 8, no roll.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from waifu2x_tensorrt_tpu_torch.ops import build
@@ -38,6 +47,36 @@ PARAM_NAMES = ("n1_scale", "n1_bias", "qkv_kernel", "qkv_bias",
                "proj_kernel", "proj_bias", "n2_scale", "n2_bias",
                "fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias")
 _GEMM = ("qkv_kernel", "proj_kernel", "fc1_kernel", "fc2_kernel")
+
+
+def window_split(x, ws: int):
+    """(B, H, W, C) -> (B, nH*nW, ws*ws, C)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // ws) * (w // ws), ws * ws, c)
+
+
+def window_merge(x, h: int, w: int, ws: int):
+    """Inverse of window_split."""
+    b, c = x.shape[0], x.shape[-1]
+    x = x.reshape(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c)
+
+
+def shift_flags(n_wy: int, n_wx: int) -> np.ndarray:
+    """Per-window boundary flags for the analytic shift mask: bit0 = window
+    is in the last (rolled) row, bit1 = last column."""
+    flags = np.zeros((n_wy, n_wx), dtype=np.int32)
+    flags[-1, :] |= 1
+    flags[:, -1] |= 2
+    return flags.reshape(-1)
+
+
+@functools.lru_cache(maxsize=64)
+def flags_tensor(b: int, n_wy: int, n_wx: int, device: torch.device):
+    """``shift_flags`` of b images on ``device``, uploaded once per
+    geometry (so a captured graph reads no host memory)."""
+    return torch.from_numpy(np.tile(shift_flags(n_wy, n_wx), b)).to(device)
 
 
 def _dense(a, kernel, bias, dt):
@@ -168,14 +207,62 @@ def swin_block_prepared(x, operands: BlockOperands, flags, *,
     tensors (and meta ones, which count FLOPs). Counts kernel launches in
     ``fused_swin_block.launches``."""
     _check_x(x, flags, ws)
-    nh = operands.num_heads
-    _check_geometry(x.shape[2], nh, shift, ws)
-    if x.shape[2] != operands.dim:
-        raise ValueError(f"x has C={x.shape[2]}, the operands "
-                         f"C={operands.dim}")
+    _check_operands(x, operands, shift, ws)
     if x.device.type in ("cpu", "meta"):
         return swin_block_plain(x, operands.params(), operands.bias, flags,
-                                num_heads=nh, shift=shift, ws=ws)
+                                num_heads=operands.num_heads, shift=shift,
+                                ws=ws)
+    return _launch(x, operands, flags, x.shape[0], shift, (ws, ws, 0))
+
+
+def swin_block_bhwc(x, operands: BlockOperands, *, shift: int = 0,
+                    ws: int = 8):
+    """One Swin block on a (B, H, W, C) activation, H and W multiples of
+    ``ws``: the block of the windows of x rolled by -shift, rolled back
+    (the model's shifted-window block). On CUDA tensors (contiguous) the
+    kernel reads and writes x's layout itself, into a new tensor; on CPU
+    and meta tensors it is the plain twin ``swin_block_bhwc_plain``.
+    Counts kernel launches in ``fused_swin_block.launches`` and
+    ``fused_swin_block.direct_launches``."""
+    if x.dim() != 4 or x.shape[1] % ws or x.shape[2] % ws:
+        raise ValueError(f"x must be (B, H, W, C) with H and W multiples "
+                         f"of {ws}, got {tuple(x.shape)}")
+    _check_operands(x, operands, shift, ws)
+    if x.device.type in ("cpu", "meta"):
+        return swin_block_bhwc_plain(x, operands, shift=shift, ws=ws)
+    b, h, w, _ = x.shape
+    flags = flags_tensor(b, h // ws, w // ws, x.device)
+    out = _launch(x, operands, flags, flags.shape[0], shift, (h, w, shift))
+    if flags.shape[0]:
+        fused_swin_block.direct_launches += 1
+    return out
+
+
+def swin_block_bhwc_plain(x, operands: BlockOperands, *, shift: int = 0,
+                          ws: int = 8):
+    """``swin_block_bhwc``'s plain twin on any device: roll by -shift,
+    window split, ``swin_block_plain``, window merge, roll back."""
+    b, h, w, c = x.shape
+    if shift:
+        x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+    out = swin_block_plain(
+        window_split(x, ws).reshape(-1, ws * ws, c), operands.params(),
+        operands.bias, flags_tensor(b, h // ws, w // ws, x.device),
+        num_heads=operands.num_heads, shift=shift, ws=ws)
+    out = window_merge(out.reshape(b, -1, ws * ws, c), h, w, ws)
+    return torch.roll(out, (shift, shift), dims=(1, 2)) if shift else out
+
+
+def _check_operands(x, operands, shift, ws):
+    _check_geometry(x.shape[-1], operands.num_heads, shift, ws)
+    if x.shape[-1] != operands.dim:
+        raise ValueError(f"x has C={x.shape[-1]}, the operands "
+                         f"C={operands.dim}")
+
+
+def _launch(x, operands, flags, bw, shift, geometry):
+    """Kernel B on CUDA tensors into a new tensor: ``bw`` windows of x laid
+    out as ``geometry`` (H, W, roll) of the kernel's address function."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != operands.dtype:
@@ -189,15 +276,18 @@ def swin_block_prepared(x, operands: BlockOperands, flags, *,
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{x.numel()} values: the kernel indexes fewer "
+                         "than 2**31")
     out = torch.empty_like(x)
-    if x.shape[0] == 0:
+    if bw == 0:
         return out
     lib = build.load_library()
     code = lib.w2x_swin_block(
         x.data_ptr(), *[t.data_ptr() for t in operands.tensors],
         operands.bias.data_ptr(), flags.data_ptr(), out.data_ptr(),
-        x.shape[0], x.shape[2], nh, shift, int(x.dtype == torch.bfloat16),
-        build.stream_handle(x.device))
+        bw, x.shape[-1], operands.num_heads, shift, *geometry,
+        int(x.dtype == torch.bfloat16), build.stream_handle(x.device))
     build.check(code, "swin block kernel")
     fused_swin_block.launches += 1
     return out
@@ -225,6 +315,7 @@ def fused_swin_block(x, params, bias, flags, *, num_heads: int,
 
 
 fused_swin_block.launches = 0
+fused_swin_block.direct_launches = 0  # those of swin_block_bhwc
 
 
 def f32_occupancy(c: int) -> dict:

@@ -172,6 +172,17 @@ the port through its library entry points (``Upscaler.load`` / ``render``
         library compiled into an empty directory and loaded: another
         copy) and warm, its ready seconds by step: library, model and
         weights, first eager call, capture
+ 16. kernel G (HAT's window attention) against its plain twin at the
+     hat4x-480p-stream cell's chunk, (16, 256, 256, 540) qkv, 6 heads of
+     30, self with shift 0 and 8 and overlapping (24 x 24 keys), and at
+     a rectangular (3, 48, 80) map: bf16 by phase 3's rule (the reported
+     max_abs_err is the chunk's); times at that chunk beside the bound
+     (``_hat_work``), the plain twin and SDPA with the bias and region
+     mask as one float mask; the registers and resident
+     CTAs of both instantiations; then hat/photo 4x streaming 720 x 480
+     frames (6 tiles a frame, chunks of 16): every ``w2x.model`` span of
+     the streamed frames a graph replay launching G 42 times (36 self, 6
+     overlapping)
 
 Times are per call: the median over 10 samples, each the CUDA-event time
 of 10 calls in a row divided by 10 (kernel F's probe times its own
@@ -936,7 +947,7 @@ def phase_network_gate(torch):
           f"kernel path's render {n6}: {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("tf32 golden gate failed")
-    if n6 != {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0}:
+    if n6 != {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0, "G": 0}:
         raise AssertionError(f"phase 6a: not 10 launches of fp32 B a chunk "
                              f"and one of C: {n6}")
 
@@ -2373,6 +2384,158 @@ def read_raw_clip(path, h, w):
     return np.fromfile(path, np.uint8).reshape(-1, h, w, 3)
 
 
+def _hat_inputs(torch, b, h, w, c, nh, overlap, seed):
+    """Unit-scale (b, h, w, 3c) fp32 qkv and the (rows, nh) fp32 table of
+    N(0, 0.2^2) of kernel G's geometry, on the card."""
+    from waifu2x_tensorrt_tpu_torch.ops.hat_attention import table_rows
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, h, w, 3 * c), generator=g, device="cuda")
+    table = 0.2 * torch.randn((table_rows(16, overlap), nh), generator=g,
+                              device="cuda")
+    return qkv, table
+
+
+def _hat_work(b, h, w, c, nh, overlap):
+    """(bytes, product FLOPs, fp32 FLOPs) of one kernel-G launch over a
+    (b, h, w) map at width c: q, k, v read once and the output written
+    once in bf16 (the benchmark's ``counts/hat.kernel_g``); q k^T and p v
+    at the head dim; ~6 fp32 operations a score."""
+    tokens = b * h * w
+    keys = (16 + 2 * overlap) ** 2
+    return (tokens * 4 * c * 2, 2 * 2 * tokens * keys * c,
+            6 * tokens * keys * nh)
+
+
+def _hat_sdpa(torch, qkv, table, nh, shift, overlap):
+    """SDPA over kernel G's windows (pre-split, contiguous (B, nW, nh, N,
+    d) q, k and v) with the bias and region mask as one float mask of
+    qkv's dtype: a yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
+
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    x = torch.roll(qkv, (-shift, -shift), dims=(1, 2)) if shift else qkv
+    q = ha._windows(x[..., :c], 16)
+    kv = (ha._overlap_windows(x[..., c:], 16, overlap) if overlap
+          else ha._windows(x[..., c:], 16))
+
+    def heads(t):
+        return t.reshape(*t.shape[:3], nh, -1).transpose(2, 3).contiguous()
+
+    q, k, v = heads(q), heads(kv[..., :c]), heads(kv[..., c:])
+    mask = table[ha._index_tensor(16, overlap, qkv.device)].permute(2, 0, 1)
+    if shift:
+        mask = mask + ha.region_mask(h, w, 16, shift, qkv.device)[:, None]
+    mask = mask.to(qkv.dtype).contiguous()
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def phase_kernel_g(torch, smi, report):
+    """Phase 16: kernel G against its plain twin, its times, and the HAT
+    stream's launch counts."""
+    import gc
+
+    import numpy as np
+
+    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
+    from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
+    from waifu2x_tensorrt_tpu_torch.utils import profiling
+
+    gc.collect()  # the earlier phases' programs and pools
+    torch.cuda.empty_cache()
+    worst = 0.0
+    # the cell's chunk of 16 256 x 256 tiles in each geometry (the fp32
+    # twin's scores there peak near 50 GB), then a map with borders
+    cases = [(16, 256, 256, 0, 0), (16, 256, 256, 8, 0), (16, 256, 256, 0, 4),
+             (3, 48, 80, 8, 0), (3, 48, 80, 0, 4)]
+    for b, h, w, shift, ov in cases:
+        qkv, table = _hat_inputs(torch, b, h, w, 180, 6, ov, seed=h + shift)
+        kw = {"num_heads": 6, "shift": shift, "overlap": ov}
+        q16 = qkv.bfloat16()
+        k16 = ha.hat_attention(q16, table, **kw).float()
+        p32 = ha.hat_attention_plain(qkv, table, **kw)
+        del qkv
+        torch.cuda.empty_cache()
+        p16 = ha.hat_attention_plain(q16, table, **kw).float()
+        e_k = float((k16 - p32).abs().max())
+        e_p = float((p16 - p32).abs().max())
+        same = float((k16 != p16).float().mean())
+        del k16, p16, p32
+        torch.cuda.empty_cache()
+        if b == 16:  # the shapes the main path gives the kernel
+            worst = max(worst, e_k)
+        ok = e_k <= max(2 * e_p, 0.02)
+        label = (f"G {'overlap' if ov else 'self'} ({b}, {h}, {w}, 540) "
+                 f"shift {shift}")
+        print(f"  phase 16 {label}: |k16-p32|={e_k:.3e} <= max(2*"
+              f"{e_p:.3e}, 0.02); values differing from the bf16 twin "
+              f"{same:.2e}: {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"phase 16: kernel G {label} disagrees")
+        if b == 16 and (shift == 8) != bool(ov):
+            # times of the shifted self and the overlapping launch
+            pm = _median_ms(lambda: ha.hat_attention_plain(q16, table, **kw),
+                            iters=3, warmup=1)
+            torch.cuda.empty_cache()
+            km = _median_ms(lambda: ha.hat_attention(q16, table, **kw))
+            lm = _median_ms(_hat_sdpa(torch, q16, table, 6, shift, ov))
+            bms, by = _bound(*_hat_work(16, h, w, 180, 6, ov))
+            occ = ha.occupancy(ov)
+            key = "overlap" if ov else "self"
+            print(f"  phase 16 G {key} (16, {h}, {w}) shift {shift}: "
+                  f"{km:.4f} ms (bound {bms:.4f} ms by {by}, "
+                  f"{100 * bms / km:.1f}% of it); plain twin {pm:.4f} ms; "
+                  f"SDPA with a float mask {lm:.4f} ms; "
+                  f"{occ['registers']} registers, {occ['ctas_per_sm']} CTAs "
+                  f"an SM", flush=True)
+            report.setdefault("G", {})[key] = {
+                "ms": km, "plain_ms": pm, "bound_ms": bms, "bound_by": by,
+                "library_ms": lm, **occ}
+        del q16, table
+        torch.cuda.empty_cache()
+    row = report["G"]
+    row.update(max_abs_err=worst, **{
+        k: row["overlap"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")})
+    row["self_ms"] = row.pop("self")["ms"]
+    row.pop("overlap")
+
+    up = _upscaler("hat/photo", 4, -1, Precision.FP16, 256, 16)
+    rng = np.random.default_rng(16)
+    frames = [rng.integers(0, 256, (480, 720, 3), np.uint8)
+              for _ in range(8)]
+    session = up.open_stream((480, 720))
+    session.warm()
+    counters = _zero_counters()
+    profiling.reset()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        outs = [o for f in frames for o in session.submit(f)]
+        outs += session.flush()
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    spans = [sp.counts for sp in profiling.records() if sp.name == "model"]
+    profiling.reset()
+    n = {k: w.launches for k, w in counters.items()}
+    good = (len(outs) == len(frames) and spans and all(
+        c.get("program") == "replay" and c.get("launches_G") == 42
+        and c.get("overlap_G") == 6 for c in spans))
+    mps = len(frames) * 2880 * 1920 / 1e6 / dt
+    print(f"  phase 16 hat/photo 4x stream: {len(frames)} 720 x 480 frames "
+          f"in {dt:.3f} s (traced) = {mps:.2f} output MP/s; "
+          f"{len(spans)} model spans, each a replay with "
+          f"launches_G 42 and overlap_G 6: {'ok' if good else 'FAIL'}; "
+          f"launch counts {n}", flush=True)
+    if not good or n["G"] != 42 * len(spans):
+        raise AssertionError(f"phase 16: the HAT stream's model spans "
+                             f"{spans}")
+    return n
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     torch = _require_cuda()
@@ -2431,6 +2594,9 @@ def main() -> int:
     t0 = time.perf_counter()
     n15 = phase_programs(torch, smi, report)
     print(f"  phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase 16 kernel G (HAT window attention) and the HAT stream:",
+          flush=True)
+    n16 = phase_kernel_g(torch, smi, report)
     # launch counts of the new paths, as extra keys on B's and C's rows
     report["C"].update(
         launches_cunet_t256_still=n11["a"],
@@ -2462,6 +2628,8 @@ def main() -> int:
     f_run = ("phase 10: the probe's run (int8_probe.run and run_library), "
              "4 shapes x 2 types x 12 calls of R = 2048 products; times at "
              "the ideal shape (512, 1024, 512), int8 and bf16_*")
+    g_run = ("phase 16: hat/photo 4x, bf16, tile 256, batch 16, 8 "
+             "streamed 720 x 480 frames after the warm")
     meta = {
         "A": ("window_attention_qkv", src + "window_attention.cu",
               "waifu2x_tensorrt_tpu/ops/window_attention.py:212",
@@ -2479,6 +2647,8 @@ def main() -> int:
               e_run),
         "F": ("mma_probe", src + "mma_probe.cu",
               "probes/int8_pallas_probe.py:71", n10["F"], f_run),
+        "G": ("hat_attention", src + "hat_attention.cu",
+              "none (the JAX package has no HAT)", n16["G"], g_run),
     }
     kernels = [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                 "replaces": meta[k][2], "launches": meta[k][3],
@@ -2489,8 +2659,9 @@ def main() -> int:
                 **{key: value for key, value in report[k].items()
                    if key.startswith(("library_chain", "fp32_", "bf16_",
                                       "c192_", "gate_", "wrapper_",
-                                      "queued_", "launches_"))}}
-               for k in ("A", "B", "C", "D", "E", "F")]
+                                      "queued_", "launches_", "self_",
+                                      "plain_ms_", "registers", "ctas_"))}}
+               for k in ("A", "B", "C", "D", "E", "F", "G")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -49,7 +49,11 @@ variant copy of it in one process, in bf16 and fp32, a first launch of
 the variant's kernel inside a graph capture; kernel B's fp32 kernel
 (register-tiled FMA) at every C from 32 to 192 with 1, 37, 512 and 4096
 windows, shift 0 and 4 and every flags value, and with logits beyond 100,
-on prepared operands equal byte for byte to per-call ones; the fp32
+on prepared operands equal byte for byte to per-call ones; kernel G
+(HAT's window attention) by the bf16 rule against its plain twin, self
+(shift 0 and 8) and overlapping, on a rectangular map whose windows
+wrap and touch every border, and with scores past 100, refusing fp32,
+and a captured HAT chunk byte-identical to the eager one; the fp32
 kernel of A and E at ragged and flagship counts; a captured tf32 chunk
 byte-identical to the eager one; the program's spans
 (``utils/profiling.py``) on a traced stream: device seconds for every
@@ -1074,7 +1078,7 @@ def test_fuse_frame_720p_against_the_chunked_render():
     before = {k: w.launches for k, w in counters.items()}
     second = fused.render(frame)
     made = {k: w.launches - before[k] for k, w in counters.items()}
-    assert made == {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0}
+    assert made == {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0, "G": 0}
     assert first.shape == (2880, 5120, 3)
     np.testing.assert_array_equal(first, second)
     assert np.abs(first.astype(int) - want.astype(int)).max() <= 1
@@ -1245,3 +1249,72 @@ def test_first_call_at_a_new_chunk_shape_is_one_capture():
         assert names.count("w2x.model") == 3
     finally:
         profiling.reset()
+
+
+@pytest.mark.parametrize("bhw", [(3, 48, 80), (2, 128, 96)],
+                         ids=["rect-3x48x80", "2x128x96"])
+@pytest.mark.parametrize("shift, overlap", [(0, 0), (8, 0), (0, 4)],
+                         ids=["self", "self-shift-8", "overlapping"])
+def test_kernel_g_matches_its_twin(shift, overlap, bhw):
+    """Kernel G (HAT's window attention) in bf16 against its plain twin at
+    HAT's width (C 180, 6 heads of 30), shifted windows whose last row
+    and column wrap, and overlapping windows zero-padded at every border:
+    by the bf16 rule |k16 - p32| <= max(2 |p16 - p32|, 0.02), and with
+    scores past 100 (q and k 4x larger) as well; one launch counted each
+    call, overlapping ones also in ``overlap_launches``."""
+    from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
+
+    b, h, w = bhw
+    g = torch.Generator(device="cuda").manual_seed(h + shift + overlap)
+    qkv = torch.randn((b, h, w, 540), generator=g, device="cuda")
+    table = 0.2 * torch.randn((ha.table_rows(16, overlap), 6), generator=g,
+                              device="cuda")
+    kw = {"num_heads": 6, "shift": shift, "overlap": overlap}
+    for scale in (1.0, 4.0):
+        x = qkv.clone()
+        x[..., :360] *= scale
+        before = (ha.hat_attention.launches,
+                  ha.hat_attention.overlap_launches)
+        k16 = ha.hat_attention(x.bfloat16(), table, **kw).float()
+        assert (ha.hat_attention.launches,
+                ha.hat_attention.overlap_launches) == (
+            before[0] + 1, before[1] + bool(overlap))
+        p16 = ha.hat_attention_plain(x.bfloat16(), table, **kw).float()
+        p32 = ha.hat_attention_plain(x, table, **kw)
+        e_k = float((k16 - p32).abs().max())
+        e_p = float((p16 - p32).abs().max())
+        assert e_k <= max(2 * e_p, 0.02), (scale, e_k, e_p)
+
+
+def test_kernel_g_refuses_fp32_on_the_card():
+    from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
+
+    qkv = torch.zeros((1, 16, 16, 540), device="cuda")
+    table = torch.zeros((ha.table_rows(16, 0), 6), device="cuda")
+    with pytest.raises(TypeError, match="bf16 only"):
+        ha.hat_attention(qkv, table, num_heads=6)
+
+
+def test_hat_chunk_captured_is_the_eager_chunk():
+    """A HAT chunk at full width (one group of 2 HABs and an OCAB, bf16,
+    2 tiles of 64) through its captured program: replays give the bytes
+    of the eager call and record kernel G's launches (3, 1 of them
+    overlapping)."""
+    from waifu2x_tensorrt_tpu_torch.engine import exe_cache
+    from waifu2x_tensorrt_tpu_torch.models import registry
+
+    module, _ = registry.create_model(
+        "hat/photo", 4, -1, dtype=torch.bfloat16, device="cuda",
+        hat_arch={"depths": (2,)})
+    registry.load_into(module, registry.init_params(module, seed=1))
+    exe_cache.configure("models", "cuda:0")
+    prog = exe_cache.cached_program(module, tag="model|hat-test")
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(
+        5)).cuda().bfloat16()
+    with torch.inference_mode():
+        want = module(x)
+    first = prog(x)
+    (graph,) = prog.graphs.values()
+    assert graph.launches == {"launches_G": 3, "overlap_G": 1}
+    second = prog(x)
+    assert torch.equal(first, want) and torch.equal(second, want)

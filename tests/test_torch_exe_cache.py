@@ -140,7 +140,7 @@ def test_graph_launch_record_counts_direct_b(monkeypatch):
     before = exe_cache.counter_values()
     assert set(before) == {"launches_A", "launches_B", "launches_C",
                            "launches_D", "launches_E", "launches_F",
-                           "direct_B"}
+                           "launches_G", "direct_B", "overlap_G"}
     # a flagship chunk's capture: 10 launches of B, all on activations,
     # and one of C
     fused_swin_block.launches += 10

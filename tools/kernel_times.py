@@ -1,4 +1,4 @@
-"""Times of kernels A to F through their wrappers on one NVIDIA GPU, by
+"""Times of kernels A to G through their wrappers on one NVIDIA GPU, by
 ``chip_smoke.py``'s method, from this or another version of the package.
 
     python3 tools/kernel_times.py [--root DIR]
@@ -28,7 +28,12 @@ shapes, each beside its bound and its share of it:
 - F (the int8/bf16 probe) at the probe's ideal and qkv shapes, R 2048,
   bf16 and int8, by the probe's method (``int8_probe.time_call``), each
   with its share of the dense peak, beside R x one bf16 ``matmul`` / one
-  ``_int_mm`` (``int8_probe.library_calls``).
+  ``_int_mm`` (``int8_probe.library_calls``);
+- G (HAT's window attention, where the version has it) in bf16 on the
+  hat4x-480p-stream cell's (16, 256, 256, 540) qkv, 6 heads of 30, self
+  with shift 8 and overlapping, beside its plain twin on the card and SDPA
+  over the windows with the bias and region mask as one float mask
+  (``chip_smoke._hat_sdpa``, a yardstick the port never calls).
 
 It goes through the wrappers only, so ``--root DIR`` can import
 ``waifu2x_tensorrt_tpu_torch`` from an unpacked other version (``git
@@ -178,6 +183,24 @@ def main() -> int:
                   f"(bound {1e3 * ops / peak:.4f} ms by operations, "
                   f"{100 * ops / (ms * 1e-3) / peak:.1f}% of the dense "
                   f"peak); R x one library call {lm:.4f} ms", flush=True)
+
+    try:
+        from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
+    except ImportError:  # a version without kernel G
+        return 0
+    for shift, ov in ((8, 0), (0, 4)):
+        qkv, table = cs._hat_inputs(torch, 16, 256, 256, 180, 6, ov,
+                                    seed=ov + shift)
+        q16 = qkv.bfloat16()
+        kw = {"num_heads": 6, "shift": shift, "overlap": ov}
+        name = "overlapping" if ov else f"self shift {shift}"
+        pm = cs._median_ms(lambda: ha.hat_attention_plain(q16, table, **kw),
+                           iters=3, warmup=1)
+        show(f"kernel G bf16 {name} (16, 256, 256, 540), plain twin "
+             f"{pm:.4f} ms",
+             lambda: ha.hat_attention(q16, table, **kw),
+             cs._hat_work(16, 256, 256, 180, 6, ov),
+             cs._hat_sdpa(torch, q16, table, 6, shift, ov))
     return 0
 
 

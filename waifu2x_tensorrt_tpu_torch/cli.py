@@ -2,7 +2,8 @@
 videos and ``build`` of engines, with the reference's flags
 (src/main.cpp:17-154), the port of ``waifu2x_tensorrt_tpu.cli``.
 
-Ported: --model (cunet/art and the swin_unet families) --scale --noise
+Ported: --model (cunet/art, the swin_unet families, and hat/photo, the
+port's own 4x HAT) --scale --noise
 --batchSize --tileSize (64, 128, 256, 400, 640, and 0 for the whole frame
 as one tile) --blend --tta --bucket --precision --device (an index, or
 ``cpu``) --models-dir --allow-random-weights, and ``render -i ... [-o DIR]
@@ -19,7 +20,9 @@ validates them, in its order and with its exit code -1 (model,
 --batchSize, --dp < 0, --tileSize auto with ``build``, --blend, --crf in
 [0, 51], the -o directory), and ``build`` and the render loop give its
 messages and exit codes. ``--dp``, ``--multihost`` and ``--tileSize auto``
-are parsed and rejected with exit code 2 saying "not yet ported".
+are parsed and rejected with exit code 2 saying "not yet ported", as are
+``--precision tf32`` and ``--graph-exact`` with hat/photo
+(``registry.refused_option``: its kernel G is bf16 only).
 
 Device frames reach the writers through ``fetch_async``: each output's
 copy into pinned host memory is queued behind its render, and the video
@@ -56,7 +59,8 @@ from waifu2x_tensorrt_tpu_torch.io.video import (
     VideoWriter,
 )
 from waifu2x_tensorrt_tpu_torch.models.registry import (
-    MODEL_FAMILIES,
+    FAMILIES,
+    refused_option,
     validate as validate_model,
 )
 from waifu2x_tensorrt_tpu_torch.utils.logging import (
@@ -106,7 +110,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="waifu2x-tpu-torch",
         description="waifu2x image/video upscaler (PyTorch/CUDA port)")
-    p.add_argument("--model", required=True, choices=MODEL_FAMILIES)
+    p.add_argument("--model", required=True, choices=FAMILIES)
     p.add_argument("--scale", required=True, type=int, choices=(1, 2, 4))
     p.add_argument("--noise", required=True, type=int,
                    choices=(-1, 0, 1, 2, 3))
@@ -177,7 +181,8 @@ def _unported(args) -> str | None:
     for hit, name in checks:
         if hit:
             return name
-    return None
+    return refused_option(args.model, fp32=args.precision == "tf32",
+                          graph_exact=args.graph_exact)
 
 
 def _validate(args) -> None:

@@ -142,6 +142,7 @@ def launch_counters() -> dict:
     from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
         finalize_gather,
     )
+    from waifu2x_tensorrt_tpu_torch.ops.hat_attention import hat_attention
     from waifu2x_tensorrt_tpu_torch.ops.head_pack import pack_head_x16
     from waifu2x_tensorrt_tpu_torch.ops.mma_probe import mma_probe
     from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
@@ -152,17 +153,20 @@ def launch_counters() -> dict:
 
     return {"A": fused_window_attention_qkv, "B": fused_swin_block,
             "C": finalize_gather, "D": pack_head_x16,
-            "E": fused_window_attention, "F": mma_probe}
+            "E": fused_window_attention, "F": mma_probe, "G": hat_attention}
 
 
 def graph_counters() -> dict:
     """Every launch counter a captured graph keeps, as (wrapper,
     attribute), by its name in a span's counts: ``launches_<letter>``, each
-    kernel's ``.launches``, and ``direct_B``, kernel B's launches on
-    (B, H, W, C) activations (``fused_swin_block.direct_launches``)."""
+    kernel's ``.launches``, ``direct_B``, kernel B's launches on
+    (B, H, W, C) activations (``fused_swin_block.direct_launches``), and
+    ``overlap_G``, kernel G's of overlapping windows
+    (``hat_attention.overlap_launches``)."""
     counters = {f"launches_{letter}": (wrapper, "launches")
                 for letter, wrapper in launch_counters().items()}
     counters["direct_B"] = (counters["launches_B"][0], "direct_launches")
+    counters["overlap_G"] = (counters["launches_G"][0], "overlap_launches")
     return counters
 
 

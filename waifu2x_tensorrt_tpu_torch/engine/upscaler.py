@@ -139,6 +139,7 @@ class Upscaler:
         library's build or load, the model and its weights, the first
         (eager) forwards, and the captures."""
         registry.validate(family, scale, noise)
+        self._refuse(family, scale, noise, config, graph_exact)
         device = self._select_device(config.device_id)
         exe_cache.configure(self.models_dir, device)
         fused_block = device.type == "cuda"
@@ -219,6 +220,8 @@ class Upscaler:
         geometry, no cross-frame stream, no per-chunk progress); the
         default is the chunked pipeline, one program per chunk shape."""
         registry.validate(family, scale, noise)
+        self._refuse(family, scale, noise, config, graph_exact,
+                     pack_x=os.environ.get("WAIFU2X_PACK_X") == "1")
         device = self._select_device(config.device_id)
         exe_cache.configure(self.models_dir, device)
         stem = registry.weights_path(self.models_dir, family, scale, noise)
@@ -281,6 +284,21 @@ class Upscaler:
             f"fuse_frame={'on' if fuse_frame else 'off'}, "
             f"weights={source})")
 
+    def _refuse(self, family, scale, noise, config, graph_exact,
+                pack_x=False) -> None:
+        """Raise, naming the option, where the family cannot run with it
+        (``registry.refused_option``: hat/photo is bf16 only, from its
+        ``.npz``, with the pixel head)."""
+        stem = registry.weights_path(self.models_dir, family, scale, noise)
+        onnx = not stem.exists() and stem.with_suffix(".onnx").exists()
+        option = registry.refused_option(
+            family, fp32=config.precision is Precision.TF32,
+            graph_exact=graph_exact, onnx=onnx, pack_x=pack_x)
+        if option is not None:
+            raise ValueError(f"{option}: not yet ported for {family} (its "
+                             "attention kernel G is bf16 only and it "
+                             "serves from .npz weights with the pixel head)")
+
     def _resolve_model(self, family, scale, noise, config, device,
                        fused_block, graph_exact):
         """(module with its weights, spec, source, graph_backed): source is
@@ -292,8 +310,8 @@ class Upscaler:
             return self._load_artifact(onnx_path, family, scale, noise,
                                        config, device, fused_block,
                                        graph_exact)
-        arch = (registry.checkpoint_arch(stem)
-                if stem.exists() and family.startswith("swin_unet") else {})
+        arch = (registry.checkpoint_arch(stem) if stem.exists()
+                and family.startswith(("swin_unet", "hat")) else {})
         module, spec = registry.create_model(
             family, scale, noise, dtype=config.precision.dtype,
             fused_block=fused_block, device=device, **arch)

@@ -44,10 +44,13 @@ __all__ = [
     "cunet_from_torch",
     "cunet_mapping",
     "dense_weight",
+    "hat_arch_from_flax",
+    "hat_mapping",
     "inv_conv_transpose_weight",
     "inv_conv_weight",
     "inv_dense_weight",
     "is_cunet_tree",
+    "is_hat_tree",
     "params_from_flax",
     "state_from_flax",
     "swin_depths_from_flax",
@@ -263,6 +266,61 @@ def swin_from_torch(state_dict: Mapping[str, "object"], scale: int,
             flat[f"{dst}/bias"] = _to_np(
                 state_dict[bias_key]).astype(np.float32)
     return flat
+
+
+def hat_mapping(depths=(6,) * 6) -> list[tuple[str, str, str]]:
+    """(torch_path, flax_path, kind) for HAT (``models/hat.py``), whose
+    torch paths are those of HAT's own state dict (XPixelGroup/HAT
+    ``hat_arch.py``): the flat path is the torch path '/'-joined, and a
+    relative-position table ``relative_position_bias_table`` is flat
+    ``relative_position_bias``. kind: conv | dense | norm | table; the
+    channel attention's 1x1 convs are dense."""
+    names: list[tuple[str, str]] = [("conv_first", "conv"),
+                                    ("patch_embed.norm", "norm")]
+    mlp = [("norm2", "norm"), ("mlp.fc1", "dense"), ("mlp.fc2", "dense")]
+    hab = [("norm1", "norm"), ("attn.qkv", "dense"), ("attn.proj", "dense"),
+           ("attn.relative_position_bias_table", "table"),
+           ("conv_block.cab.0", "conv"), ("conv_block.cab.2", "conv"),
+           ("conv_block.cab.3.attention.1", "dense"),
+           ("conv_block.cab.3.attention.3", "dense")] + mlp
+    ocab = [("norm1", "norm"), ("qkv", "dense"),
+            ("relative_position_bias_table", "table"),
+            ("proj", "dense")] + mlp
+    for i, depth in enumerate(depths):
+        g = f"layers.{i}.residual_group"
+        for j in range(depth):
+            names += [(f"{g}.blocks.{j}.{n}", k) for n, k in hab]
+        names += [(f"{g}.overlap_attn.{n}", k) for n, k in ocab]
+        names.append((f"layers.{i}.conv", "conv"))
+    names += [("norm", "norm"), ("conv_after_body", "conv"),
+              ("conv_before_upsample.0", "conv")]
+    names += [("upsample.0", "conv"), ("upsample.2", "conv"),
+              ("conv_last", "conv")]
+    return [(src, src.replace(".", "/").replace(
+        "relative_position_bias_table", "relative_position_bias"), kind)
+        for src, kind in names]
+
+
+def is_hat_tree(keys) -> bool:
+    """True for the flat tree (or its keys) of a HAT model."""
+    return any(k.startswith("layers/") for k in keys)
+
+
+def hat_arch_from_flax(flat: Mapping[str, np.ndarray]) -> dict:
+    """``models.hat.HAT``'s widths of a flat HAT tree: width and heads
+    from the first group's arrays, the group depths counted from its
+    keys."""
+    depths: dict[int, int] = {}
+    for key in flat:
+        m = re.match(r"layers/(\d+)/residual_group/blocks/(\d+)/", key)
+        if m:
+            i, j = int(m.group(1)), int(m.group(2))
+            depths[i] = max(depths.get(i, 0), j + 1)
+    table = flat["layers/0/residual_group/blocks/0/attn/"
+                 "relative_position_bias"].shape
+    return {"embed_dim": int(flat["conv_first/kernel"].shape[-1]),
+            "depths": tuple(depths[i] for i in sorted(depths)),
+            "num_heads": int(table[-1])}
 
 
 def state_from_flax(flat: Mapping[str, np.ndarray],

@@ -22,6 +22,12 @@ MODEL_FAMILIES = (
     "swin_unet/art_scan",
     "swin_unet/photo",
 )
+# families of the port alone (the JAX package has no counterpart), beside
+# the reference's surface above
+PORT_FAMILIES = (
+    "hat/photo",
+)
+FAMILIES = MODEL_FAMILIES + PORT_FAMILIES
 
 NOISE_LEVELS = (-1, 0, 1, 2, 3)
 SCALES = (1, 2, 4)
@@ -52,8 +58,8 @@ class ModelSpec:
 
 def validate(family: str, scale: int, noise: int) -> None:
     """CLI-parity semantic validation (src/main.cpp:142-145)."""
-    if family not in MODEL_FAMILIES:
-        raise ValueError(f"unknown model {family!r}; choices: {MODEL_FAMILIES}")
+    if family not in FAMILIES:
+        raise ValueError(f"unknown model {family!r}; choices: {FAMILIES}")
     if scale not in SCALES:
         raise ValueError(f"scale must be one of {SCALES}, got {scale}")
     if noise not in NOISE_LEVELS:
@@ -62,6 +68,27 @@ def validate(family: str, scale: int, noise: int) -> None:
         raise ValueError("cunet/art does not support scale factor 4.")
     if noise == -1 and scale == 1:
         raise ValueError("Noise level -1 does not support scale factor 1.")
+    if family == "hat/photo" and (scale, noise) != (4, -1):
+        raise ValueError("hat/photo is a 4x model without denoising: "
+                         "scale 4 and noise -1 only.")
+
+
+def refused_option(family: str, *, fp32: bool = False,
+                   graph_exact: bool = False, onnx: bool = False,
+                   pack_x: bool = False) -> Optional[str]:
+    """The first option the family cannot run with, by its CLI name, or
+    None. hat/photo runs kernel G, which is bf16 only, through its own
+    modules: no ``--precision tf32``, no ``.onnx`` artifact (``build``,
+    ``--graph-exact``) and no packed-x head."""
+    if family not in PORT_FAMILIES:
+        return None
+    for hit, name in ((fp32, "--precision tf32"),
+                      (graph_exact, "--graph-exact"),
+                      (onnx, ".onnx artifacts"),
+                      (pack_x, "the packed-x head (WAIFU2X_PACK_X=1)")):
+        if hit:
+            return name
+    return None
 
 
 def get_spec(family: str, scale: int, noise: int = -1) -> ModelSpec:
@@ -69,6 +96,9 @@ def get_spec(family: str, scale: int, noise: int = -1) -> ModelSpec:
     if family.split("/")[0] == "cunet":
         return ModelSpec(family, scale, noise, offset={1: 28, 2: 36}[scale],
                          tile_divisor=4)
+    if family.split("/")[0] == "hat":
+        # no padding inside: tiles are whole 16 x 16 windows
+        return ModelSpec(family, scale, noise, offset=0, tile_divisor=16)
     # swin_unet pads internally to /32; any tile size works, offset 0
     return ModelSpec(family, scale, noise, offset=0, tile_divisor=1)
 
@@ -88,20 +118,31 @@ def create_model(family: str, scale: int, noise: int = -1,
                  fused_block: bool = False,
                  base_dim: Optional[int] = None,
                  depths: Optional[tuple] = None,
-                 device=None, packed_x_head: bool = False):
+                 device=None, packed_x_head: bool = False,
+                 hat_arch: Optional[dict] = None):
     """Build the torch module + spec for a (family, scale, noise) choice.
 
     cunet/art gives ``CUNet`` (scale 1) or ``UpCUNet`` (scale 2); the
-    swin_unet options below do not apply to it. ``fused_block`` routes
-    every Swin block through kernel B (ops/swin_block.py); otherwise the
-    blocks are dense math around kernel A (ops/window_attention.py).
+    swin_unet options below do not apply to it. hat/photo gives ``HAT``
+    at its published widths, or those of ``hat_arch`` (``HAT``'s keyword
+    arguments, ``checkpoint_arch``); it has no packed-x head.
+    ``fused_block`` routes every Swin block through kernel B
+    (ops/swin_block.py); otherwise the blocks are dense math around
+    kernel A (ops/window_attention.py).
     ``base_dim``/``depths`` override the flagship architecture (96,
     (2, 2, 6, 2, 2)). ``packed_x_head`` (scale > 1 only) gives the
     packed-x head (``packed_x_twin``)."""
     from waifu2x_tensorrt_tpu_torch.models.cunet import CUNet, UpCUNet
+    from waifu2x_tensorrt_tpu_torch.models.hat import HAT
     from waifu2x_tensorrt_tpu_torch.models.swin_unet import SwinUNet
 
     spec = get_spec(family, scale, noise)
+    if spec.arch == "hat":
+        if packed_x_head:
+            raise ValueError(f"{family} has no packed-x head")
+        module = HAT(dtype=dtype or torch.float32, device=device,
+                     **(hat_arch or {})).eval()
+        return module, spec
     if spec.arch == "cunet":
         module = (CUNet if scale == 1 else UpCUNet)(
             dtype=dtype or torch.float32, device=device).eval()
@@ -133,12 +174,16 @@ def _mapping(module) -> list[tuple[str, str, str]]:
     """The (torch path, flax path, kind) table of the module."""
     from waifu2x_tensorrt_tpu_torch.models.convert import (
         cunet_mapping,
+        hat_mapping,
         swin_mapping,
     )
     from waifu2x_tensorrt_tpu_torch.models.cunet import CUNet
+    from waifu2x_tensorrt_tpu_torch.models.hat import HAT
 
     if isinstance(module, CUNet):
         return cunet_mapping(module.scale)
+    if isinstance(module, HAT):
+        return hat_mapping(module.depths)
     return swin_mapping(module.scale, module.depths)
 
 
@@ -206,12 +251,18 @@ def checkpoint_arch(path: str | Path) -> dict:
     """``create_model``'s ``base_dim`` and ``depths`` for the swin_unet
     weight file at ``path``: the depths counted from its block keys, the
     width twice ``patch_conv1``'s output channels (flax kernel (3, 3, 3,
-    base_dim / 2)). Reads the keys and that one array only."""
+    base_dim / 2)); for a HAT file its ``hat_arch``
+    (``convert.hat_arch_from_flax``). Reads the keys and one array a
+    size only."""
     from waifu2x_tensorrt_tpu_torch.models.convert import (
+        hat_arch_from_flax,
+        is_hat_tree,
         swin_depths_from_flax,
     )
 
     with np.load(Path(path)) as data:
+        if is_hat_tree(data.files):
+            return {"hat_arch": hat_arch_from_flax(data)}
         return {"base_dim": 2 * int(data["patch_conv1/kernel"].shape[-1]),
                 "depths": swin_depths_from_flax(dict.fromkeys(data.files))}
 
@@ -237,6 +288,15 @@ def load_or_init_params(module, models_dir: Optional[str | Path],
 
 def load_into(module, flat: dict[str, np.ndarray]) -> None:
     """Load a flat flax param dict into the port's module (strict)."""
-    from waifu2x_tensorrt_tpu_torch.models.convert import params_from_flax
+    from waifu2x_tensorrt_tpu_torch.models.convert import (
+        params_from_flax,
+        state_from_flax,
+    )
+    from waifu2x_tensorrt_tpu_torch.models.hat import HAT
 
-    module.load_state_dict(params_from_flax(flat, module.scale), strict=True)
+    if isinstance(module, HAT):
+        state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+                 for k, v in state_from_flax(flat, _mapping(module)).items()}
+    else:
+        state = params_from_flax(flat, module.scale)
+    module.load_state_dict(state, strict=True)

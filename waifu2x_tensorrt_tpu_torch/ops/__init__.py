@@ -6,6 +6,8 @@
 - ``finalize_epilogue``— kernel C: blend + overlap-add + u8 finalize;
 - ``head_pack``        — kernel D: clamp + depth-to-space into packed-x16;
 - ``mma_probe``        — kernel F: the int8/bf16 tensor-core probe;
+- ``hat_attention``    — kernel G: HAT's window attention (self and
+                         overlapping windows) on the qkv activation;
 - ``kernel_math``      — the exact math and mask law they share (torch);
 - ``build``            — nvcc build of ``csrc/`` into one ctypes library.
 

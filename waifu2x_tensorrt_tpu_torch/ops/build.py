@@ -46,6 +46,8 @@ _SIGNATURES = {
     "w2x_attention_f32_info": [_IP, _IP, _IP],
     "w2x_swin_block_f32_info": [_I, _IP, _IP, _IP],
     "w2x_mma_probe": [_P, _P, _P] + [_I] * 5 + [_P],
+    "w2x_hat_attention": [_P] * 3 + [_I] * 7 + [ctypes.c_float, _P],
+    "w2x_hat_attention_info": [_I, _IP, _IP],
 }
 
 _lib = None

@@ -183,6 +183,15 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      frames (6 tiles a frame, chunks of 16): every ``w2x.model`` span of
      the streamed frames a graph replay launching G 42 times (36 self, 6
      overlapping)
+ 17. kernel H (cunet's conv epilogue) against its plain twin at the
+     cunet2x-1080p-stream cell's largest maps, (16, 476, 476, 64) with
+     the leaky ReLU and (16, 444, 444, 64) with it and the skip cropped
+     by 16, bf16 and fp32: byte-equal, in place and into another tensor
+     (max |d| 0); times beside the bytes bound, the plain twin and the
+     torch ops it replaces (``epilogue_ops``, without the twin's copy
+     into place); then cunet/art 2x streaming 4 1080p frames (seeded
+     unit-scale weights): every ``w2x.model`` span a graph replay
+     launching H 22 times
 
 Times are per call: the median over 10 samples, each the CUDA-event time
 of 10 calls in a row divided by 10 (kernel F's probe times its own
@@ -947,7 +956,8 @@ def phase_network_gate(torch):
           f"kernel path's render {n6}: {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("tf32 golden gate failed")
-    if n6 != {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0, "G": 0}:
+    if n6 != {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0, "G": 0,
+              "H": 0}:
         raise AssertionError(f"phase 6a: not 10 launches of fp32 B a chunk "
                              f"and one of C: {n6}")
 
@@ -2536,6 +2546,150 @@ def phase_kernel_g(torch, smi, report):
     return n
 
 
+# kernel H's launches on the cunet2x-1080p-stream cell's path (16 tiles of
+# 256), as (key, shape, crop of the skip or None, act, clamp): the largest
+# maps, UNet2's conv1 with the leaky ReLU and its conv4_up with the leaky
+# ReLU and the skip cropped by 16 (the vector path), and the two C-3
+# conv_bottoms (the scalar path): UNet1's, the bias alone, and UNet2's,
+# with the cascade's skip cropped by 20 and the clamp
+EPILOGUE_CASES = (("", (16, 476, 476, 64), None, True, False),
+                  ("skip_", (16, 444, 444, 64), 16, True, False),
+                  ("bottom1_", (16, 480, 480, 3), None, False, False),
+                  ("bottom2_", (16, 440, 440, 3), 20, False, True))
+
+
+def _epilogue_label(crop, act, clamp):
+    return " + ".join(["act"] * act + [f"skip (crop {crop})"] * (
+        crop is not None) + ["clamp"] * clamp) or "bias alone"
+
+
+def _epilogue_inputs(torch, shape, crop, dtype, seed, specials=False):
+    """A bias-free conv output of ``shape``, its bias and a skip grown by
+    ``crop`` a side (None: no skip), N(0, 1) on the card. With
+    ``specials``, inf, -inf, -0.0 and NaN among the conv values, and in
+    channel 0 of the first row a -0.0 bias, conv value and skip value, so
+    that the sum is -0.0 where a clamp would make it +0.0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, h, w, c = shape
+    conv = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    bias = (0.3 * torch.randn((c,), generator=g, device="cuda")).to(dtype)
+    skip = None
+    if crop is not None:
+        skip = torch.randn((n, h + 2 * crop, w + 2 * crop, c), generator=g,
+                           device="cuda").to(dtype)
+    if specials:
+        flat = conv.view(-1)
+        for i, v in enumerate((float("inf"), float("-inf"), -0.0,
+                               float("nan"))):
+            flat[i * 7::97] = v
+        bias[0] = -0.0
+        conv[:, 0, :, 0] = -0.0
+        if skip is not None:
+            skip[:, crop, crop:crop + w, 0] = -0.0
+    return conv, bias, skip
+
+
+def _epilogue_work(shape, crop, elem):
+    """Bytes of one kernel-H launch: the conv output read and the
+    activation written once, the skip's crop (the values added) read once,
+    and the bias."""
+    n, h, w, c = shape
+    values = n * h * w * c
+    return (values * (2 if crop is None else 3) + c) * elem
+
+
+def phase_kernel_h(torch, smi, report):
+    """Phase 17: kernel H against its plain twin at the cunet cell's
+    largest maps and at its two C-3 conv_bottoms (with inf, -inf, -0.0 and
+    NaN), its times, and the cunet 1080p stream's launch counts."""
+    import gc
+
+    import numpy as np
+
+    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
+    from waifu2x_tensorrt_tpu_torch.ops import cunet_epilogue as ce
+    from waifu2x_tensorrt_tpu_torch.utils import profiling
+
+    gc.collect()  # the earlier phases' programs and pools
+    torch.cuda.empty_cache()
+    row = report["H"] = {"library_ms": None}
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for tag, shape, crop, act, clamp in EPILOGUE_CASES:
+            conv, bias, skip = _epilogue_inputs(torch, shape, crop, dtype,
+                                                seed=shape[1],
+                                                specials=not act)
+            kw = {"act": act, "skip": skip, "crop": crop or 0,
+                  "clamp": clamp}
+            want = ce.bias_act_plain(conv.clone(), bias, **kw)
+            got = ce.bias_act(conv.clone(), bias, **kw)
+            # NaNs compared by place (their payloads are the hardware's),
+            # every other value by its bytes
+            nan = torch.isnan(want)
+            g, w = got.float()[~nan], want.float()[~nan]
+            err = float(torch.where(g == w, 0.0, (g - w).abs()).max())
+            bits = torch.int16 if got.element_size() == 2 else torch.int32
+            same = (torch.equal(torch.isnan(got), nan)
+                    and torch.equal(got.view(bits)[~nan],
+                                    want.view(bits)[~nan]))
+            del got, want, g, w, nan
+            worst = max(worst, err)
+            work = conv.clone()
+            km = _median_ms(lambda: ce.bias_act(work, bias, **kw))
+            pm = _median_ms(lambda: ce.bias_act_plain(work, bias, **kw))
+            lm = _median_ms(lambda: ce.epilogue_ops(work, bias, **kw))
+            bms, by = _bound(_epilogue_work(shape, crop, conv.element_size()))
+            label = _epilogue_label(crop, act, clamp)
+            print(f"  phase 17 H {name} {shape} {label}: max |k - twin| "
+                  f"{err:.3e} (byte-equal: "
+                  f"{'ok' if same else 'FAIL'}); {km:.4f} ms (bound "
+                  f"{bms:.4f} ms by {by}, {100 * bms / km:.1f}% of it); "
+                  f"plain twin {pm:.4f} ms; the torch ops it replaces "
+                  f"{lm:.4f} ms", flush=True)
+            if not same:
+                raise AssertionError(f"phase 17: kernel H {name} {shape} "
+                                     f"{label} is not its twin")
+            key = "" if name == "bf16" and not tag else f"{name}_{tag}"
+            row.update({f"{key}ms": km, f"{key}plain_ms": pm,
+                        f"{key}bound_ms": bms,
+                        f"library_chain_{key}ms": lm})
+            if not key:
+                row["bound_by"] = by
+            del conv, bias, skip, work
+            torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+
+    root = _cunet_weights(2, 1, seed=11)
+    up = _upscaler("cunet/art", 2, 1, Precision.FP16, 256, 16,
+                   models_dir=root)
+    rng = np.random.default_rng(17)
+    frames = [rng.integers(0, 256, (1080, 1920, 3), np.uint8)
+              for _ in range(4)]
+    session = up.open_stream((1080, 1920))
+    session.warm()
+    counters = _zero_counters()
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        outs = [o for f in frames for o in session.submit(f)]
+        outs += session.flush()
+        torch.cuda.synchronize()
+    spans = [sp.counts for sp in profiling.records() if sp.name == "model"]
+    profiling.reset()
+    n = {k: w.launches for k, w in counters.items()}
+    good = (len(outs) == len(frames) and spans and all(
+        c.get("program") == "replay" and c.get("launches_H") == 22
+        for c in spans))
+    print(f"  phase 17 cunet/art 2x 1080p stream: {len(frames)} frames, "
+          f"{len(spans)} model spans, each a replay with launches_H 22: "
+          f"{'ok' if good else 'FAIL'}; launch counts {n}", flush=True)
+    if not good or n["H"] != 22 * len(spans):
+        raise AssertionError(f"phase 17: the cunet stream's model spans "
+                             f"{spans}")
+    return n
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     torch = _require_cuda()
@@ -2597,6 +2751,9 @@ def main() -> int:
     print("phase 16 kernel G (HAT window attention) and the HAT stream:",
           flush=True)
     n16 = phase_kernel_g(torch, smi, report)
+    print("phase 17 kernel H (cunet's conv epilogue) and the cunet stream:",
+          flush=True)
+    n17 = phase_kernel_h(torch, smi, report)
     # launch counts of the new paths, as extra keys on B's and C's rows
     report["C"].update(
         launches_cunet_t256_still=n11["a"],
@@ -2630,6 +2787,8 @@ def main() -> int:
              "the ideal shape (512, 1024, 512), int8 and bf16_*")
     g_run = ("phase 16: hat/photo 4x, bf16, tile 256, batch 16, 8 "
              "streamed 720 x 480 frames after the warm")
+    h_run = ("phase 17: cunet/art 2x noise 1, bf16, tile 256, batch 16, 4 "
+             "streamed 1080p frames after the warm")
     meta = {
         "A": ("window_attention_qkv", src + "window_attention.cu",
               "waifu2x_tensorrt_tpu/ops/window_attention.py:212",
@@ -2649,6 +2808,9 @@ def main() -> int:
               "probes/int8_pallas_probe.py:71", n10["F"], f_run),
         "G": ("hat_attention", src + "hat_attention.cu",
               "none (the JAX package has no HAT)", n16["G"], g_run),
+        "H": ("bias_act", src + "cunet_epilogue.cu",
+              "none (XLA fused cunet's conv epilogue on the TPU)", n17["H"],
+              h_run),
     }
     kernels = [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                 "replaces": meta[k][2], "launches": meta[k][3],
@@ -2661,7 +2823,7 @@ def main() -> int:
                                       "c192_", "gate_", "wrapper_",
                                       "queued_", "launches_", "self_",
                                       "plain_ms_", "registers", "ctas_"))}}
-               for k in ("A", "B", "C", "D", "E", "F", "G")]
+               for k in ("A", "B", "C", "D", "E", "F", "G", "H")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1078,7 +1078,8 @@ def test_fuse_frame_720p_against_the_chunked_render():
     before = {k: w.launches for k, w in counters.items()}
     second = fused.render(frame)
     made = {k: w.launches - before[k] for k, w in counters.items()}
-    assert made == {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0, "G": 0}
+    assert made == {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0, "G": 0,
+                    "H": 0}
     assert first.shape == (2880, 5120, 3)
     np.testing.assert_array_equal(first, second)
     assert np.abs(first.astype(int) - want.astype(int)).max() <= 1
@@ -1316,5 +1317,225 @@ def test_hat_chunk_captured_is_the_eager_chunk():
     first = prog(x)
     (graph,) = prog.graphs.values()
     assert graph.launches == {"launches_G": 3, "overlap_G": 1}
+    second = prog(x)
+    assert torch.equal(first, want) and torch.equal(second, want)
+
+
+def _bytes_equal(got, want):
+    """Byte equality, NaNs compared by place (their payloads are the
+    hardware's)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    g = got.view(bits[got.dtype])[~nan]
+    w = want.view(bits[want.dtype])[~nan]
+    assert torch.equal(g, w)
+
+
+def _epilogue_inputs(shape, crop, dtype, seed, specials=False):
+    """A bias-free conv output of ``shape``, its bias and a skip grown by
+    ``crop`` a side (None: no skip), on the card; with ``specials`` some
+    conv values are inf, -inf, -0.0 and NaN, and in channel 0 of the first
+    row the bias, conv value and skip value are -0.0, so that the sum is
+    -0.0 where a clamp would make it +0.0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, h, w, c = shape
+    conv = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    bias = (0.3 * torch.randn((c,), generator=g, device="cuda")).to(dtype)
+    skip = None
+    if crop is not None:
+        skip = torch.randn((n, h + 2 * crop, w + 2 * crop, c), generator=g,
+                           device="cuda").to(dtype)
+    if specials:
+        flat = conv.view(-1)
+        for i, v in enumerate((float("inf"), float("-inf"), -0.0,
+                               float("nan"))):
+            flat[i * 7::97] = v
+        bias[0] = -0.0
+        conv[:, 0, :, 0] = -0.0
+        if skip is not None:
+            skip[:, crop, crop:crop + w, 0] = -0.0
+    return conv, bias, skip
+
+
+@pytest.mark.parametrize("in_place", [True, False], ids=["in-place", "out"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape,crop,act,clamp", [
+    ((16, 476, 476, 64), None, True, False),
+    ((16, 444, 444, 64), 16, True, False),
+    ((16, 480, 480, 3), None, False, False),
+    ((16, 440, 440, 3), 20, False, True)],
+    ids=["act", "act-skip", "bias-bottom1", "skip20-clamp-bottom2"])
+def test_kernel_h_is_its_twin_at_the_cell_shapes(shape, crop, act, clamp,
+                                                   dtype, in_place):
+    """Kernel H at the cunet2x-1080p-stream cell's maps (16 tiles of
+    256): the largest, UNet2's conv1 and conv4_up, with the leaky ReLU and
+    the skip of crop 16 (the vector path), and the two C-3 conv_bottoms,
+    UNet1's with the bias alone and UNet2's with the skip of crop 20 and
+    the clamp (the scalar path; with inf, -inf, -0.0 and NaN among the
+    conv values): byte-equal to its plain twin on the card, over the conv
+    output itself and over a copy of it (which leaves the conv output as
+    it was)."""
+    from waifu2x_tensorrt_tpu_torch.ops import cunet_epilogue as ce
+
+    conv, bias, skip = _epilogue_inputs(shape, crop, dtype, seed=shape[1],
+                                        specials=not act)
+    kw = {"act": act, "skip": skip, "crop": crop or 0, "clamp": clamp}
+    want = ce.bias_act_plain(conv.clone(), bias, **kw)
+    before = ce.bias_act.launches
+    target = conv if in_place else conv.clone()
+    kept = conv.clone()
+    got = ce.bias_act(target, bias, **kw)
+    torch.cuda.synchronize()
+    assert ce.bias_act.launches == before + 1
+    assert got is target
+    if not in_place:  # by bytes: the conv output may hold NaNs
+        assert torch.equal(conv.view(torch.uint8), kept.view(torch.uint8))
+    _bytes_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("c", [3, 24, 32, 64, 128, 256])
+@pytest.mark.parametrize("act,crop,clamp", [
+    (True, None, False), (True, 4, False), (True, 16, False),
+    (False, None, False), (False, 20, True), (False, 20, False)],
+    ids=["act", "act-skip4", "act-skip16", "bias", "skip20-clamp",
+         "skip20"])
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "unaligned"])
+def test_kernel_h_matches_its_twin(dtype, c, act, crop, clamp, aligned):
+    """Kernel H byte-equal to its twin on the card in every mode cunet
+    uses, at every C cunet has (C 3: the scalar path; C 24 in bf16: three
+    vectors a pixel, which 256 threads do not divide, the scalar path),
+    odd map sizes (a ragged last step), with inf, -inf, -0.0 and NaN
+    among the conv values, and over a conv output that is not 16-byte
+    aligned (the scalar path at every C)."""
+    from waifu2x_tensorrt_tpu_torch.ops import cunet_epilogue as ce
+
+    conv, bias, skip = _epilogue_inputs((3, 37, 29, c), crop, dtype,
+                                        seed=c + (crop or 0),
+                                        specials=True)
+    kw = {"act": act, "skip": skip, "crop": crop or 0, "clamp": clamp}
+    want = ce.bias_act_plain(conv.clone(), bias, **kw)
+    if not aligned:
+        conv = torch.empty(conv.numel() + 1, dtype=dtype,
+                           device="cuda")[1:].view(conv.shape).copy_(conv)
+    got = ce.bias_act(conv, bias, **kw)
+    torch.cuda.synchronize()
+    _bytes_equal(got, want)
+
+
+def test_kernel_h_refuses_what_it_does_not_take():
+    from waifu2x_tensorrt_tpu_torch.ops import cunet_epilogue as ce
+
+    conv = torch.zeros((2, 8, 8, 32), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        ce.bias_act(conv, torch.zeros(32, device="cuda",
+                                      dtype=torch.float16))
+    conv = torch.zeros((2, 8, 16, 32), device="cuda")[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.bias_act(conv, torch.zeros(32, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        ce.bias_act(torch.zeros((2, 8, 8, 32), device="cuda"),
+                    torch.zeros(32))
+
+
+def _composed_cunet(m, x):
+    """``models/cunet.py``'s forward as it was before kernel H: each conv
+    with its bias (cuDNN, then PyTorch's bias add), then the leaky ReLU,
+    the crop-adds and the clamp as torch ops."""
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    dt = m.dtype
+    a = float(torch.tensor(0.1, dtype=dt))
+
+    def conv(x, layer, act=True):
+        w = layer.weight.to(dt).contiguous(memory_format=torch.channels_last)
+        f = (F.conv_transpose2d if isinstance(layer, nn.ConvTranspose2d)
+             else F.conv2d)
+        y = f(x.permute(0, 3, 1, 2), w, layer.bias.to(dt),
+              stride=layer.stride, padding=layer.padding).permute(0, 2, 3, 1)
+        return torch.maximum(y, y * a) if act else y
+
+    def crop(x, p):
+        return x[:, p:-p, p:-p, :]
+
+    def unet_conv(u, x):
+        x = conv(conv(x, u.conv[0]), u.conv[2])
+        return u.conv[4](x) if u.se else x
+
+    u1, u2 = m.unet1, m.unet2
+    x1 = unet_conv(u1.conv1, x.to(dt))
+    x2 = unet_conv(u1.conv2, conv(x1, u1.conv1_down))
+    x3 = conv(crop(x1, 4) + conv(x2, u1.conv2_up), u1.conv3)
+    z1 = conv(x3, u1.conv_bottom, act=False)
+    y1 = unet_conv(u2.conv1, z1)
+    y2 = unet_conv(u2.conv2, conv(y1, u2.conv1_down))
+    y3 = unet_conv(u2.conv3, conv(y2, u2.conv2_down))
+    y4 = unet_conv(u2.conv4, crop(y2, 4) + conv(y3, u2.conv3_up))
+    y5 = conv(crop(y1, 16) + conv(y4, u2.conv4_up), u2.conv5)
+    z = crop(z1, 20) + conv(y5, u2.conv_bottom, act=False)
+    return torch.clamp(z, 0.0, 1.0) if m.clamp else z
+
+
+@pytest.mark.parametrize("scale,dtype", [(2, torch.bfloat16),
+                                         (2, torch.float32),
+                                         (1, torch.bfloat16)],
+                         ids=["2x-bf16", "2x-fp32", "1x-bf16"])
+def test_cunet_forward_is_the_composed_forward(scale, dtype, monkeypatch):
+    """cunet/art on the card with kernel H after every conv (22 launches a
+    forward) gives the bytes of the forward it replaced (bias through
+    PyTorch, leaky ReLU, crop-adds and clamp as torch ops), with seeded
+    unit-scale weights on 4 tiles of 64. In fp32 with cuDNN's
+    deterministic algorithms: the one cuDNN picks by default for UNet1's
+    fp32 transposed-conv head sums in an order that changes from call to
+    call, so two fp32 forwards of either version differ in the last
+    bits."""
+    from waifu2x_tensorrt_tpu_torch.models import registry
+    from waifu2x_tensorrt_tpu_torch.ops import cunet_epilogue as ce
+
+    if dtype == torch.float32:
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    module, _ = registry.create_model("cunet/art", scale, 1, dtype=dtype,
+                                      device="cuda")
+    flat = {k: (v / (0.02 * np.sqrt(np.prod(v.shape[:-1])))
+                if k.endswith("/kernel") else 5 * v)
+            for k, v in registry.init_params(module, 1).items()}
+    registry.load_into(module, flat)
+    x = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(
+        scale)).cuda()
+    before = ce.bias_act.launches
+    with torch.inference_mode():
+        got = module(x)
+        want = _composed_cunet(module, x)
+    assert ce.bias_act.launches == before + 22
+    assert float(got.float().std()) > 0.01  # the output has content
+    _bytes_equal(got, want)
+
+
+def test_cunet_chunk_captured_launches_h():
+    """A cunet/art 2x chunk (bf16, 4 tiles of 64) through its captured
+    program: replays give the bytes of the eager call, and the capture
+    records kernel H's 22 launches, so each replay's span carries
+    ``launches_H`` 22."""
+    from waifu2x_tensorrt_tpu_torch.engine import exe_cache
+    from waifu2x_tensorrt_tpu_torch.models import registry
+
+    module, _ = registry.create_model("cunet/art", 2, 1,
+                                      dtype=torch.bfloat16, device="cuda")
+    registry.load_into(module, registry.init_params(module, seed=1))
+    exe_cache.configure("models", "cuda:0")
+    prog = exe_cache.cached_program(module, tag="model|cunet-test")
+    x = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(
+        6)).cuda().bfloat16()
+    with torch.inference_mode():
+        want = module(x)
+    first = prog(x)
+    (graph,) = prog.graphs.values()
+    assert graph.launches == {"launches_H": 22}
     second = prog(x)
     assert torch.equal(first, want) and torch.equal(second, want)

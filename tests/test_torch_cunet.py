@@ -31,6 +31,7 @@ from waifu2x_tensorrt_tpu_torch.engine.upscaler import Upscaler
 from waifu2x_tensorrt_tpu_torch.models import convert
 from waifu2x_tensorrt_tpu_torch.models import cunet as tcunet
 from waifu2x_tensorrt_tpu_torch.models import registry as treg
+from waifu2x_tensorrt_tpu_torch.ops import cunet_epilogue
 
 _TRANSFORM = {"conv": convert.inv_conv_weight,
               "deconv": convert.inv_conv_transpose_weight,
@@ -207,14 +208,16 @@ def test_conv_transpose_taps_are_flipped():
 
 
 def test_lrelu_slope_rounds_to_the_compute_dtype():
+    """The leaky ReLU of the port's cunet epilogue (kernel H's twin)."""
     x = torch.tensor([-1.0, -3.0, 2.0], dtype=torch.bfloat16)
     slope = torch.tensor(0.1, dtype=torch.bfloat16)
     want = jcunet._lrelu(jnp.asarray(x.float().numpy(), jnp.bfloat16))
-    got = tcunet._lrelu(x)
+    got = cunet_epilogue.leaky_relu(x)
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want, np.float32))
     assert got[0] == -slope  # -0.10009765625, not -0.1
-    assert tcunet._lrelu(torch.tensor([-1.0]))[0] == torch.tensor(-0.1)
+    assert cunet_epilogue.leaky_relu(torch.tensor([-1.0]))[0] == \
+        torch.tensor(-0.1)
 
 
 @pytest.mark.parametrize("scale,noise,tile,hw,precision", [

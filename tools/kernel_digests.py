@@ -15,7 +15,14 @@ digest of the output's bytes:
 - the flagship model (``chip_smoke._load``: swin_unet/art 4x, seeded
   weights) called eagerly on a seeded chunk of 4 tiles of 256, and
   rendering a seeded 720p frame through its captured chunk programs,
-  bf16 (the CLI's fp16) and fp32 (tf32).
+  bf16 (the CLI's fp16) and fp32 (tf32);
+- cunet/art 2x noise 1 (``chip_smoke._cunet_weights``: seeded unit-scale
+  weights; tile 256, batch 16) the same way: called eagerly on a seeded
+  chunk of 4 tiles of 256, and rendering a seeded 1080p frame through
+  its captured chunk programs, bf16 and fp32. fp32 runs with cuDNN's
+  deterministic algorithms: the one cuDNN picks by default for UNet1's
+  fp32 transposed-conv head sums in an order that changes from call to
+  call, so without them two fp32 runs of one version differ.
 
 bf16 (the default) runs the bf16 and integer paths; fp32 the fp32 ones
 (TF32 off). ``--root DIR`` imports ``waifu2x_tensorrt_tpu_torch`` from DIR
@@ -106,6 +113,21 @@ def main() -> int:
                  up._pipeline.model_prog.fn(tiles.to(dt)))
         show(f"render swin_unet/art 4x {name} 720p",
              torch.from_numpy(up.render(frame)))
+    root = cs._cunet_weights(2, 1, seed=18)
+    frame = np.random.default_rng(18).integers(0, 256, (1080, 1920, 3),
+                                               np.uint8)
+    for dt in dtypes:
+        name = "bf16" if dt == torch.bfloat16 else "fp32"
+        torch.backends.cudnn.deterministic = dt == torch.float32
+        up = cs._upscaler("cunet/art", 2, 1, Precision.FP16
+                          if dt == torch.bfloat16 else Precision.TF32, 256,
+                          16, models_dir=root)
+        with torch.inference_mode():
+            show(f"model cunet/art 2x {name} (4, 256, 256, 3)",
+                 up._pipeline.model_prog.fn(tiles.to(dt)))
+        show(f"render cunet/art 2x {name} 1080p",
+             torch.from_numpy(up.render(frame)))
+    torch.backends.cudnn.deterministic = False
     if torch.bfloat16 in dtypes:
         fin, plan, outs = cs._finalize_case(torch)
         show(f"C 720p -> 4x (T {plan.tile_count})", fin(*outs))

@@ -1,4 +1,4 @@
-"""Times of kernels A to G through their wrappers on one NVIDIA GPU, by
+"""Times of kernels A to H through their wrappers on one NVIDIA GPU, by
 ``chip_smoke.py``'s method, from this or another version of the package.
 
     python3 tools/kernel_times.py [--root DIR]
@@ -33,7 +33,14 @@ shapes, each beside its bound and its share of it:
   hat4x-480p-stream cell's (16, 256, 256, 540) qkv, 6 heads of 30, self
   with shift 8 and overlapping, beside its plain twin on the card and SDPA
   over the windows with the bias and region mask as one float mask
-  (``chip_smoke._hat_sdpa``, a yardstick the port never calls).
+  (``chip_smoke._hat_sdpa``, a yardstick the port never calls);
+- H (cunet's conv epilogue, where the version has it) in bf16 and fp32
+  on the cunet2x-1080p-stream cell's path (``chip_smoke.
+  EPILOGUE_CASES``: (16, 476, 476, 64) with the leaky ReLU, (16, 444,
+  444, 64) with it and the skip cropped by 16, and the C-3 conv_bottoms
+  (16, 480, 480, 3) with the bias alone and (16, 440, 440, 3) with the
+  skip cropped by 20 and the clamp), in place, beside its plain twin and
+  the torch ops it replaces (``epilogue_ops``).
 
 It goes through the wrappers only, so ``--root DIR`` can import
 ``waifu2x_tensorrt_tpu_torch`` from an unpacked other version (``git
@@ -188,6 +195,32 @@ def main() -> int:
         from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
     except ImportError:  # a version without kernel G
         return 0
+    _kernel_g(cs, torch, ha, show)
+    try:
+        from waifu2x_tensorrt_tpu_torch.ops import cunet_epilogue as ce
+    except ImportError:  # a version without kernel H
+        return 0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for _tag, shape, crop, act, clamp in cs.EPILOGUE_CASES:
+            conv, bias, skip = cs._epilogue_inputs(torch, shape, crop, dtype,
+                                                   seed=shape[1])
+            kw = {"act": act, "skip": skip, "crop": crop or 0,
+                  "clamp": clamp}
+            pm = cs._median_ms(lambda: ce.bias_act_plain(conv, bias, **kw))
+            show(f"kernel H {name} {shape} "
+                 f"{cs._epilogue_label(crop, act, clamp)}, plain twin "
+                 f"{pm:.4f} ms",
+                 lambda: ce.bias_act(conv, bias, **kw),
+                 (cs._epilogue_work(shape, crop, conv.element_size()),),
+                 lambda: ce.epilogue_ops(conv, bias, **kw), "torch ops")
+            del conv, bias, skip
+            torch.cuda.empty_cache()
+    return 0
+
+
+def _kernel_g(cs, torch, ha, show):
+    """G's rows: self attention with shift 8, and overlapping."""
     for shift, ov in ((8, 0), (0, 4)):
         qkv, table = cs._hat_inputs(torch, 16, 256, 256, 180, 6, ov,
                                     seed=ov + shift)
@@ -201,7 +234,6 @@ def main() -> int:
              lambda: ha.hat_attention(q16, table, **kw),
              cs._hat_work(16, 256, 256, 180, 6, ov),
              cs._hat_sdpa(torch, q16, table, 6, shift, ov))
-    return 0
 
 
 if __name__ == "__main__":

@@ -139,6 +139,7 @@ def module_tag(module) -> str:
 def launch_counters() -> dict:
     """The kernel wrappers, by kernel letter; each counts its launches in
     ``.launches``."""
+    from waifu2x_tensorrt_tpu_torch.ops.cunet_epilogue import bias_act
     from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
         finalize_gather,
     )
@@ -153,7 +154,8 @@ def launch_counters() -> dict:
 
     return {"A": fused_window_attention_qkv, "B": fused_swin_block,
             "C": finalize_gather, "D": pack_head_x16,
-            "E": fused_window_attention, "F": mma_probe, "G": hat_attention}
+            "E": fused_window_attention, "F": mma_probe, "G": hat_attention,
+            "H": bias_act}
 
 
 def graph_counters() -> dict:

@@ -8,12 +8,16 @@ is VALID, so a tile loses context at its borders:
   UpCUNet(scale 2): out = 2*in - 72 (offset 36 a side, output space)
 
 Layout: NHWC at the module boundary, as in the JAX package; convolutions
-run on ``channels_last`` views of the same memory (cuDNN on the card).
-Parameters are float32 as loaded and cast to the compute dtype per call.
-The numeric choices are the reference's: leaky ReLU as ``max(x, a*x)``
-with ``a = 0.1`` rounded to the compute dtype, the squeeze-and-excitation
-mean accumulated in fp32 and cast back, the skip crops of 4 and 16, the
-cascade crop of 20 and the [0, 1] clamp in the compute dtype.
+run on ``channels_last`` views of the same memory (cuDNN on the card),
+without their bias: each conv's epilogue is one call of kernel H
+(``ops/cunet_epilogue.bias_act``), in place over the conv output, which
+adds the bias and, where the network has them, applies the leaky ReLU,
+adds the cropped skip and clamps. Parameters are float32 as loaded and
+cast to the compute dtype per call. The numeric choices are the
+reference's: leaky ReLU as ``max(x, a*x)`` with ``a = 0.1`` rounded to
+the compute dtype, the squeeze-and-excitation mean accumulated in fp32
+and cast back, the skip crops of 4 and 16, the cascade crop of 20 and the
+[0, 1] clamp in the compute dtype.
 
 Parameter names are upstream's (the left column of
 ``models/convert.cunet_mapping``): a ``UNetConv`` is
@@ -28,29 +32,21 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from waifu2x_tensorrt_tpu_torch.models.swin_unet import _conv
-
-_NEG_SLOPE = 0.1
+from waifu2x_tensorrt_tpu_torch.ops.cunet_epilogue import NEG_SLOPE, bias_act
 
 
-def _lrelu(x):
-    """max(x, a*x) with ``a`` rounded to x's dtype, the reference's form
-    (in bf16 not bit-equal to ``F.leaky_relu``, whose slope stays fp32)."""
-    a = float(torch.tensor(_NEG_SLOPE, dtype=x.dtype))
-    return torch.maximum(x, x * a)
-
-
-def _crop(x, p: int):
-    """Center crop by p on each spatial side (NHWC)."""
-    return x[:, p:-p, p:-p, :]
-
-
-def _conv_t(x, layer: nn.ConvTranspose2d, dtype):
-    """NHWC transposed conv through a channels_last NCHW view."""
+def _conv(x, layer, dtype, *, act=True, skip=None, crop=0, clamp=False):
+    """NHWC conv, or transposed conv for an ``nn.ConvTranspose2d``, through
+    a channels_last NCHW view without its bias, then kernel H in place over
+    its output: the bias, with ``act`` the leaky ReLU, with ``skip`` the add
+    of ``skip`` cropped by ``crop`` a side, with ``clamp`` [0, 1]."""
     w = layer.weight.to(dtype).contiguous(memory_format=torch.channels_last)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, layer.bias.to(dtype),
-                           stride=layer.stride, padding=layer.padding)
-    return y.permute(0, 2, 3, 1)
+    conv = (F.conv_transpose2d if isinstance(layer, nn.ConvTranspose2d)
+            else F.conv2d)
+    y = conv(x.permute(0, 3, 1, 2), w, None, stride=layer.stride,
+             padding=layer.padding)
+    return bias_act(y.permute(0, 2, 3, 1), layer.bias.to(dtype), act=act,
+                    skip=skip, crop=crop, clamp=clamp)
 
 
 class SEBlock(nn.Module):
@@ -76,15 +72,16 @@ class SEBlock(nn.Module):
 class UNetConv(nn.Module):
     """conv3x3 (valid) -> lrelu -> conv3x3 (valid) -> lrelu -> optional SE.
     ``self.conv`` holds upstream's Sequential (positions 1 and 3 are its
-    activations; forward applies the reference's ``_lrelu`` instead)."""
+    activations; forward applies the reference's form in kernel H
+    instead)."""
 
     def __init__(self, cin: int, mid: int, out: int, se: bool, *,
                  device=None):
         super().__init__()
         layers = [nn.Conv2d(cin, mid, 3, device=device),
-                  nn.LeakyReLU(_NEG_SLOPE),
+                  nn.LeakyReLU(NEG_SLOPE),
                   nn.Conv2d(mid, out, 3, device=device),
-                  nn.LeakyReLU(_NEG_SLOPE)]
+                  nn.LeakyReLU(NEG_SLOPE)]
         if se:
             layers.append(SEBlock(out, device=device))
         self.conv = nn.Sequential(*layers)
@@ -92,8 +89,8 @@ class UNetConv(nn.Module):
 
     def forward(self, x):
         dt = x.dtype
-        x = _lrelu(_conv(x, self.conv[0], dt))
-        x = _lrelu(_conv(x, self.conv[2], dt))
+        x = _conv(x, self.conv[0], dt)
+        x = _conv(x, self.conv[2], dt)
         return self.conv[4](x) if self.se else x
 
 
@@ -122,13 +119,11 @@ class UNet1(nn.Module):
     def forward(self, x):
         dt = x.dtype
         x1 = self.conv1(x)
-        x2 = _lrelu(_conv(x1, self.conv1_down, dt))
+        x2 = _conv(x1, self.conv1_down, dt)
         x2 = self.conv2(x2)
-        x2 = _lrelu(_conv_t(x2, self.conv2_up, dt))
-        x3 = _lrelu(_conv(_crop(x1, 4) + x2, self.conv3, dt))
-        if self.deconv:
-            return _conv_t(x3, self.conv_bottom, dt)
-        return _conv(x3, self.conv_bottom, dt)
+        x2 = _conv(x2, self.conv2_up, dt, skip=x1, crop=4)
+        x3 = _conv(x2, self.conv3, dt)
+        return _conv(x3, self.conv_bottom, dt, act=False)
 
 
 class UNet2(nn.Module):
@@ -148,18 +143,22 @@ class UNet2(nn.Module):
         self.conv5 = nn.Conv2d(64, 64, 3, **kw)
         self.conv_bottom = nn.Conv2d(64, out_channels, 3, **kw)
 
-    def forward(self, x):
+    def forward(self, x, residual: bool = False, clamp: bool = False):
+        """UNet2(x); with ``residual`` the cascade's crop(x, 20) + UNet2(x),
+        with ``clamp`` clamped to [0, 1] (both in ``conv_bottom``'s
+        epilogue)."""
         dt = x.dtype
         x1 = self.conv1(x)
-        x2 = _lrelu(_conv(x1, self.conv1_down, dt))
+        x2 = _conv(x1, self.conv1_down, dt)
         x2 = self.conv2(x2)
-        x3 = _lrelu(_conv(x2, self.conv2_down, dt))
+        x3 = _conv(x2, self.conv2_down, dt)
         x3 = self.conv3(x3)
-        x3 = _lrelu(_conv_t(x3, self.conv3_up, dt))
-        x4 = self.conv4(_crop(x2, 4) + x3)
-        x4 = _lrelu(_conv_t(x4, self.conv4_up, dt))
-        x5 = _lrelu(_conv(_crop(x1, 16) + x4, self.conv5, dt))
-        return _conv(x5, self.conv_bottom, dt)
+        x3 = _conv(x3, self.conv3_up, dt, skip=x2, crop=4)
+        x4 = self.conv4(x3)
+        x4 = _conv(x4, self.conv4_up, dt, skip=x1, crop=16)
+        x5 = _conv(x4, self.conv5, dt)
+        return _conv(x5, self.conv_bottom, dt, act=False,
+                     skip=x if residual else None, crop=20, clamp=clamp)
 
 
 class CUNet(nn.Module):
@@ -180,12 +179,8 @@ class CUNet(nn.Module):
         self.unet2 = UNet2(out_channels, out_channels, device=device)
 
     def forward(self, x):
-        x = x.to(self.dtype)
-        z1 = self.unet1(x)
-        z = _crop(z1, 20) + self.unet2(z1)
-        if self.clamp:
-            z = torch.clamp(z, 0.0, 1.0)
-        return z
+        z1 = self.unet1(x.to(self.dtype))
+        return self.unet2(z1, residual=True, clamp=self.clamp)
 
 
 class UpCUNet(CUNet):

@@ -8,6 +8,8 @@
 - ``mma_probe``        — kernel F: the int8/bf16 tensor-core probe;
 - ``hat_attention``    — kernel G: HAT's window attention (self and
                          overlapping windows) on the qkv activation;
+- ``cunet_epilogue``   — kernel H: cunet's conv epilogue (bias, leaky
+                         ReLU, cropped skip add, clamp) in one pass;
 - ``kernel_math``      — the exact math and mask law they share (torch);
 - ``build``            — nvcc build of ``csrc/`` into one ctypes library.
 

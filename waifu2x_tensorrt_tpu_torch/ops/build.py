@@ -48,6 +48,7 @@ _SIGNATURES = {
     "w2x_mma_probe": [_P, _P, _P] + [_I] * 5 + [_P],
     "w2x_hat_attention": [_P] * 3 + [_I] * 7 + [ctypes.c_float, _P],
     "w2x_hat_attention_info": [_I, _IP, _IP],
+    "w2x_bias_act": [_P] * 3 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
 }
 
 _lib = None

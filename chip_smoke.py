@@ -694,9 +694,9 @@ def phase_kernel_c(torch, report):
 
 
 def _counters():
-    from waifu2x_tensorrt_tpu_torch.engine import exe_cache
+    from waifu2x_tensorrt_tpu_torch import ops
 
-    return exe_cache.launch_counters()
+    return ops.kernels()
 
 
 def _upscaler(family, scale, noise, precision, tile, batch, tta=False,
@@ -1010,7 +1010,7 @@ def phase_kernels_de(torch, report):
     """Phase 8: kernels D and E against their plain twins; returns the
     launch counts of E's one call through the ops package API."""
     from waifu2x_tensorrt_tpu_torch import ops
-    from waifu2x_tensorrt_tpu_torch.models.swin_unet import _pixel_shuffle
+    from waifu2x_tensorrt_tpu_torch.ops.kernel_math import pixel_shuffle
     from waifu2x_tensorrt_tpu_torch.ops import head_pack as hp
     from waifu2x_tensorrt_tpu_torch.ops import window_attention as wa
 
@@ -1022,7 +1022,7 @@ def phase_kernels_de(torch, report):
         for z in (z32.bfloat16(), z32):
             k = hp.pack_head_x16(z, r=r)
             p = hp.pack_head_plain(z, r)
-            pix = _pixel_shuffle(torch.clamp(z, 0.0, 1.0), r).contiguous()
+            pix = pixel_shuffle(torch.clamp(z, 0.0, 1.0), r).contiguous()
             torch.cuda.synchronize()
             same = torch.equal(k, p) and torch.equal(
                 k.reshape(-1).view(torch.uint8),

@@ -11,7 +11,11 @@ their cache in ``models/swin_unet.SwinBlock``, on the CPU.
 - a block builds its operands once per dtype and reuses them; after
   ``registry.load_into`` with other weights, a ``SwinBlock``, a
   ``SwinUNet`` and its packed-x twin give the output of freshly built
-  modules holding those weights (no stale cache).
+  modules holding those weights (no stale cache);
+- so does every model's operand cache (``models/layers.cached``):
+  swin_unet (fused and unfused blocks), cunet and HAT build it at the
+  first forward, keep it, rebuild it after ``registry.load_into``, and
+  the packed-x twin shares it.
 """
 
 import jax.numpy as jnp
@@ -125,7 +129,65 @@ def _reseeded(module, seed):
     return treg.init_params(module, seed=seed)
 
 
-def test_block_builds_operands_once_and_rebuilds_after_load():
+# name: ((family, scale, noise), create_model options, tile)
+CACHE_MODELS = {
+    "swin_unet": (("swin_unet/art", 2, 1), SMALL, 32),
+    "swin_unet-fused": (("swin_unet/art", 2, 1),
+                        dict(SMALL, fused_block=True), 32),
+    "cunet": (("cunet/art", 2, 1), {}, 48),
+    "hat": (("hat/photo", 4, -1),
+            dict(hat_arch={"embed_dim": 60, "depths": (2,),
+                           "num_heads": 2}), 32),
+}
+
+
+def _cache(module):
+    """What the operand cache holds for ``module`` and its submodules, by
+    (submodule name, dtype)."""
+    return {(name, dt): hit[1] for name, m in module.named_modules()
+            for dt, hit in vars(m).get("_operands", {}).items()}
+
+
+def _same(cache, other):
+    return cache.keys() == other.keys() and all(
+        cache[k] is v for k, v in other.items())
+
+
+def _model_builds_operands_once(model):
+    (family, scale, noise), options, tile = CACHE_MODELS[model]
+    module, spec = treg.create_model(family, scale, noise, **options)
+    treg.load_into(module, _reseeded(module, 1))
+    twin = (treg.packed_x_twin(module, spec)[0]
+            if family == "swin_unet/art" else None)
+    x = torch.rand(1, tile, tile, 3)
+    with torch.inference_mode():
+        module(x)
+        built = _cache(module)
+        module(x)
+        if twin is not None:
+            twin(x)
+            assert _same(_cache(twin), built)  # shared
+    assert built and _same(_cache(module), built)  # built once
+    second = _reseeded(module, 2)
+    treg.load_into(module, second)
+    fresh, _ = treg.create_model(family, scale, noise, **options)
+    treg.load_into(fresh, second)
+    with torch.inference_mode():
+        got, want = module(x), fresh(x)
+        rebuilt = _cache(module)
+        if twin is not None:
+            twin(x)
+            assert _same(_cache(twin), rebuilt)
+    assert rebuilt.keys() == built.keys()
+    assert not any(rebuilt[k] is v for k, v in built.items())  # rebuilt
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("model", ["swin_block", *CACHE_MODELS])
+def test_block_builds_operands_once_and_rebuilds_after_load(model):
+    if model != "swin_block":
+        _model_builds_operands_once(model)
+        return
     torch.manual_seed(0)
     block = SwinBlock(C, NH, shift=4, fused_block=True)
     fresh = SwinBlock(C, NH, shift=4, fused_block=True)

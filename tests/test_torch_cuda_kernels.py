@@ -444,7 +444,7 @@ def test_kernels_a_e_fp32_shapes(bw, c, nh):
     (4, 40, torch.float32), (2, 72, torch.bfloat16), (4, 256, torch.bfloat16),
 ])
 def test_kernel_d_equals_plain(r, w, dtype):
-    from waifu2x_tensorrt_tpu_torch.models.swin_unet import _pixel_shuffle
+    from waifu2x_tensorrt_tpu_torch.ops.kernel_math import pixel_shuffle
     from waifu2x_tensorrt_tpu_torch.ops import head_pack as hp
 
     rng = np.random.default_rng(r + w)
@@ -454,7 +454,7 @@ def test_kernel_d_equals_plain(r, w, dtype):
     got = hp.pack_head_x16(z, r=r)
     assert hp.pack_head_x16.launches == before + 1
     assert torch.equal(got, hp.pack_head_plain(z, r))
-    pix = _pixel_shuffle(torch.clamp(z, 0.0, 1.0), r).contiguous()
+    pix = pixel_shuffle(torch.clamp(z, 0.0, 1.0), r).contiguous()
     assert torch.equal(got.reshape(-1).view(torch.uint8),
                        pix.reshape(-1).view(torch.uint8))
     # an input that is not 16-byte aligned takes the one-value read path
@@ -1066,7 +1066,7 @@ def test_fuse_frame_720p_against_the_chunked_render():
     JAX package's bound between its two), in practice none. The second
     fused call replays the graph: the same bytes, and the capture's
     launches (B 20, C 1) counted once a replay."""
-    from waifu2x_tensorrt_tpu_torch.engine import exe_cache
+    from waifu2x_tensorrt_tpu_torch import ops
 
     fused = _flagship_pipeline(batch=16, fuse_frame=True)
     chunked = _flagship_pipeline(batch=16)
@@ -1074,7 +1074,7 @@ def test_fuse_frame_720p_against_the_chunked_render():
                                               np.uint8)
     want = chunked.render(frame)
     first = fused.render(frame)
-    counters = exe_cache.launch_counters()
+    counters = ops.kernels()
     before = {k: w.launches for k, w in counters.items()}
     second = fused.render(frame)
     made = {k: w.launches - before[k] for k, w in counters.items()}

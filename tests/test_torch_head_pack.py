@@ -17,7 +17,7 @@ import torch
 from waifu2x_tensorrt_tpu.ops.head_pack import (
     pack_head_x16 as jax_pack_head_x16,
 )
-from waifu2x_tensorrt_tpu_torch.models.swin_unet import _pixel_shuffle
+from waifu2x_tensorrt_tpu_torch.ops.kernel_math import pixel_shuffle
 from waifu2x_tensorrt_tpu_torch.ops.head_pack import (
     PACK_X,
     pack_head_plain,
@@ -54,7 +54,7 @@ def test_plain_matches_pallas_interpret(r, h, w, dtype):
     assert got.dtype == zt.dtype
     np.testing.assert_array_equal(_bits(got), _bits(want))
     # the packed bytes are the clamped pixel tensor's
-    pix = _pixel_shuffle(torch.clamp(zt, 0.0, 1.0), r)
+    pix = pixel_shuffle(torch.clamp(zt, 0.0, 1.0), r)
     assert np.array_equal(_bits(got).tobytes(), _bits(pix).tobytes())
 
 

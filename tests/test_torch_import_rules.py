@@ -9,7 +9,11 @@ imports it), so ``sys.modules`` cannot tell who imported it:
 - importing every module of the port builds nothing, neither the CUDA
   kernels nor the native framepipe;
 - the port builds and loads its own framepipe, never the JAX package's
-  ``native/build/``.
+  ``native/build/``;
+- the layers import downwards only: no module under ``ops/`` imports from
+  ``models/``, ``engine/`` or the CLI, no module under ``models/`` from
+  ``engine/`` or the CLI; the program store (``engine/exe_cache.py``)
+  imports no kernel wrapper and names none (it reads ``ops.kernels()``).
 """
 
 import ast
@@ -82,6 +86,44 @@ def test_optional_modules_only_inside_functions(path):
                      if isinstance(node, ast.Import) else [node.module or ""])
             assert not any(n.split(".")[0] in LAZY for n in names), \
                 f"{path.name} imports {names} at import time"
+
+
+# a package of the port: the packages and modules it may not import
+ABOVE = {"ops": ("models", "engine", "cli"), "models": ("engine", "cli")}
+
+
+def _full_imports(tree):
+    """Every module or name an import statement brings in, dotted."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield from (f"{node.module}.{alias.name}"
+                        for alias in node.names)
+
+
+@pytest.mark.parametrize(
+    "path", [p for d in ABOVE for p in sorted((PKG / d).rglob("*.py"))],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_layers_import_downwards(path):
+    above = [f"{PKG.name}.{a}" for a in ABOVE[path.relative_to(PKG).parts[0]]]
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [name for name in _full_imports(tree)
+           if any(name == a or name.startswith(a + ".") for a in above)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_program_store_names_no_kernel():
+    from waifu2x_tensorrt_tpu_torch import ops
+
+    tree = ast.parse((PKG / "engine" / "exe_cache.py").read_text())
+    assert not [name for name in _full_imports(tree)
+                if name.startswith(f"{PKG.name}.ops.")]
+    names = ({n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+             | {n.attr for n in ast.walk(tree)
+                if isinstance(n, ast.Attribute)})
+    wrappers = {w.__name__ for w in ops.kernels().values()}
+    assert len(wrappers) == 8 and not names & wrappers
 
 
 def test_framepipe_is_the_ports_own():

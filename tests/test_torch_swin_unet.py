@@ -72,12 +72,12 @@ def test_fused_blocks_run_on_the_activation(monkeypatch):
 
 
 def test_pixel_shuffle_is_torch_crd_order():
-    from waifu2x_tensorrt_tpu_torch.models.swin_unet import _pixel_shuffle
+    from waifu2x_tensorrt_tpu_torch.ops.kernel_math import pixel_shuffle
 
     x = torch.arange(2 * 3 * 5 * 12, dtype=torch.float32).reshape(2, 3, 5, 12)
     want = torch.nn.functional.pixel_shuffle(
         x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
-    assert torch.equal(_pixel_shuffle(x, 2), want)
+    assert torch.equal(pixel_shuffle(x, 2), want)
 
 
 def test_bf16_forward_runs_in_bf16():

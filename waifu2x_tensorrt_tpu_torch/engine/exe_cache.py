@@ -22,8 +22,9 @@ the port's ``.py`` sources and ``ops/csrc/``, ``torch.__version__`` and
 device count (the JAX fingerprint lacks the device count).
 
 Capture: the first call at a key runs ``fn`` once eagerly on a side
-stream, which fills kernel B's operand cache (``SwinBlock.operands``),
-cuDNN's algorithm choice and the kernel library, and returns that result.
+stream, which fills the models' operand cache (``models/layers.cached``:
+cast weights and kernel B's operands), cuDNN's algorithm choice and the
+kernel library, and returns that result.
 It then captures one graph of ``fn`` into static input and output
 buffers, in the memory pool the program was given (``GraphPool``: all
 programs of one pipeline share one). Replay: a later call copies its
@@ -31,12 +32,12 @@ inputs into the static buffers, replays the graph and returns a COPY of
 the static output, because callers keep outputs across calls
 (``TileStream`` keeps chunk outputs across submits, and kernel C reads
 them by address) and the next replay overwrites the static output. A
-captured program reads the module's parameters and kernel B's operands
-where they lay at capture: load weights before the first call.
+captured program reads the module's cached operands where they lay at
+capture: load weights before the first call.
 
 Launch counts: the kernel wrappers count their launches in Python, which a
 replay does not run. A capture records how many launches each counter of
-``graph_counters`` counted (each kernel's, and kernel B's on activations)
+``graph_counters`` counted (each kernel's, and its wrapper's extra ones)
 and takes them off the counters again (nothing ran); every replay adds
 them.
 
@@ -60,6 +61,7 @@ from typing import Optional
 
 import torch
 
+from waifu2x_tensorrt_tpu_torch import ops
 from waifu2x_tensorrt_tpu_torch.utils import profiling
 
 _PACKAGE = Path(__file__).resolve().parents[1]
@@ -136,39 +138,16 @@ def module_tag(module) -> str:
     return hashlib.sha256("\n".join(parts).encode()).hexdigest()[:16]
 
 
-def launch_counters() -> dict:
-    """The kernel wrappers, by kernel letter; each counts its launches in
-    ``.launches``."""
-    from waifu2x_tensorrt_tpu_torch.ops.cunet_epilogue import bias_act
-    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
-        finalize_gather,
-    )
-    from waifu2x_tensorrt_tpu_torch.ops.hat_attention import hat_attention
-    from waifu2x_tensorrt_tpu_torch.ops.head_pack import pack_head_x16
-    from waifu2x_tensorrt_tpu_torch.ops.mma_probe import mma_probe
-    from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
-    from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
-        fused_window_attention,
-        fused_window_attention_qkv,
-    )
-
-    return {"A": fused_window_attention_qkv, "B": fused_swin_block,
-            "C": finalize_gather, "D": pack_head_x16,
-            "E": fused_window_attention, "F": mma_probe, "G": hat_attention,
-            "H": bias_act}
-
-
 def graph_counters() -> dict:
     """Every launch counter a captured graph keeps, as (wrapper,
-    attribute), by its name in a span's counts: ``launches_<letter>``, each
-    kernel's ``.launches``, ``direct_B``, kernel B's launches on
-    (B, H, W, C) activations (``fused_swin_block.direct_launches``), and
-    ``overlap_G``, kernel G's of overlapping windows
-    (``hat_attention.overlap_launches``)."""
-    counters = {f"launches_{letter}": (wrapper, "launches")
-                for letter, wrapper in launch_counters().items()}
-    counters["direct_B"] = (counters["launches_B"][0], "direct_launches")
-    counters["overlap_G"] = (counters["launches_G"][0], "overlap_launches")
+    attribute), by its name in a span's counts: ``launches_<letter>`` for
+    each kernel of ``ops.kernels()`` and ``<name>_<letter>`` for each of
+    its wrapper's ``extra_counters``."""
+    counters = {}
+    for letter, wrapper in ops.kernels().items():
+        counters[f"launches_{letter}"] = (wrapper, "launches")
+        for name, attr in getattr(wrapper, "extra_counters", {}).items():
+            counters[f"{name}_{letter}"] = (wrapper, attr)
     return counters
 
 

@@ -7,17 +7,16 @@ is VALID, so a tile loses context at its borders:
   CUNet  (scale 1): out = in - 56   (offset 28 a side)
   UpCUNet(scale 2): out = 2*in - 72 (offset 36 a side, output space)
 
-Layout: NHWC at the module boundary, as in the JAX package; convolutions
-run on ``channels_last`` views of the same memory (cuDNN on the card),
-without their bias: each conv's epilogue is one call of kernel H
-(``ops/cunet_epilogue.bias_act``), in place over the conv output, which
-adds the bias and, where the network has them, applies the leaky ReLU,
-adds the cropped skip and clamps. Parameters are float32 as loaded and
-cast to the compute dtype per call. The numeric choices are the
-reference's: leaky ReLU as ``max(x, a*x)`` with ``a = 0.1`` rounded to
-the compute dtype, the squeeze-and-excitation mean accumulated in fp32
-and cast back, the skip crops of 4 and 16, the cascade crop of 20 and the
-[0, 1] clamp in the compute dtype.
+Layout: NHWC at the module boundary, as in the JAX package; layers run
+through ``models/layers.py`` (weights cast to the compute dtype once),
+convolutions (cuDNN on the card) without their bias: each conv's epilogue
+is one call of kernel H (``ops/cunet_epilogue.bias_act``), in place over
+the conv output, which adds the bias and, where the network has them,
+applies the leaky ReLU, adds the cropped skip and clamps. The numeric
+choices are the reference's: leaky ReLU as ``max(x, a*x)`` with
+``a = 0.1`` rounded to the compute dtype, the squeeze-and-excitation mean
+accumulated in fp32 and cast back, the skip crops of 4 and 16, the
+cascade crop of 20 and the [0, 1] clamp in the compute dtype.
 
 Parameter names are upstream's (the left column of
 ``models/convert.cunet_mapping``): a ``UNetConv`` is
@@ -30,23 +29,17 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from waifu2x_tensorrt_tpu_torch.models.layers import conv, linear, weights
 from waifu2x_tensorrt_tpu_torch.ops.cunet_epilogue import NEG_SLOPE, bias_act
 
 
-def _conv(x, layer, dtype, *, act=True, skip=None, crop=0, clamp=False):
-    """NHWC conv, or transposed conv for an ``nn.ConvTranspose2d``, through
-    a channels_last NCHW view without its bias, then kernel H in place over
-    its output: the bias, with ``act`` the leaky ReLU, with ``skip`` the add
+def _conv_h(x, layer, *, act=True, skip=None, crop=0, clamp=False):
+    """``layers.conv`` without its bias, then kernel H in place over its
+    output: the bias, with ``act`` the leaky ReLU, with ``skip`` the add
     of ``skip`` cropped by ``crop`` a side, with ``clamp`` [0, 1]."""
-    w = layer.weight.to(dtype).contiguous(memory_format=torch.channels_last)
-    conv = (F.conv_transpose2d if isinstance(layer, nn.ConvTranspose2d)
-            else F.conv2d)
-    y = conv(x.permute(0, 3, 1, 2), w, None, stride=layer.stride,
-             padding=layer.padding)
-    return bias_act(y.permute(0, 2, 3, 1), layer.bias.to(dtype), act=act,
-                    skip=skip, crop=crop, clamp=clamp)
+    return bias_act(conv(x, layer, bias=False), weights(layer, x.dtype)[1],
+                    act=act, skip=skip, crop=crop, clamp=clamp)
 
 
 class SEBlock(nn.Module):
@@ -60,12 +53,9 @@ class SEBlock(nn.Module):
                                device=device)
 
     def forward(self, x):
-        dt = x.dtype
-        z = x.mean(dim=(1, 2), dtype=torch.float32).to(dt)
-        for i, layer in enumerate((self.conv1, self.conv2)):
-            w = layer.weight.to(dt).reshape(layer.weight.shape[:2])
-            z = F.linear(z, w, layer.bias.to(dt))
-            z = torch.relu(z) if i == 0 else torch.sigmoid(z)
+        z = x.mean(dim=(1, 2), dtype=torch.float32).to(x.dtype)
+        z = torch.sigmoid(linear(torch.relu(linear(z, self.conv1)),
+                                 self.conv2))
         return x * z[:, None, None, :]
 
 
@@ -88,9 +78,8 @@ class UNetConv(nn.Module):
         self.se = se
 
     def forward(self, x):
-        dt = x.dtype
-        x = _conv(x, self.conv[0], dt)
-        x = _conv(x, self.conv[2], dt)
+        x = _conv_h(x, self.conv[0])
+        x = _conv_h(x, self.conv[2])
         return self.conv[4](x) if self.se else x
 
 
@@ -117,13 +106,12 @@ class UNet1(nn.Module):
             self.conv_bottom = nn.Conv2d(64, out_channels, 3, **kw)
 
     def forward(self, x):
-        dt = x.dtype
         x1 = self.conv1(x)
-        x2 = _conv(x1, self.conv1_down, dt)
+        x2 = _conv_h(x1, self.conv1_down)
         x2 = self.conv2(x2)
-        x2 = _conv(x2, self.conv2_up, dt, skip=x1, crop=4)
-        x3 = _conv(x2, self.conv3, dt)
-        return _conv(x3, self.conv_bottom, dt, act=False)
+        x2 = _conv_h(x2, self.conv2_up, skip=x1, crop=4)
+        x3 = _conv_h(x2, self.conv3)
+        return _conv_h(x3, self.conv_bottom, act=False)
 
 
 class UNet2(nn.Module):
@@ -147,18 +135,17 @@ class UNet2(nn.Module):
         """UNet2(x); with ``residual`` the cascade's crop(x, 20) + UNet2(x),
         with ``clamp`` clamped to [0, 1] (both in ``conv_bottom``'s
         epilogue)."""
-        dt = x.dtype
         x1 = self.conv1(x)
-        x2 = _conv(x1, self.conv1_down, dt)
+        x2 = _conv_h(x1, self.conv1_down)
         x2 = self.conv2(x2)
-        x3 = _conv(x2, self.conv2_down, dt)
+        x3 = _conv_h(x2, self.conv2_down)
         x3 = self.conv3(x3)
-        x3 = _conv(x3, self.conv3_up, dt, skip=x2, crop=4)
+        x3 = _conv_h(x3, self.conv3_up, skip=x2, crop=4)
         x4 = self.conv4(x3)
-        x4 = _conv(x4, self.conv4_up, dt, skip=x1, crop=16)
-        x5 = _conv(x4, self.conv5, dt)
-        return _conv(x5, self.conv_bottom, dt, act=False,
-                     skip=x if residual else None, crop=20, clamp=clamp)
+        x4 = _conv_h(x4, self.conv4_up, skip=x1, crop=16)
+        x5 = _conv_h(x4, self.conv5)
+        return _conv_h(x5, self.conv_bottom, act=False,
+                       skip=x if residual else None, crop=20, clamp=clamp)
 
 
 class CUNet(nn.Module):

@@ -37,11 +37,10 @@ alone). Module and parameter names are those of HAT's own state dict (so
 a HAT checkpoint converts by name, ``models/convert.hat_mapping``); the
 channel-attention 1x1 convolutions are ``nn.Linear`` here.
 
-Parameters are float32 as loaded. Each forward takes the GEMM and conv
-weights, LayerNorm parameters and biases cast to its compute dtype from
-``HAT.operands(dtype)``, built once a dtype and kept until a parameter
-changes or moves; relative-position tables stay fp32. Kernel G is bf16
-only: in float32 (the CPU tests) the attention is its plain twin.
+Layers run through ``models/layers.py``: GEMM and conv weights, biases
+and LayerNorm parameters in the compute dtype, cast once; the
+relative-position tables stay fp32. Kernel G is bf16 only: in float32
+(the CPU tests) the attention is its plain twin.
 """
 
 from __future__ import annotations
@@ -50,6 +49,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from waifu2x_tensorrt_tpu_torch.models.layers import (
+    conv,
+    layer_norm,
+    linear,
+    pixel_shuffle,
+)
 from waifu2x_tensorrt_tpu_torch.ops.hat_attention import (
     WINDOW,
     hat_attention,
@@ -72,6 +77,9 @@ class _Mlp(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden, device=device)
         self.fc2 = nn.Linear(hidden, dim, device=device)
+
+    def forward(self, x):
+        return linear(F.gelu(linear(x, self.fc1)), self.fc2)
 
 
 class _Attention(nn.Module):
@@ -118,23 +126,21 @@ class HAB(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.mlp = _Mlp(dim, dim * MLP_RATIO, device=device)
 
-    def forward(self, x, ops: dict, name: str):
-        n = _norm(x, ops, f"{name}.norm1")
-        cab = f"{name}.conv_block.cab"
-        z = _conv(F.gelu(_conv(n, ops, f"{cab}.0")), ops, f"{cab}.2")
-        ca = f"{cab}.3.attention"
+    def forward(self, x):
+        n = layer_norm(x, self.norm1)
+        cab = self.conv_block.cab
+        z = conv(F.gelu(conv(n, cab[0])), cab[2])
+        ca = cab[3].attention
         w = z.mean(dim=(1, 2))
-        w = torch.sigmoid(_linear(F.relu(_linear(w, ops, f"{ca}.1")), ops,
-                                  f"{ca}.3"))
+        w = torch.sigmoid(linear(F.relu(linear(w, ca[1])), ca[3]))
         a = hat_attention(
-            _linear(n, ops, f"{name}.attn.qkv"),
-            self.attn.relative_position_bias_table,
+            linear(n, self.attn.qkv), self.attn.relative_position_bias_table,
             num_heads=self.num_heads, shift=self.shift)
         # x + a + CONV_SCALE CA(z) in one pass over the map: the scale
         # rides on the per-image channel weights
-        x = torch.addcmul(x + _linear(a, ops, f"{name}.attn.proj"), z,
+        x = torch.addcmul(x + linear(a, self.attn.proj), z,
                           (w * CONV_SCALE)[:, None, None, :])
-        return x + _mlp(_norm(x, ops, f"{name}.norm2"), ops, f"{name}.mlp")
+        return x + self.mlp(layer_norm(x, self.norm2))
 
 
 class OCAB(nn.Module):
@@ -152,13 +158,13 @@ class OCAB(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.mlp = _Mlp(dim, dim * MLP_RATIO, device=device)
 
-    def forward(self, x, ops: dict, name: str):
+    def forward(self, x):
         a = hat_attention(
-            _linear(_norm(x, ops, f"{name}.norm1"), ops, f"{name}.qkv"),
+            linear(layer_norm(x, self.norm1), self.qkv),
             self.relative_position_bias_table, num_heads=self.num_heads,
             overlap=OVERLAP)
-        x = x + _linear(a, ops, f"{name}.proj")
-        return x + _mlp(_norm(x, ops, f"{name}.norm2"), ops, f"{name}.mlp")
+        x = x + linear(a, self.proj)
+        return x + self.mlp(layer_norm(x, self.norm2))
 
 
 class _Group(nn.Module):
@@ -180,13 +186,12 @@ class RHAG(nn.Module):
             OCAB(dim, num_heads, device=device))
         self.conv = nn.Conv2d(dim, dim, 3, padding=1, device=device)
 
-    def forward(self, x, ops: dict, name: str):
-        g = f"{name}.residual_group"
+    def forward(self, x):
         t = x
-        for j, blk in enumerate(self.residual_group.blocks):
-            t = blk(t, ops, f"{g}.blocks.{j}")
-        t = self.residual_group.overlap_attn(t, ops, f"{g}.overlap_attn")
-        return _conv(t, ops, f"{name}.conv") + x
+        for blk in self.residual_group.blocks:
+            t = blk(t)
+        t = self.residual_group.overlap_attn(t)
+        return conv(t, self.conv) + x
 
 
 class _PatchEmbed(nn.Module):
@@ -229,31 +234,6 @@ class HAT(nn.Module):
         self.conv_last = nn.Conv2d(nf, 3, 3, padding=1, **kw)
         self.register_buffer("mean", torch.tensor(MEAN, device=device),
                              persistent=False)
-        self._operands = {}  # dtype -> (stamp, {name: tensor})
-
-    def operands(self, dtype: torch.dtype) -> dict:
-        """Every weight and bias, and the LayerNorm parameters, in
-        ``dtype`` (conv weights channels_last), by parameter name; the
-        relative-position tables are not among them. Built at the first
-        call and kept until a parameter changes or moves: the cache is
-        stamped with the device and each parameter's storage and version
-        counter, which ``load_state_dict`` bumps as it copies in place."""
-        params = dict(self.named_parameters())
-        stamp = (self.mean.device,
-                 tuple((p.data_ptr(), p._version) for p in params.values()))
-        hit = self._operands.get(dtype)
-        if hit is not None and hit[0] == stamp:
-            return hit[1]
-        ops = {}
-        with torch.inference_mode(False), torch.no_grad():
-            for name, p in params.items():
-                if name.endswith("relative_position_bias_table"):
-                    continue
-                t = p.to(dtype)
-                ops[name] = (t.contiguous(memory_format=torch.channels_last)
-                             if t.dim() == 4 else t.contiguous())
-        self._operands[dtype] = (stamp, ops)
-        return ops
 
     def forward(self, x):
         dt = self.dtype
@@ -261,46 +241,15 @@ class HAT(nn.Module):
         if h % WINDOW or w % WINDOW:
             raise ValueError(f"tile {h}x{w}: HAT takes multiples of the "
                              f"window {WINDOW}")
-        ops = self.operands(dt)
         x = (x.float() - self.mean).to(dt)
-        f0 = _conv(x, ops, "conv_first")
-        t = _norm(f0, ops, "patch_embed.norm")
-        for i, layer in enumerate(self.layers):
-            t = layer(t, ops, f"layers.{i}")
-        f = _conv(_norm(t, ops, "norm"), ops, "conv_after_body") + f0
-        u = F.leaky_relu(_conv(f, ops, "conv_before_upsample.0"), 0.01)
+        f0 = conv(x, self.conv_first)
+        t = layer_norm(f0, self.patch_embed.norm)
+        for layer in self.layers:
+            t = layer(t)
+        f = conv(layer_norm(t, self.norm), self.conv_after_body) + f0
+        u = F.leaky_relu(conv(f, self.conv_before_upsample[0]), 0.01)
         for i in range(0, len(self.upsample), 2):
-            u = _pixel_shuffle(_conv(u, ops, f"upsample.{i}"), 2)
-        y = _conv(u, ops, "conv_last")
+            u = pixel_shuffle(conv(u, self.upsample[i]), 2)
+        y = conv(u, self.conv_last)
         # contiguous: kernel C reads tiles by address
         return (y.float() + self.mean).to(dt).contiguous()
-
-
-def _conv(x, ops: dict, name: str):
-    """3x3 'same' NHWC conv through a channels_last NCHW view."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), ops[f"{name}.weight"],
-                 ops[f"{name}.bias"], padding=1)
-    return y.permute(0, 2, 3, 1)
-
-
-def _linear(x, ops: dict, name: str):
-    return F.linear(x, ops[f"{name}.weight"], ops[f"{name}.bias"])
-
-
-def _norm(x, ops: dict, name: str):
-    return F.layer_norm(x, (x.shape[-1],), ops[f"{name}.weight"],
-                        ops[f"{name}.bias"], 1e-5)
-
-
-def _mlp(x, ops: dict, name: str):
-    return _linear(F.gelu(_linear(x, ops, f"{name}.fc1")), ops,
-                   f"{name}.fc2")
-
-
-def _pixel_shuffle(x, r: int):
-    """Depth-to-space (B, H, W, C r r) -> (B, H r, W r, C), channel order
-    (C, r, r) as torch.nn.PixelShuffle."""
-    b, h, w, crr = x.shape
-    c = crr // (r * r)
-    x = x.reshape(b, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
-    return x.reshape(b, h * r, w * r, c)

@@ -571,7 +571,7 @@ def _converter_fingerprint() -> str:
     h = hashlib.sha256()
     base = Path(__file__).resolve().parent
     for f in ("onnx_backend.py", "onnx_graph.py", "onnx_build.py",
-              "convert.py", "swin_unet.py", "cunet.py"):
+              "convert.py", "swin_unet.py", "cunet.py", "layers.py"):
         h.update((base / f).read_bytes())
     return h.hexdigest()[:12]
 

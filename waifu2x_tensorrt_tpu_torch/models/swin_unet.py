@@ -8,12 +8,10 @@ Output size is exactly ``input * scale``: the model edge-pads to a
 multiple of 32 and crops after decoding.
 
 Layout: NHWC at every public boundary, as in the JAX package — tile
-batches (B, H, W, 3), window tokens (BW, 64, C). Convolutions run on
-``channels_last`` views of the same memory. Parameters are float32 (as
-loaded); GEMM and conv weights are cast to the compute dtype per call,
-LayerNorm parameters, biases of the kernels and the bias tables stay fp32.
-Kernel B's operands are the exception: each ``SwinBlock`` builds them
-once per dtype and keeps them until a parameter changes or moves.
+batches (B, H, W, 3), window tokens (BW, 64, C). Layers run through
+``models/layers.py`` (GEMM and conv weights in the compute dtype, cast
+once); LayerNorms, the biases of kernel B and the bias tables are fp32.
+Each ``SwinBlock`` keeps kernel B's operands in the same cache.
 
 ``fused_block=True`` runs each Swin block through kernel B
 (``ops/swin_block.py``) on the activation itself; otherwise the block is
@@ -39,6 +37,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from waifu2x_tensorrt_tpu_torch.models.layers import (
+    cached,
+    conv,
+    layer_norm,
+    linear,
+    pixel_shuffle,
+)
 from waifu2x_tensorrt_tpu_torch.ops.head_pack import PACK_X, pack_head_x16
 from waifu2x_tensorrt_tpu_torch.ops.swin_block import (
     BlockOperands,
@@ -65,27 +70,6 @@ def _relative_position_index(ws: int) -> np.ndarray:
     rel = coords[:, :, None] - coords[:, None, :]
     rel = rel.transpose(1, 2, 0) + (ws - 1)
     return (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).astype(np.int64)
-
-
-def _pixel_shuffle(x, r: int):
-    """Depth-to-space (B, H, W, C*r*r) -> (B, H*r, W*r, C), channel order
-    (C, r, r) as torch.nn.PixelShuffle (CRD)."""
-    b, h, w, crr = x.shape
-    c = crr // (r * r)
-    x = x.reshape(b, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
-    return x.reshape(b, h * r, w * r, c)
-
-
-def _linear(x, layer: nn.Linear, dtype):
-    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
-
-
-def _conv(x, layer: nn.Conv2d, dtype):
-    """NHWC conv through a channels_last NCHW view (no copy either way)."""
-    w = layer.weight.to(dtype).contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, layer.bias.to(dtype),
-                 stride=layer.stride, padding=layer.padding)
-    return y.permute(0, 2, 3, 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,7 +109,7 @@ class WindowAttention(nn.Module):
             x = torch.roll(x, (-self.shift, -self.shift), dims=(1, 2))
         xw = window_split(x, ws)
         nw, n = xw.shape[1], xw.shape[2]
-        qkv = _linear(xw, self.qkv, x.dtype)
+        qkv = linear(xw, self.qkv)
         out = fused_window_attention_qkv(
             qkv.reshape(b * nw, n, 3 * c).contiguous(),
             _bias_from_table(self.relative_position_bias_table,
@@ -133,7 +117,7 @@ class WindowAttention(nn.Module):
             flags_tensor(b, h // ws, w // ws, x.device),
             num_heads=self.num_heads, shift=self.shift, ws=ws,
         ).reshape(b, nw, n, c)
-        out = window_merge(_linear(out, self.proj, x.dtype), h, w, ws)
+        out = window_merge(linear(out, self.proj), h, w, ws)
         if self.shift:
             out = torch.roll(out, (self.shift, self.shift), dims=(1, 2))
         return out
@@ -162,7 +146,6 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.mlp_fc1 = nn.Linear(dim, dim * mlp_ratio, device=device)
         self.mlp_fc2 = nn.Linear(dim * mlp_ratio, dim, device=device)
-        self._operands = {}  # dtype -> (stamp, BlockOperands)
 
     def kernel_params(self) -> dict:
         """The block's parameters in the JAX layout (GEMM kernels as
@@ -182,36 +165,21 @@ class SwinBlock(nn.Module):
 
     def operands(self, dtype: torch.dtype) -> BlockOperands:
         """Kernel B's operands for ``dtype`` on the parameters' device,
-        built at the first call and kept until a parameter changes or
-        moves: the cache is stamped with the device and each parameter's
-        storage and version counter, which ``load_state_dict``
-        (``registry.load_into``) bumps as it copies in place. The packed-x
-        twin holds this same block, so it shares the cache."""
-        params = tuple(self.parameters())
-        stamp = (params[0].device,
-                 tuple((p.data_ptr(), p._version) for p in params))
-        hit = self._operands.get(dtype)
-        if hit is not None and hit[0] == stamp:
-            return hit[1]
-        with torch.inference_mode(False), torch.no_grad():
-            ops = block_operands(
-                self.kernel_params(),
-                _bias_from_table(self.attn.relative_position_bias_table,
-                                 self.num_heads), dtype)
-        self._operands[dtype] = (stamp, ops)
-        return ops
+        kept until a parameter changes or moves (``layers.cached``)."""
+        return cached(self, dtype, lambda: block_operands(
+            self.kernel_params(),
+            _bias_from_table(self.attn.relative_position_bias_table,
+                             self.num_heads), dtype))
 
     def forward(self, x):
         if self.fused_block:
             return self._fused(x)
         dt = x.dtype
-        y = F.layer_norm(x.float(), (self.dim,), self.norm1.weight,
-                         self.norm1.bias, 1e-5).to(dt)
+        y = layer_norm(x.float(), self.norm1).to(dt)
         x = x + self.attn(y)
-        y = F.layer_norm(x.float(), (self.dim,), self.norm2.weight,
-                         self.norm2.bias, 1e-5).to(dt)
-        y = F.gelu(_linear(y, self.mlp_fc1, dt))
-        return x + _linear(y, self.mlp_fc2, dt)
+        y = layer_norm(x.float(), self.norm2).to(dt)
+        y = F.gelu(linear(y, self.mlp_fc1))
+        return x + linear(y, self.mlp_fc2)
 
     def _fused(self, x):
         return swin_block_bhwc(x, self.operands(x.dtype), shift=self.shift,
@@ -285,8 +253,7 @@ class SwinUNet(nn.Module):
         return twin
 
     def forward(self, x):
-        dt = self.dtype
-        x = x.to(dt)
+        x = x.to(self.dtype)
         b, h, w, _ = x.shape
         # internal edge pad to a multiple of 32 (two stride-2 stages x
         # window 8), cropped after decoding
@@ -303,17 +270,17 @@ class SwinUNet(nn.Module):
             cols = torch.arange(w + pw, device=x.device).clamp_(max=w - 1)
             x = x[:, rows][:, :, cols]
 
-        s = F.leaky_relu(_conv(x, self.patch_conv1, dt), _NEG_SLOPE)
-        s = F.leaky_relu(_conv(s, self.patch_conv2, dt), _NEG_SLOPE)
-        e1 = self.swin1(_conv(s, self.down1, dt))
-        e2 = self.swin2(_conv(e1, self.down2, dt))
+        s = F.leaky_relu(conv(x, self.patch_conv1), _NEG_SLOPE)
+        s = F.leaky_relu(conv(s, self.patch_conv2), _NEG_SLOPE)
+        e1 = self.swin1(conv(s, self.down1))
+        e2 = self.swin2(conv(e1, self.down2))
 
-        d2 = _pixel_shuffle(_linear(e2, self.up2, dt), 2) + e1
+        d2 = pixel_shuffle(linear(e2, self.up2), 2) + e1
         d2 = self.swin3(d2)
-        d1 = _pixel_shuffle(_linear(d2, self.up1, dt), 2) + s
+        d1 = pixel_shuffle(linear(d2, self.up1), 2) + s
 
         # clamp before the depth-to-space (it commutes with the shuffle)
-        z = _conv(d1, self.to_image, dt)
+        z = conv(d1, self.to_image)
         if self.packed_x_head:  # kernel D: clamp + shuffle + pack-x16
             z = pack_head_x16(z.contiguous(), r=r)
             return (z[:, :h * r, :(w * r) // PACK_X].contiguous() if ph or pw
@@ -321,7 +288,7 @@ class SwinUNet(nn.Module):
         if self.clamp:
             z = torch.clamp(z, 0.0, 1.0)
         if self.scale > 1:
-            z = _pixel_shuffle(z, self.scale)
+            z = pixel_shuffle(z, self.scale)
         if ph or pw:
             # contiguous: finalize (kernel C) reads tiles by address
             z = z[:, :h * self.scale, :w * self.scale].contiguous()

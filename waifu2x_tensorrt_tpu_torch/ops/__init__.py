@@ -15,8 +15,9 @@
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain PyTorch twin for CPU tensors; each counts its launches in a
-``launches`` attribute. The package exports kernel E and its plain twin
-under the JAX package's names, and kernel F with its plain twin.
+``launches`` attribute, and ``kernels()`` lists the wrappers by letter.
+The package exports kernel E and its plain twin under the JAX package's
+names, and kernel F with its plain twin.
 """
 
 from waifu2x_tensorrt_tpu_torch.ops.mma_probe import (  # noqa: F401
@@ -29,3 +30,26 @@ from waifu2x_tensorrt_tpu_torch.ops.window_attention import (  # noqa: F401
 from waifu2x_tensorrt_tpu_torch.ops.window_attention import (  # noqa: F401
     window_attention_plain as window_attention_reference,
 )
+
+
+def kernels() -> dict:
+    """The kernel wrappers by letter, A-H. Each counts its launches in
+    ``.launches``; a wrapper with ``extra_counters`` ({name: attribute})
+    counts some of them once more in each such attribute."""
+    # imported here: a name bound in this package would hide the
+    # submodule of the same name (``ops.hat_attention``)
+    from waifu2x_tensorrt_tpu_torch.ops.cunet_epilogue import bias_act
+    from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
+        finalize_gather,
+    )
+    from waifu2x_tensorrt_tpu_torch.ops.hat_attention import hat_attention
+    from waifu2x_tensorrt_tpu_torch.ops.head_pack import pack_head_x16
+    from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
+    from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
+        fused_window_attention_qkv,
+    )
+
+    return {"A": fused_window_attention_qkv, "B": fused_swin_block,
+            "C": finalize_gather, "D": pack_head_x16,
+            "E": fused_window_attention, "F": mma_probe, "G": hat_attention,
+            "H": bias_act}

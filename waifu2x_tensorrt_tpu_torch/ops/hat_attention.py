@@ -251,3 +251,4 @@ def hat_attention(qkv, table, *, num_heads: int, window: int = WINDOW,
 
 hat_attention.launches = 0
 hat_attention.overlap_launches = 0
+hat_attention.extra_counters = {"overlap": "overlap_launches"}

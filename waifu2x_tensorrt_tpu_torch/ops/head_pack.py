@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from waifu2x_tensorrt_tpu_torch.ops import build
+from waifu2x_tensorrt_tpu_torch.ops.kernel_math import pixel_shuffle
 
 PACK_X = 16
 
@@ -26,10 +27,7 @@ PACK_X = 16
 def pack_head_plain(z, r: int):
     """Plain twin: clamp, pixel shuffle (torch CRD order), then the free
     reshape to (B, rH, rW/16, 48)."""
-    # imported here: models.swin_unet imports this module
-    from waifu2x_tensorrt_tpu_torch.models.swin_unet import _pixel_shuffle
-
-    y = _pixel_shuffle(torch.clamp(z, 0.0, 1.0), r)  # (B, rH, rW, 3)
+    y = pixel_shuffle(torch.clamp(z, 0.0, 1.0), r)  # (B, rH, rW, 3)
     b, oh, ow, c = y.shape
     return y.reshape(b, oh, ow // PACK_X, PACK_X * c)
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch forms of the math inside kernels A and B.
+"""Plain PyTorch forms of the math inside kernels A, B and D.
 
 The port's counterpart of ``waifu2x_tensorrt_tpu.ops.kernel_math``. The
 JAX package's bf16 fast forms (polynomial erf, clamped no-max softmax,
@@ -11,6 +11,9 @@ every dtype —
   AFTER exp, so masked entries get weight exactly 0;
 - two-pass fp32 LayerNorm (mean, then the mean of squared deviations),
   eps 1e-5.
+
+``pixel_shuffle`` is the depth-to-space of kernel D's plain twin and of
+the models' heads.
 
 The shift-mask law (``shift_crossing`` / ``keep_from_flags``) is bit-exact
 with the JAX package's; ``ops/csrc/common.cuh`` holds the same law for the
@@ -88,3 +91,12 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = (xc * xc).mean(dim=-1, keepdim=True)
     y = xc * torch.rsqrt(var + eps)
     return y * scale.float() + bias.float()
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Depth-to-space (B, H, W, C r r) -> (B, H r, W r, C), channel order
+    (C, r, r) as torch.nn.PixelShuffle (CRD)."""
+    b, h, w, crr = x.shape
+    c = crr // (r * r)
+    x = x.reshape(b, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(b, h * r, w * r, c)

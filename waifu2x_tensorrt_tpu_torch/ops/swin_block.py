@@ -316,6 +316,7 @@ def fused_swin_block(x, params, bias, flags, *, num_heads: int,
 
 fused_swin_block.launches = 0
 fused_swin_block.direct_launches = 0  # those of swin_block_bhwc
+fused_swin_block.extra_counters = {"direct": "direct_launches"}
 
 
 def f32_occupancy(c: int) -> dict:

@@ -192,6 +192,19 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      into place); then cunet/art 2x streaming 4 1080p frames (seeded
      unit-scale weights): every ``w2x.model`` span a graph replay
      launching H 22 times
+ 18. kernel I (HAT's residual sums and their LayerNorm) against its plain
+     twin at the hat4x-480p-stream cell's chunk, (16, 256, 256, 180) bf16,
+     in its three variants (the norm alone, the add, the scaled add): y
+     byte-equal, n within one bf16 ulp (beyond 2^-16 of the terms its
+     last step sums, ``_bf16_ulps``); times beside the bytes bound
+     (``_add_norm_work``), the plain twin and ``F.layer_norm`` alone (the
+     op most of the twin's time goes to); the registers and resident CTAs
+     of each; then hat/photo 4x on the benchmark's seeded weights
+     (``benchmark_torch/lib/weights``) streaming 8 of its 720 x 480
+     pictures: every ``w2x.model`` span a graph replay launching I 86
+     times, and two outputs against the benchmark's plain float32
+     reference within the cell's limits (``benchmark_torch/limits/
+     hat4x-480p-stream.json``: mean and largest absolute byte difference)
 
 Times are per call: the median over 10 samples, each the CUDA-event time
 of 10 calls in a row divided by 10 (kernel F's probe times its own
@@ -957,7 +970,7 @@ def phase_network_gate(torch):
     if not ok:
         raise AssertionError("tf32 golden gate failed")
     if n6 != {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0, "G": 0,
-              "H": 0}:
+              "H": 0, "I": 0}:
         raise AssertionError(f"phase 6a: not 10 launches of fp32 B a chunk "
                              f"and one of C: {n6}")
 
@@ -2690,6 +2703,177 @@ def phase_kernel_h(torch, smi, report):
     return n
 
 
+# kernel I at the hat4x-480p-stream cell's chunk of 16 tiles of 256, and
+# the maps each variant reads and writes: x (r, z) read once, the sum y
+# (not for the norm alone) and its norm n written once
+NORM_SHAPE = (16, 256, 256, 180)
+NORM_MAPS = {"norm": 2, "add": 4, "scaled": 5}
+
+
+def _add_norm_inputs(torch, shape, variant, seed):
+    """bf16 x, r, z, s, weight and bias of HAT's scale on the card: a
+    residual stream of std 3, terms of std 1, channel weights in (0,
+    0.01), LN parameters about 1 and 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*size, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(size, generator=g, device="cuda")
+                ).bfloat16()
+
+    b, c = shape[0], shape[-1]
+    x = randn(*shape, std=3.0)
+    r = randn(*shape) if variant != "norm" else None
+    z = randn(*shape) if variant == "scaled" else None
+    s = None
+    if variant == "scaled":
+        s = (0.01 * torch.rand((b, c), generator=g, device="cuda")
+             ).bfloat16()
+    return x, r, z, s, randn(c, std=0.1, mean=1.0), randn(c, std=0.1)
+
+
+def _add_norm_work(shape, variant):
+    """Bytes of one kernel-I launch: its maps (``NORM_MAPS``), gamma and
+    beta, and the scaled add's (B, C) channel weights, bf16."""
+    b, h, w, c = shape
+    return 2 * (b * h * w * c * NORM_MAPS[variant] + 2 * c
+                + (b * c if variant == "scaled" else 0))
+
+
+def _bf16_ulps(torch, got, want, y, weight, bias):
+    """The largest distance of the bf16 LayerNorm ``got`` from ``want`` in
+    bf16 ulps of ``want``, each ulp grown by 2^-16 of the terms the last
+    step sums, |gamma (y - mean) rstd| + |beta|: an fp32-level difference
+    of mean and rstd shows as many ulps of a value that cancels to near
+    0, where a bf16 error in the terms would be 2^-8 of them."""
+    g, w = got.float(), want.float()
+    ulp = torch.where(w == 0, 2.0 ** -133,
+                      2.0 ** (torch.floor(torch.log2(w.abs())) - 7))
+    y = y.float()
+    d = (y - y.mean(-1, keepdim=True)) * torch.rsqrt(
+        y.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    terms = (weight.float() * d).abs() + bias.float().abs()
+    return float(((g - w).abs() / (ulp + 2.0 ** -16 * terms)).max())
+
+
+def phase_kernel_i(torch, smi, report):
+    """Phase 18: kernel I against its plain twin at the HAT cell's chunk
+    in its three variants, its times, and the HAT stream's launch counts
+    and outputs against the benchmark's reference."""
+    import gc
+    from pathlib import Path
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from benchmark_torch.lib import weights as bench_weights
+    from benchmark_torch.reference.render import render as reference
+    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
+    from waifu2x_tensorrt_tpu_torch.ops import hat_norm as hn
+    from waifu2x_tensorrt_tpu_torch.utils import profiling
+
+    gc.collect()  # the earlier phases' programs and pools
+    torch.cuda.empty_cache()
+    row = report["I"] = {}
+    worst = 0.0
+    c = NORM_SHAPE[-1]
+    for mode, variant in enumerate(NORM_MAPS):
+        x, r, z, s, w, b = _add_norm_inputs(torch, NORM_SHAPE, variant,
+                                            seed=18 + mode)
+        kw = {"z": z, "s": s}
+        want_y, want_n = hn.add_norm_plain(x, r, w, b, 1e-5, **kw)
+        y, n = hn.add_norm(x, r, w, b, 1e-5, **kw)
+        same = torch.equal(y.view(torch.int16), want_y.view(torch.int16))
+        ulps = _bf16_ulps(torch, n, want_n, want_y, w, b)
+        err = float((n.float() - want_n.float()).abs().max())
+        worst = max(worst, err)
+        del y, n, want_y, want_n
+        torch.cuda.empty_cache()
+        km = _median_ms(lambda: hn.add_norm(x, r, w, b, 1e-5, **kw))
+        pm = _median_ms(lambda: hn.add_norm_plain(x, r, w, b, 1e-5, **kw))
+        lm = _median_ms(lambda: F.layer_norm(x, (c,), w, b, 1e-5))
+        bms, by = _bound(_add_norm_work(NORM_SHAPE, variant))
+        occ = hn.occupancy(c, mode)
+        ok = same and ulps <= 1.0
+        print(f"  phase 18 I {variant} {NORM_SHAPE}: y byte-equal to the "
+              f"twin: {same}; n within {ulps:.2f} bf16 ulp of it (max |d| "
+              f"{err:.3e}): {'ok' if ok else 'FAIL'}; {km:.4f} ms (bound "
+              f"{bms:.4f} ms by {by}, {100 * bms / km:.1f}% of it); plain "
+              f"twin {pm:.4f} ms; F.layer_norm alone {lm:.4f} ms; "
+              f"{occ['registers']} registers, {occ['ctas_per_sm']} CTAs an "
+              f"SM", flush=True)
+        if not ok:
+            raise AssertionError(f"phase 18: kernel I {variant} is not its "
+                                 f"twin")
+        # the scaled add is the main row (36 of 86 launches, 5 maps)
+        key = "" if variant == "scaled" else f"{variant}_"
+        row.update({f"{key}ms": km, f"{key}plain_ms": pm,
+                    f"{key}bound_ms": bms, f"{key}library_ms": lm,
+                    f"{key}registers": occ["registers"],
+                    f"{key}ctas_per_sm": occ["ctas_per_sm"]})
+        if not key:
+            row["bound_by"] = by
+        del x, r, z, s, w, b
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+
+    # the cell's model, weights and pictures, from a seed of the
+    # benchmark's size
+    root = Path(__file__).resolve().parent / "benchmark_torch"
+    config = json.loads((root / "configs" / "hat-photo-4x-bf16.json")
+                        .read_text())
+    limits = json.loads((root / "limits" / "hat4x-480p-stream.json")
+                        .read_text())
+    seed = 2 ** 31 + 18
+    params = bench_weights.make_params(config, seed, "cuda")
+    models = Path(__file__).resolve().parent / "build" / "chip_smoke_hat"
+    bench_weights.write_weight_file(models, config, params)
+    up = _upscaler("hat/photo", 4, -1, Precision.FP16, 256, 16,
+                   models_dir=str(models))
+    g = bench_weights.generator(seed, 1, "cuda")
+    frames = [bench_weights.make_picture((480, 720), g, "cuda")
+              for _ in range(8)]
+    session = up.open_stream((480, 720))
+    session.warm()
+    counters = _zero_counters()
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        outs = [o for f in frames for o in session.submit(f)]
+        outs += session.flush()
+        torch.cuda.synchronize()
+    spans = [sp.counts for sp in profiling.records() if sp.name == "model"]
+    profiling.reset()
+    n = {k: f.launches for k, f in counters.items()}
+    good = (len(outs) == len(frames) and spans and all(
+        sp.get("program") == "replay" and sp.get("launches_I") == 86
+        for sp in spans))
+    print(f"  phase 18 hat/photo 4x stream: {len(frames)} 720 x 480 "
+          f"pictures, {len(spans)} model spans, each a replay with "
+          f"launches_I 86: {'ok' if good else 'FAIL'}; launch counts {n}",
+          flush=True)
+    if not good or n["I"] != 86 * len(spans):
+        raise AssertionError(f"phase 18: the HAT stream's model spans "
+                             f"{spans}")
+    del session, up
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in (0, len(frames) - 1):
+        want = reference(torch.from_numpy(frames[k]).cuda(), params, config)
+        d = (outs[k].to(torch.int32) - want.to(torch.int32)).abs()
+        got = {"mean_abs_lsb": float(d.double().mean()),
+               "max_abs_lsb": float(d.max())}
+        ok = all(got[key] <= limits[key] for key in got)
+        print(f"  phase 18 HAT picture {k} against the plain float32 "
+              f"reference: mean |d| {got['mean_abs_lsb']:.4f} LSB (limit "
+              f"{limits['mean_abs_lsb']}), max |d| {got['max_abs_lsb']:.0f} "
+              f"(limit {limits['max_abs_lsb']:.0f}): "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"phase 18: HAT picture {k} outside the "
+                                 f"cell's limits")
+    return n
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     torch = _require_cuda()
@@ -2754,6 +2938,9 @@ def main() -> int:
     print("phase 17 kernel H (cunet's conv epilogue) and the cunet stream:",
           flush=True)
     n17 = phase_kernel_h(torch, smi, report)
+    print("phase 18 kernel I (HAT's residual sums and LayerNorm) and the "
+          "HAT stream:", flush=True)
+    n18 = phase_kernel_i(torch, smi, report)
     # launch counts of the new paths, as extra keys on B's and C's rows
     report["C"].update(
         launches_cunet_t256_still=n11["a"],
@@ -2789,6 +2976,8 @@ def main() -> int:
              "streamed 720 x 480 frames after the warm")
     h_run = ("phase 17: cunet/art 2x noise 1, bf16, tile 256, batch 16, 4 "
              "streamed 1080p frames after the warm")
+    i_run = ("phase 18: hat/photo 4x, bf16, tile 256, batch 16, 8 "
+             "streamed 720 x 480 pictures after the warm")
     meta = {
         "A": ("window_attention_qkv", src + "window_attention.cu",
               "waifu2x_tensorrt_tpu/ops/window_attention.py:212",
@@ -2811,6 +3000,8 @@ def main() -> int:
         "H": ("bias_act", src + "cunet_epilogue.cu",
               "none (XLA fused cunet's conv epilogue on the TPU)", n17["H"],
               h_run),
+        "I": ("add_norm", src + "hat_norm.cu",
+              "none (the JAX package has no HAT)", n18["I"], i_run),
     }
     kernels = [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                 "replaces": meta[k][2], "launches": meta[k][3],
@@ -2822,8 +3013,9 @@ def main() -> int:
                    if key.startswith(("library_chain", "fp32_", "bf16_",
                                       "c192_", "gate_", "wrapper_",
                                       "queued_", "launches_", "self_",
-                                      "plain_ms_", "registers", "ctas_"))}}
-               for k in ("A", "B", "C", "D", "E", "F", "G", "H")]
+                                      "plain_ms_", "registers", "ctas_",
+                                      "norm_", "add_"))}}
+               for k in ("A", "B", "C", "D", "E", "F", "G", "H", "I")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

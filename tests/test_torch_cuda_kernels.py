@@ -53,7 +53,12 @@ on prepared operands equal byte for byte to per-call ones; kernel G
 (HAT's window attention) by the bf16 rule against its plain twin, self
 (shift 0 and 8) and overlapping, on a rectangular map whose windows
 wrap and touch every border, and with scores past 100, refusing fp32,
-and a captured HAT chunk byte-identical to the eager one; the fp32
+and a captured HAT chunk byte-identical to the eager one, its kernel-G
+and kernel-I launches recorded; kernel I (HAT's residual sums and their
+LayerNorm) at the HAT cell's chunk and with odd row counts at C 12, 144,
+180 and 256, in its three variants: y byte-equal to the twin's, n within
+one bf16 ulp, refusing fp32, fp16, strided, unaligned and mixed-device
+tensors; the fp32
 kernel of A and E at ragged and flagship counts; a captured tf32 chunk
 byte-identical to the eager one; the program's spans
 (``utils/profiling.py``) on a traced stream: device seconds for every
@@ -1079,7 +1084,7 @@ def test_fuse_frame_720p_against_the_chunked_render():
     second = fused.render(frame)
     made = {k: w.launches - before[k] for k, w in counters.items()}
     assert made == {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0, "G": 0,
-                    "H": 0}
+                    "H": 0, "I": 0}
     assert first.shape == (2880, 5120, 3)
     np.testing.assert_array_equal(first, second)
     assert np.abs(first.astype(int) - want.astype(int)).max() <= 1
@@ -1300,7 +1305,8 @@ def test_hat_chunk_captured_is_the_eager_chunk():
     """A HAT chunk at full width (one group of 2 HABs and an OCAB, bf16,
     2 tiles of 64) through its captured program: replays give the bytes
     of the eager call and record kernel G's launches (3, 1 of them
-    overlapping)."""
+    overlapping) and kernel I's (8: patch_embed.norm, 2 LN1 and 2 LN2 of
+    the HABs, OCAB's 2 and the final norm)."""
     from waifu2x_tensorrt_tpu_torch.engine import exe_cache
     from waifu2x_tensorrt_tpu_torch.models import registry
 
@@ -1316,9 +1322,93 @@ def test_hat_chunk_captured_is_the_eager_chunk():
         want = module(x)
     first = prog(x)
     (graph,) = prog.graphs.values()
-    assert graph.launches == {"launches_G": 3, "overlap_G": 1}
+    assert graph.launches == {"launches_G": 3, "overlap_G": 1,
+                              "launches_I": 8}
     second = prog(x)
     assert torch.equal(first, want) and torch.equal(second, want)
+
+
+def _add_norm_inputs(shape, variant, seed):
+    """bf16 x, r, z, s, weight and bias of HAT's scale on the card: a
+    residual stream of std 3, terms of std 1, channel weights in (0,
+    0.01), LN parameters about 1 and 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*size, std=1.0, mean=0.0):
+        return (mean + std * torch.randn(size, generator=g, device="cuda")
+                ).bfloat16()
+
+    b, c = shape[0], shape[-1]
+    x = randn(*shape, std=3.0)
+    r = randn(*shape) if variant != "norm" else None
+    z = randn(*shape) if variant == "scaled" else None
+    s = None
+    if variant == "scaled":
+        s = (0.01 * torch.rand((b, c), generator=g, device="cuda")
+             ).bfloat16()
+    return x, r, z, s, randn(c, std=0.1, mean=1.0), randn(c, std=0.1)
+
+
+def _within_one_ulp(got, want, y, weight, bias):
+    """bf16 LayerNorm ``got`` within one bf16 ulp of ``want``, value by
+    value, beyond 2^-16 of the terms the last step sums, |gamma (y - mean)
+    rstd| + |beta| (an fp32-level difference of mean and rstd, which a
+    value that cancels to near 0 shows as many of its own ulps; a bf16
+    error in the terms would be 2^-8 of them)."""
+    g, w = got.float(), want.float()
+    ulp = torch.where(w == 0, 2.0 ** -133,
+                      2.0 ** (torch.floor(torch.log2(w.abs())) - 7))
+    y = y.double()
+    d = (y - y.mean(-1, keepdim=True)) * torch.rsqrt(
+        y.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    terms = (weight.double() * d).abs() + bias.double().abs()
+    worst = float(((g - w).abs() / (ulp + 2.0 ** -16 * terms)).max())
+    assert worst <= 1.0, worst
+
+
+@pytest.mark.parametrize("variant", ["norm", "add", "scaled"])
+@pytest.mark.parametrize("shape", [(16, 256, 256, 180), (3, 37, 29, 180),
+                                   (3, 37, 29, 12), (3, 37, 29, 144),
+                                   (2, 5, 7, 256)],
+                         ids=["cell", "odd-rows", "c12", "c144", "c256"])
+def test_kernel_i_matches_its_twin(shape, variant):
+    """Kernel I at the hat4x-480p-stream cell's chunk (16 tiles of 256,
+    C 180) and with odd row counts (the last pair of rows one row; pairs
+    across two images) at C 180, and at C 12 (one vector a lane), 144
+    (HAT-S's width) and 256 (the widest it takes): y byte-equal to the twin's, n within one bf16 ulp
+    (beyond an fp32-level difference of the terms, ``_within_one_ulp``),
+    one launch counted."""
+    from waifu2x_tensorrt_tpu_torch.ops import hat_norm as hn
+
+    x, r, z, s, w, b = _add_norm_inputs(shape, variant, seed=shape[-1])
+    want_y, want_n = hn.add_norm_plain(x, r, w, b, 1e-5, z=z, s=s)
+    before = hn.add_norm.launches
+    y, n = hn.add_norm(x, r, w, b, 1e-5, z=z, s=s)
+    torch.cuda.synchronize()
+    assert hn.add_norm.launches == before + 1
+    assert (y is x) == (r is None)
+    _bytes_equal(y, want_y)
+    _within_one_ulp(n, want_n, want_y, w, b)
+
+
+def test_kernel_i_refuses_what_it_does_not_take():
+    from waifu2x_tensorrt_tpu_torch.ops import hat_norm as hn
+
+    w = torch.ones(180, device="cuda")
+    for dtype in (torch.float32, torch.float16):
+        x = torch.zeros((2, 8, 8, 180), device="cuda", dtype=dtype)
+        with pytest.raises(TypeError, match="bf16 only"):
+            hn.add_norm(x, x, w.to(dtype), w.to(dtype), 1e-5)
+    w = w.bfloat16()
+    x = torch.zeros((2, 8, 16, 180), device="cuda").bfloat16()[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        hn.add_norm(x, None, w, w, 1e-5)
+    x = torch.zeros(2 * 8 * 8 * 180 + 1, device="cuda").bfloat16()[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        hn.add_norm(x.view(2, 8, 8, 180), None, w, w, 1e-5)
+    x = torch.zeros((2, 8, 8, 180), device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="x on cuda"):
+        hn.add_norm(x, None, w.cpu(), w, 1e-5)
 
 
 def _bytes_equal(got, want):

@@ -123,7 +123,7 @@ def test_program_store_names_no_kernel():
              | {n.attr for n in ast.walk(tree)
                 if isinstance(n, ast.Attribute)})
     wrappers = {w.__name__ for w in ops.kernels().values()}
-    assert len(wrappers) == 8 and not names & wrappers
+    assert len(wrappers) == 9 and not names & wrappers
 
 
 def test_framepipe_is_the_ports_own():

@@ -1,4 +1,4 @@
-"""Times of kernels A to H through their wrappers on one NVIDIA GPU, by
+"""Times of kernels A to I through their wrappers on one NVIDIA GPU, by
 ``chip_smoke.py``'s method, from this or another version of the package.
 
     python3 tools/kernel_times.py [--root DIR]
@@ -40,7 +40,12 @@ shapes, each beside its bound and its share of it:
   444, 64) with it and the skip cropped by 16, and the C-3 conv_bottoms
   (16, 480, 480, 3) with the bias alone and (16, 440, 440, 3) with the
   skip cropped by 20 and the clamp), in place, beside its plain twin and
-  the torch ops it replaces (``epilogue_ops``).
+  the torch ops it replaces (``epilogue_ops``);
+- I (HAT's residual sums and their LayerNorm, where the version has it)
+  on the hat4x-480p-stream cell's chunk (``chip_smoke.NORM_SHAPE``:
+  (16, 256, 256, 180) bf16) in each variant (the norm alone, the add, the
+  scaled add), beside its plain twin and ``F.layer_norm`` alone on the
+  same map.
 
 It goes through the wrappers only, so ``--root DIR`` can import
 ``waifu2x_tensorrt_tpu_torch`` from an unpacked other version (``git
@@ -216,6 +221,24 @@ def main() -> int:
                  lambda: ce.epilogue_ops(conv, bias, **kw), "torch ops")
             del conv, bias, skip
             torch.cuda.empty_cache()
+    try:
+        from waifu2x_tensorrt_tpu_torch.ops import hat_norm as hn
+    except ImportError:  # a version without kernel I
+        return 0
+    c = cs.NORM_SHAPE[-1]
+    for mode, variant in enumerate(cs.NORM_MAPS):
+        x, r, z, s, w, b = cs._add_norm_inputs(torch, cs.NORM_SHAPE,
+                                               variant, seed=18 + mode)
+        kw = {"z": z, "s": s}
+        pm = cs._median_ms(lambda: hn.add_norm_plain(x, r, w, b, 1e-5,
+                                                     **kw))
+        show(f"kernel I bf16 {variant} {cs.NORM_SHAPE}, plain twin "
+             f"{pm:.4f} ms",
+             lambda: hn.add_norm(x, r, w, b, 1e-5, **kw),
+             (cs._add_norm_work(cs.NORM_SHAPE, variant),),
+             lambda: F.layer_norm(x, (c,), w, b, 1e-5), "F.layer_norm")
+        del x, r, z, s, w, b
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -21,7 +21,9 @@ random weights, loaded through ``Upscaler``):
   ``torch.func.vmap``; ``chip_smoke.py`` phase 14c);
 - ``flagship-tf32``, ``graph-exact-tf32``: the two above in the CLI's
   tf32 precision (fp32 compute, TF32 off in cuBLAS and cuDNN, as the CLI
-  sets it): kernel B's fp32 kernel, and the graph's fp32 torch ops.
+  sets it): kernel B's fp32 kernel, and the graph's fp32 torch ops;
+- ``hat-480p``: hat/photo 4x, tile 256, batch 16, 720 x 480 frames (the
+  hat4x-480p-stream cell's model and frames; kernels G and I).
 
 Opens a stream for the cell's frames and runs its warm cycle. It first
 reads the unprofiled streamed rate twice (outputs kept, host clock ending
@@ -38,9 +40,9 @@ submits ``--frames`` seeded frames and flushes under ``torch.profiler``
 - wall ms of the profiled window (host clock, ending in a synchronize),
   device busy ms (union of the intervals of every device event) and the
   device's idle share;
-- device time by group (kernel B, kernel C, roll, TTA flips, copies,
-  convolutions and GEMMs, host-to-device copies, the rest), and the 20
-  device kernels with the most time;
+- device time by group (kernels B, C, G, H and I, roll, TTA flips,
+  copies, convolutions and GEMMs, host-to-device copies, the rest), and
+  the 20 device kernels with the most time;
 - per chunk of the cell's batch: kernel launches (``cudaLaunchKernel``
   calls) and CUDA-graph launches (``cudaGraphLaunch``: a captured chunk
   program's kernels are launched by its replay, not from the host) from
@@ -63,6 +65,9 @@ from pathlib import Path
 GROUPS = (  # (label, substrings of the device event name), first match
     ("kernel B swin_block", ("swin_block",)),
     ("kernel C finalize_gather", ("finalize_gather",)),
+    ("kernel G hat_attention", ("hat_attention",)),
+    ("kernel H bias_act", ("bias_act",)),
+    ("kernel I add_norm", ("add_norm",)),
     ("roll", ("roll_cuda",)),  # not "unrolled_elementwise_kernel"
     ("TTA flips", ("flip",)),
     ("copies (layout, dtype)", ("copy", "Copy")),
@@ -86,6 +91,7 @@ CELLS = {
                       "tf32"),
     "graph-exact-tf32": ("swin_unet/art", 4, 3, 256, 16, False, (720, 1280),
                          "tf32"),
+    "hat-480p": ("hat/photo", 4, -1, 256, 16, False, (480, 720), "fp16"),
 }
 
 

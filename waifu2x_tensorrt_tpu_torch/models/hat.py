@@ -30,6 +30,16 @@ pooled over the whole tile; the window attention branch
 OCAB: ``x = x + proj(OCA(LN1(x)))`` (kernel G, overlapping geometry),
 ``x = x + MLP(LN2(x))``.
 
+Every residual sum that feeds a LayerNorm is left pending, as the pair
+(stream, term), and formed by kernel I (``ops/hat_norm.add_norm``) at that
+LayerNorm, which writes the sum and its norm in one pass: a HAB's MLP
+output at the next block's LN1, ``x + a + CONV_SCALE c`` at LN2 (the
+scaled add), OCAB's ``x + proj(...)`` at its LN2, and a group's ``x +
+conv3x3(...)`` at the next group's first LN1 or at the final LN. Only
+OCAB's last ``x + MLP`` and ``conv_after_body(...) + f0`` stay torch
+adds. A chunk of the published widths runs 86 such passes: 2 norms alone
+(``patch_embed.norm`` and the first LN1), 48 adds and 36 scaled adds.
+
 Only the widths a checkpoint can carry (``embed_dim``, ``depths``,
 ``num_heads``) are arguments; every other setting is the published one,
 the module constants below (kernel G is built for window 16 and overlap 4
@@ -51,15 +61,16 @@ import torch.nn.functional as F
 
 from waifu2x_tensorrt_tpu_torch.models.layers import (
     conv,
-    layer_norm,
     linear,
     pixel_shuffle,
+    weights,
 )
 from waifu2x_tensorrt_tpu_torch.ops.hat_attention import (
     WINDOW,
     hat_attention,
     table_rows,
 )
+from waifu2x_tensorrt_tpu_torch.ops.hat_norm import add_norm
 
 # HAT_SRx4_ImageNet-pretrain.yml
 SCALE = 4
@@ -70,6 +81,13 @@ SQUEEZE = 30       # squeeze_factor
 CONV_SCALE = 0.01
 MLP_RATIO = 2
 NUM_FEAT = 64
+
+
+def _add_norm(x, r, norm: nn.LayerNorm, **scaled):
+    """(x + r, LN(x + r)) by kernel I, r None: (x, LN(x)); ``scaled``:
+    its z and s."""
+    w, b = weights(norm, x.dtype)
+    return add_norm(x, r, w, b, norm.eps, **scaled)
 
 
 class _Mlp(nn.Module):
@@ -126,8 +144,10 @@ class HAB(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.mlp = _Mlp(dim, dim * MLP_RATIO, device=device)
 
-    def forward(self, x):
-        n = layer_norm(x, self.norm1)
+    def forward(self, x, r=None):
+        """The block on x + r; returns x + r, the stream after the
+        attention branches and the MLP output, the term still to add."""
+        x, n = _add_norm(x, r, self.norm1)
         cab = self.conv_block.cab
         z = conv(F.gelu(conv(n, cab[0])), cab[2])
         ca = cab[3].attention
@@ -136,11 +156,11 @@ class HAB(nn.Module):
         a = hat_attention(
             linear(n, self.attn.qkv), self.attn.relative_position_bias_table,
             num_heads=self.num_heads, shift=self.shift)
-        # x + a + CONV_SCALE CA(z) in one pass over the map: the scale
-        # rides on the per-image channel weights
-        x = torch.addcmul(x + linear(a, self.attn.proj), z,
-                          (w * CONV_SCALE)[:, None, None, :])
-        return x + self.mlp(layer_norm(x, self.norm2))
+        # x + a + CONV_SCALE CA(z) and LN2 in one pass over the map: the
+        # scale rides on the per-image channel weights
+        t, n = _add_norm(x, linear(a, self.attn.proj), self.norm2, z=z,
+                         s=w * CONV_SCALE)
+        return x, t, self.mlp(n)
 
 
 class OCAB(nn.Module):
@@ -158,13 +178,14 @@ class OCAB(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.mlp = _Mlp(dim, dim * MLP_RATIO, device=device)
 
-    def forward(self, x):
-        a = hat_attention(
-            linear(layer_norm(x, self.norm1), self.qkv),
-            self.relative_position_bias_table, num_heads=self.num_heads,
-            overlap=OVERLAP)
-        x = x + linear(a, self.proj)
-        return x + self.mlp(layer_norm(x, self.norm2))
+    def forward(self, x, r):
+        """The block on x + r."""
+        x, n = _add_norm(x, r, self.norm1)
+        a = hat_attention(linear(n, self.qkv),
+                          self.relative_position_bias_table,
+                          num_heads=self.num_heads, overlap=OVERLAP)
+        x, n = _add_norm(x, linear(a, self.proj), self.norm2)
+        return x + self.mlp(n)
 
 
 class _Group(nn.Module):
@@ -186,12 +207,15 @@ class RHAG(nn.Module):
             OCAB(dim, num_heads, device=device))
         self.conv = nn.Conv2d(dim, dim, 3, padding=1, device=device)
 
-    def forward(self, x):
-        t = x
-        for blk in self.residual_group.blocks:
-            t = blk(t)
-        t = self.residual_group.overlap_attn(t)
-        return conv(t, self.conv) + x
+    def forward(self, x, r=None):
+        """The group on x + r; returns x + r and the conv, whose sum is
+        the group's output."""
+        first, *rest = self.residual_group.blocks
+        x, t, m = first(x, r)
+        for blk in rest:
+            _, t, m = blk(t, m)
+        t = self.residual_group.overlap_attn(t, m)
+        return x, conv(t, self.conv)
 
 
 class _PatchEmbed(nn.Module):
@@ -214,6 +238,9 @@ class HAT(nn.Module):
         if c % num_heads:
             raise ValueError(f"embed_dim {c} is not a multiple of "
                              f"{num_heads} heads")
+        if not depths or min(depths) < 1:
+            raise ValueError(f"depths {tuple(depths)}: every group holds "
+                             f"a HAB")
         self.scale = SCALE
         self.dtype = dtype
         self.embed_dim = c
@@ -243,10 +270,10 @@ class HAT(nn.Module):
                              f"window {WINDOW}")
         x = (x.float() - self.mean).to(dt)
         f0 = conv(x, self.conv_first)
-        t = layer_norm(f0, self.patch_embed.norm)
+        t, r = _add_norm(f0, None, self.patch_embed.norm)[1], None
         for layer in self.layers:
-            t = layer(t)
-        f = conv(layer_norm(t, self.norm), self.conv_after_body) + f0
+            t, r = layer(t, r)
+        f = conv(_add_norm(t, r, self.norm)[1], self.conv_after_body) + f0
         u = F.leaky_relu(conv(f, self.conv_before_upsample[0]), 0.01)
         for i in range(0, len(self.upsample), 2):
             u = pixel_shuffle(conv(u, self.upsample[i]), 2)

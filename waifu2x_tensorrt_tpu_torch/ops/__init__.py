@@ -10,6 +10,8 @@
                          overlapping windows) on the qkv activation;
 - ``cunet_epilogue``   — kernel H: cunet's conv epilogue (bias, leaky
                          ReLU, cropped skip add, clamp) in one pass;
+- ``hat_norm``         — kernel I: HAT's residual sums and their LayerNorm
+                         in one pass;
 - ``kernel_math``      — the exact math and mask law they share (torch);
 - ``build``            — nvcc build of ``csrc/`` into one ctypes library.
 
@@ -33,7 +35,7 @@ from waifu2x_tensorrt_tpu_torch.ops.window_attention import (  # noqa: F401
 
 
 def kernels() -> dict:
-    """The kernel wrappers by letter, A-H. Each counts its launches in
+    """The kernel wrappers by letter, A-I. Each counts its launches in
     ``.launches``; a wrapper with ``extra_counters`` ({name: attribute})
     counts some of them once more in each such attribute."""
     # imported here: a name bound in this package would hide the
@@ -43,6 +45,7 @@ def kernels() -> dict:
         finalize_gather,
     )
     from waifu2x_tensorrt_tpu_torch.ops.hat_attention import hat_attention
+    from waifu2x_tensorrt_tpu_torch.ops.hat_norm import add_norm
     from waifu2x_tensorrt_tpu_torch.ops.head_pack import pack_head_x16
     from waifu2x_tensorrt_tpu_torch.ops.swin_block import fused_swin_block
     from waifu2x_tensorrt_tpu_torch.ops.window_attention import (
@@ -52,4 +55,4 @@ def kernels() -> dict:
     return {"A": fused_window_attention_qkv, "B": fused_swin_block,
             "C": finalize_gather, "D": pack_head_x16,
             "E": fused_window_attention, "F": mma_probe, "G": hat_attention,
-            "H": bias_act}
+            "H": bias_act, "I": add_norm}

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "w2x_hat_attention": [_P] * 3 + [_I] * 7 + [ctypes.c_float, _P],
     "w2x_hat_attention_info": [_I, _IP, _IP],
     "w2x_bias_act": [_P] * 3 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
+    "w2x_add_norm": [_P] * 8 + [_I] * 3 + [ctypes.c_float, _P],
+    "w2x_add_norm_info": [_I, _I, _IP, _IP],
 }
 
 _lib = None

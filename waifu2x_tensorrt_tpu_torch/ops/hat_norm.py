@@ -1,0 +1,127 @@
+"""Kernel I: HAT's residual sums and their LayerNorm in one pass.
+
+``add_norm`` is the wrapper of the CUDA kernel ``csrc/hat_norm.cu``;
+``add_norm_plain`` is its plain PyTorch twin. It replaces no TPU kernel:
+the JAX package has no HAT. In ``models/hat.py`` each LayerNorm reads the
+residual sum that the block before it left pending; kernel I forms that
+sum and its LayerNorm over C in one read of the (B, H, W, C) maps:
+
+  norm (``r`` None):   n = LN(x)
+  add:                 y = x + r, n = LN(y)
+  scaled add (``z``):  y = addcmul(x + r, z, s[b]), n = LN(y)
+
+with ``s`` the (B, C) per-image channel weights of ``z`` (HAB's channel
+attention times its conv scale). Each sum is rounded to bf16 where the
+torch op it replaces rounds (``add``, then ``addcmul``'s fp32 product and
+sum), so y is bit-equal to the twin's; LN is computed in fp32 from the
+rounded y, as torch's bf16 ``layer_norm``, and n differs from the twin's
+only by the order of the fp32 sums (within one bf16 ulp).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from waifu2x_tensorrt_tpu_torch.ops import build
+
+MAX_C = 256  # the kernel's widest row: 2 vectors of 16 bytes a lane
+
+
+def _check(x, r, weight, bias, z, s):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
+    b, _, _, c = x.shape
+    if (z is None) != (s is None):
+        raise ValueError("z and s go together")
+    if z is not None and r is None:
+        raise ValueError("the scaled add needs r")
+    shapes = (("r", r, x.shape), ("z", z, x.shape), ("s", s, (b, c)),
+              ("weight", weight, (c,)), ("bias", bias, (c,)))
+    for name, t, shape in shapes:
+        if t is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t is not None and t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _check_kernel(x, *others):
+    """What the kernel takes beyond ``_check``: bf16, C a multiple of 4 up
+    to ``MAX_C``, contiguous 16-byte aligned tensors, fewer than 2**31
+    values."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x is {x.dtype}: kernel I is bf16 only")
+    c = x.shape[-1]
+    if c % 4 or not 0 < c <= MAX_C:
+        raise ValueError(f"C {c}: kernel I takes multiples of 4 up to "
+                         f"{MAX_C}")
+    for t in (x, *others):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("kernel I takes contiguous tensors")
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("kernel I takes 16-byte aligned tensors")
+    # rows and the kernel's offsets in 16-byte units are 32-bit
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{x.numel()} values: kernel I indexes fewer "
+                         "than 2**31")
+
+
+def add_norm_plain(x, r, weight, bias, eps, *, z=None, s=None):
+    """Plain twin, on any device: the ops of ``models/hat.py`` before
+    kernel I, ``x + r``, ``torch.addcmul`` and ``layers.layer_norm``.
+    Returns (y, n); y is x itself for the norm alone."""
+    _check(x, r, weight, bias, z, s)
+    y = x if r is None else x + r
+    if z is not None:
+        y = torch.addcmul(y, z, s[:, None, None, :])
+    return y, F.layer_norm(y, (x.shape[-1],), weight, bias, eps)
+
+
+def add_norm(x, r, weight, bias, eps, *, z=None, s=None):
+    """Kernel I on the (B, H, W, C) map ``x``: with ``r`` (same shape) the
+    sum y = x + r, with ``z`` (same shape) and ``s`` (B, C) the sum y =
+    x + r + z s[b] rounded as ``torch.addcmul``; n = LayerNorm(y) by
+    ``weight``, ``bias`` (C,) and ``eps``. Returns (y, n), y being x for
+    the norm alone. The CUDA kernel for CUDA tensors (bf16 only,
+    contiguous, 16-byte aligned, C a multiple of 4 up to ``MAX_C``), the
+    plain twin for CPU and meta tensors. Counts kernel launches in
+    ``add_norm.launches``."""
+    _check(x, r, weight, bias, z, s)
+    if x.device.type in ("cpu", "meta"):
+        return add_norm_plain(x, r, weight, bias, eps, z=z, s=s)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_kernel(x, r, z, s, weight, bias)
+    b, h, w, c = x.shape
+    n = torch.empty_like(x)
+    y = x if r is None else torch.empty_like(x)
+    lib = build.load_library()
+    code = lib.w2x_add_norm(
+        x.data_ptr(), None if r is None else r.data_ptr(),
+        None if z is None else z.data_ptr(),
+        None if s is None else s.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), None if r is None else y.data_ptr(), n.data_ptr(),
+        b * h * w, c, h * w, float(eps), build.stream_handle(x.device))
+    build.check(code, "hat add-norm kernel")
+    add_norm.launches += 1
+    return y, n
+
+
+add_norm.launches = 0
+
+
+def occupancy(c: int, mode: int) -> dict:
+    """Registers a thread and resident CTAs an SM of the kernel at width
+    ``c`` for ``mode`` 0 (norm), 1 (add) or 2 (scaled add). Needs the
+    card."""
+    import ctypes
+
+    lib = build.load_library()
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    build.check(lib.w2x_add_norm_info(c, mode, ctypes.byref(regs),
+                                      ctypes.byref(ctas)),
+                "hat add-norm kernel info")
+    return {"registers": regs.value, "ctas_per_sm": ctas.value}

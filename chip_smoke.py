@@ -205,6 +205,17 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      times, and two outputs against the benchmark's plain float32
      reference within the cell's limits (``benchmark_torch/limits/
      hat4x-480p-stream.json``: mean and largest absolute byte difference)
+ 19. kernel J (DAT's channel attention) and kernel G on DAT's split
+     windows (heads 0-2 in 8 x 32, 3-5 in 32 x 8; shift 0 and (4, 16))
+     against their plain twins at the dat4x-480p-stream cell's chunk,
+     (16, 256, 256, 540) bf16, by phase 16's rule, J also byte-equal over
+     two calls; times beside the bytes bound (0.4507 ms), the plain twins
+     and, for J, DAT's own torch chain (``_channel_chain``); then
+     dat/photo 4x on the benchmark's seeded weights streaming 8 of its
+     720 x 480 pictures as phase 18 does (``_cell_stream``): every
+     ``w2x.model`` span a graph replay with launches_G 18, rect_G 18,
+     launches_J 18 and launches_I 74, and two outputs against the
+     benchmark's plain float32 reference within the cell's limits
 
 Times are per call: the median over 10 samples, each the CUDA-event time
 of 10 calls in a row divided by 10 (kernel F's probe times its own
@@ -970,7 +981,7 @@ def phase_network_gate(torch):
     if not ok:
         raise AssertionError("tf32 golden gate failed")
     if n6 != {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0, "G": 0,
-              "H": 0, "I": 0}:
+              "H": 0, "I": 0, "J": 0}:
         raise AssertionError(f"phase 6a: not 10 launches of fp32 B a chunk "
                              f"and one of C: {n6}")
 
@@ -2760,16 +2771,10 @@ def phase_kernel_i(torch, smi, report):
     in its three variants, its times, and the HAT stream's launch counts
     and outputs against the benchmark's reference."""
     import gc
-    from pathlib import Path
 
-    import numpy as np
     import torch.nn.functional as F
 
-    from benchmark_torch.lib import weights as bench_weights
-    from benchmark_torch.reference.render import render as reference
-    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
     from waifu2x_tensorrt_tpu_torch.ops import hat_norm as hn
-    from waifu2x_tensorrt_tpu_torch.utils import profiling
 
     gc.collect()  # the earlier phases' programs and pools
     torch.cuda.empty_cache()
@@ -2815,20 +2820,41 @@ def phase_kernel_i(torch, smi, report):
         del x, r, z, s, w, b
         torch.cuda.empty_cache()
     row["max_abs_err"] = worst
+    return _cell_stream(torch, "phase 18", "hat-photo-4x-bf16",
+                        "hat4x-480p-stream", {"launches_I": 86},
+                        seed=2 ** 31 + 18)
 
-    # the cell's model, weights and pictures, from a seed of the
-    # benchmark's size
+
+def _cell_stream(torch, label, config_name, cell, want, seed):
+    """The benchmark cell's model on its seeded weights (``benchmark_
+    torch/lib/weights``, from a seed of the benchmark's size) streaming 8
+    of its 720 x 480 pictures: every ``w2x.model`` span a graph replay
+    with the counts ``want``, each ``launches_<letter>`` of them also the
+    wrapper's count over the spans, and two outputs against the
+    benchmark's plain float32 reference within the cell's limits
+    (``benchmark_torch/limits/<cell>.json``: mean and largest absolute
+    byte difference). Returns the launch counts of the stream."""
+    import gc
+    from pathlib import Path
+
+    from benchmark_torch.lib import weights as bench_weights
+    from benchmark_torch.reference.render import render as reference
+    from waifu2x_tensorrt_tpu_torch.engine.config import Precision
+    from waifu2x_tensorrt_tpu_torch.utils import profiling
+
+    gc.collect()
+    torch.cuda.empty_cache()
     root = Path(__file__).resolve().parent / "benchmark_torch"
-    config = json.loads((root / "configs" / "hat-photo-4x-bf16.json")
+    config = json.loads((root / "configs" / f"{config_name}.json")
                         .read_text())
-    limits = json.loads((root / "limits" / "hat4x-480p-stream.json")
-                        .read_text())
-    seed = 2 ** 31 + 18
+    limits = json.loads((root / "limits" / f"{cell}.json").read_text())
+    family = config["family"]
     params = bench_weights.make_params(config, seed, "cuda")
-    models = Path(__file__).resolve().parent / "build" / "chip_smoke_hat"
+    models = (Path(__file__).resolve().parent / "build"
+              / f"chip_smoke_{config['arch']}")
     bench_weights.write_weight_file(models, config, params)
-    up = _upscaler("hat/photo", 4, -1, Precision.FP16, 256, 16,
-                   models_dir=str(models))
+    up = _upscaler(family, config["scale"], config["noise"], Precision.FP16,
+                   config["tile"], config["batch"], models_dir=str(models))
     g = bench_weights.generator(seed, 1, "cuda")
     frames = [bench_weights.make_picture((480, 720), g, "cuda")
               for _ in range(8)]
@@ -2845,33 +2871,160 @@ def phase_kernel_i(torch, smi, report):
     profiling.reset()
     n = {k: f.launches for k, f in counters.items()}
     good = (len(outs) == len(frames) and spans and all(
-        sp.get("program") == "replay" and sp.get("launches_I") == 86
-        for sp in spans))
-    print(f"  phase 18 hat/photo 4x stream: {len(frames)} 720 x 480 "
-          f"pictures, {len(spans)} model spans, each a replay with "
-          f"launches_I 86: {'ok' if good else 'FAIL'}; launch counts {n}",
+        sp.get("program") == "replay"
+        and all(sp.get(k) == v for k, v in want.items()) for sp in spans)
+        and all(n[k[len("launches_"):]] == v * len(spans)
+                for k, v in want.items() if k.startswith("launches_")))
+    counts = ", ".join(f"{k} {v}" for k, v in want.items())
+    print(f"  {label} {family} {config['scale']}x stream: {len(frames)} "
+          f"720 x 480 pictures, {len(spans)} model spans, each a replay "
+          f"with {counts}: {'ok' if good else 'FAIL'}; launch counts {n}",
           flush=True)
-    if not good or n["I"] != 86 * len(spans):
-        raise AssertionError(f"phase 18: the HAT stream's model spans "
+    if not good:
+        raise AssertionError(f"{label}: the {family} stream's model spans "
                              f"{spans}")
     del session, up
     gc.collect()
     torch.cuda.empty_cache()
     for k in (0, len(frames) - 1):
-        want = reference(torch.from_numpy(frames[k]).cuda(), params, config)
-        d = (outs[k].to(torch.int32) - want.to(torch.int32)).abs()
+        ref = reference(torch.from_numpy(frames[k]).cuda(), params, config)
+        d = (outs[k].to(torch.int32) - ref.to(torch.int32)).abs()
         got = {"mean_abs_lsb": float(d.double().mean()),
                "max_abs_lsb": float(d.max())}
         ok = all(got[key] <= limits[key] for key in got)
-        print(f"  phase 18 HAT picture {k} against the plain float32 "
+        print(f"  {label} {family} picture {k} against the plain float32 "
               f"reference: mean |d| {got['mean_abs_lsb']:.4f} LSB (limit "
               f"{limits['mean_abs_lsb']}), max |d| {got['max_abs_lsb']:.0f} "
               f"(limit {limits['max_abs_lsb']:.0f}): "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise AssertionError(f"phase 18: HAT picture {k} outside the "
-                                 f"cell's limits")
+            raise AssertionError(f"{label}: {family} picture {k} outside "
+                                 f"the cell's limits")
     return n
+
+
+def _channel_chain(torch, qkv, tau, nh):
+    """DAT's own torch chain for the channel attention (its
+    ``Adaptive_Channel_Attention``: ``F.normalize`` of q and k along the
+    tokens, q k^T times the temperature, softmax, A v, the permute back)
+    in qkv's dtype: a yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    t = qkv.reshape(b, h * w, 3, nh, c // nh).permute(2, 0, 3, 4, 1)
+    q, k, v = t.unbind(0)  # (B, nh, d, N)
+    temp = tau.to(qkv.dtype)[:, None, None]
+
+    def run():
+        a = F.normalize(q, dim=-1) @ F.normalize(k, dim=-1).transpose(-2, -1)
+        a = (a * temp).softmax(dim=-1)
+        return (a @ v).permute(0, 3, 1, 2).reshape(b, h, w, c)
+    return run
+
+
+def phase_kernel_j(torch, smi, report):
+    """Phase 19: kernel J and kernel G's split windows against their plain
+    twins at the DAT cell's chunk, their times, and the DAT stream's
+    launch counts and outputs against the benchmark's reference."""
+    import gc
+
+    from waifu2x_tensorrt_tpu_torch.ops import channel_attention as ca
+    from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
+
+    gc.collect()  # the earlier phases' programs and pools
+    torch.cuda.empty_cache()
+    b, h, w, c, nh = 16, 256, 256, 180, 6
+    tokens = b * h * w
+
+    # G on DAT's split windows: heads 0-2 in 8 x 32, 3-5 in 32 x 8
+    row = report["G"]
+    for shift in ((0, 0), (4, 16)):
+        qkv, _ = _hat_inputs(torch, b, h, w, c, nh, 0, seed=19 + shift[0])
+        g = torch.Generator(device="cuda").manual_seed(19 + shift[1])
+        table = 0.2 * torch.randn((ha.table_rows(ha.RECT, 0), nh),
+                                  generator=g, device="cuda")
+        kw = {"num_heads": nh, "window": ha.RECT, "shift": shift,
+              "split": True}
+        q16 = qkv.bfloat16()
+        k16 = ha.hat_attention(q16, table, **kw).float()
+        p32 = ha.hat_attention_plain(qkv, table, **kw)
+        del qkv
+        torch.cuda.empty_cache()
+        p16 = ha.hat_attention_plain(q16, table, **kw).float()
+        e_k = float((k16 - p32).abs().max())
+        e_p = float((p16 - p32).abs().max())
+        same = float((k16 != p16).float().mean())
+        del k16, p16, p32
+        torch.cuda.empty_cache()
+        ok = e_k <= max(2 * e_p, 0.02)
+        label = f"G split 8x32 / 32x8 ({b}, {h}, {w}, 540) shift {shift}"
+        print(f"  phase 19 {label}: |k16-p32|={e_k:.3e} <= max(2*"
+              f"{e_p:.3e}, 0.02); values differing from the bf16 twin "
+              f"{same:.2e}: {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"phase 19: kernel G {label} disagrees")
+        km = _median_ms(lambda: ha.hat_attention(q16, table, **kw))
+        key = "rect_" if any(shift) else "rect_unshifted_"
+        row[f"{key}ms"] = km
+        row[f"{key}max_abs_err"] = e_k
+        if any(shift):
+            pm = _median_ms(lambda: ha.hat_attention_plain(q16, table, **kw),
+                            iters=3, warmup=1)
+            bms, by = _bound(*_hat_work(b, h, w, c, nh, 0))
+            row.update(rect_plain_ms=pm, rect_bound_ms=bms, rect_bound_by=by)
+            print(f"  phase 19 G split shift {shift}: {km:.4f} ms (bound "
+                  f"{bms:.4f} ms by {by}, {100 * bms / km:.1f}% of it); "
+                  f"plain twin {pm:.4f} ms", flush=True)
+        else:
+            print(f"  phase 19 G split unshifted: {km:.4f} ms", flush=True)
+        del q16, table
+        torch.cuda.empty_cache()
+
+    # J: correlated q and k, temperatures 1 to 16
+    g = torch.Generator(device="cuda").manual_seed(19)
+    qkv = torch.randn((b, h, w, 3 * c), generator=g, device="cuda")
+    qkv[..., :2 * c] += 0.5 * torch.randn((b, 1, 1, 2 * c), generator=g,
+                                          device="cuda")
+    tau = torch.tensor([1.0, 2.0, 4.0, 8.0, 12.0, 16.0], device="cuda")
+    q16 = qkv.bfloat16()
+    k16 = ca.channel_attention(q16, tau, num_heads=nh)
+    again = ca.channel_attention(q16, tau, num_heads=nh)
+    stable = torch.equal(k16, again)
+    p32 = ca.channel_attention_plain(qkv, tau, num_heads=nh)
+    del qkv, again
+    torch.cuda.empty_cache()
+    p16 = ca.channel_attention_plain(q16, tau, num_heads=nh).float()
+    k16 = k16.float()
+    e_k = float((k16 - p32).abs().max())
+    e_p = float((p16 - p32).abs().max())
+    same = float((k16 != p16).float().mean())
+    del k16, p16, p32
+    torch.cuda.empty_cache()
+    ok = stable and e_k <= max(2 * e_p, 0.02)
+    print(f"  phase 19 J ({b}, {h}, {w}, 540): |k16-p32|={e_k:.3e} <= max(2*"
+          f"{e_p:.3e}, 0.02); values differing from the bf16 twin "
+          f"{same:.2e}; the same bytes on a second call: {stable}: "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("phase 19: kernel J disagrees with its twin")
+    km = _median_ms(lambda: ca.channel_attention(q16, tau, num_heads=nh))
+    pm = _median_ms(lambda: ca.channel_attention_plain(q16, tau,
+                                                       num_heads=nh),
+                    iters=3, warmup=1)
+    lm = _median_ms(_channel_chain(torch, q16, tau, nh))
+    bms, by = _bound(tokens * 4 * c * 2, tc_flops=2 * 2 * tokens * c * 30)
+    print(f"  phase 19 J ({b}, {h}, {w}, 540): {km:.4f} ms (bound "
+          f"{bms:.4f} ms by {by}, {100 * bms / km:.1f}% of it); plain twin "
+          f"{pm:.4f} ms; DAT's torch chain {lm:.4f} ms", flush=True)
+    report["J"] = {"max_abs_err": e_k, "ms": km, "plain_ms": pm,
+                   "bound_ms": bms, "bound_by": by, "library_ms": lm}
+    del q16, tau
+    torch.cuda.empty_cache()
+    return _cell_stream(torch, "phase 19", "dat-photo-4x-bf16",
+                        "dat4x-480p-stream",
+                        {"launches_G": 18, "rect_G": 18, "launches_J": 18,
+                         "launches_I": 74}, seed=2 ** 31 + 19)
 
 
 def main() -> int:
@@ -2941,6 +3094,9 @@ def main() -> int:
     print("phase 18 kernel I (HAT's residual sums and LayerNorm) and the "
           "HAT stream:", flush=True)
     n18 = phase_kernel_i(torch, smi, report)
+    print("phase 19 kernel J (DAT's channel attention), kernel G's split "
+          "windows and the DAT stream:", flush=True)
+    n19 = phase_kernel_j(torch, smi, report)
     # launch counts of the new paths, as extra keys on B's and C's rows
     report["C"].update(
         launches_cunet_t256_still=n11["a"],
@@ -2959,6 +3115,8 @@ def main() -> int:
     report["B"]["launches_fuse_frame_replay"] = n15["B"]
     report["B"]["fp32_launches_tf32_frame"] = n6["B"]
     report["C"]["launches_fuse_frame_replay"] = n15["C"]
+    report["G"]["launches_dat_stream"] = n19["G"]
+    report["I"]["launches_dat_stream"] = n19["I"]
 
     src = "waifu2x_tensorrt_tpu_torch/ops/csrc/"
     main_run = ("phase 5: main path, fused_block=True, bf16, tile 256, "
@@ -2977,6 +3135,8 @@ def main() -> int:
     h_run = ("phase 17: cunet/art 2x noise 1, bf16, tile 256, batch 16, 4 "
              "streamed 1080p frames after the warm")
     i_run = ("phase 18: hat/photo 4x, bf16, tile 256, batch 16, 8 "
+             "streamed 720 x 480 pictures after the warm")
+    j_run = ("phase 19: dat/photo 4x, bf16, tile 256, batch 16, 8 "
              "streamed 720 x 480 pictures after the warm")
     meta = {
         "A": ("window_attention_qkv", src + "window_attention.cu",
@@ -3002,6 +3162,8 @@ def main() -> int:
               h_run),
         "I": ("add_norm", src + "hat_norm.cu",
               "none (the JAX package has no HAT)", n18["I"], i_run),
+        "J": ("channel_attention", src + "dat_channel_attention.cu",
+              "none (the JAX package has no DAT)", n19["J"], j_run),
     }
     kernels = [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                 "replaces": meta[k][2], "launches": meta[k][3],
@@ -3014,8 +3176,8 @@ def main() -> int:
                                       "c192_", "gate_", "wrapper_",
                                       "queued_", "launches_", "self_",
                                       "plain_ms_", "registers", "ctas_",
-                                      "norm_", "add_"))}}
-               for k in ("A", "B", "C", "D", "E", "F", "G", "H", "I")]
+                                      "norm_", "add_", "rect_"))}}
+               for k in ("A", "B", "C", "D", "E", "F", "G", "H", "I", "J")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

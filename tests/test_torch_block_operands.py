@@ -138,6 +138,9 @@ CACHE_MODELS = {
     "hat": (("hat/photo", 4, -1),
             dict(hat_arch={"embed_dim": 60, "depths": (2,),
                            "num_heads": 2}), 32),
+    "dat": (("dat/photo", 4, -1),
+            dict(dat_arch={"embed_dim": 96, "depths": (2,),
+                           "num_heads": 6}), 32),
 }
 
 

@@ -1084,7 +1084,7 @@ def test_fuse_frame_720p_against_the_chunked_render():
     second = fused.render(frame)
     made = {k: w.launches - before[k] for k, w in counters.items()}
     assert made == {"A": 0, "B": 20, "C": 1, "D": 0, "E": 0, "F": 0, "G": 0,
-                    "H": 0, "I": 0}
+                    "H": 0, "I": 0, "J": 0}
     assert first.shape == (2880, 5120, 3)
     np.testing.assert_array_equal(first, second)
     assert np.abs(first.astype(int) - want.astype(int)).max() <= 1
@@ -1627,5 +1627,110 @@ def test_cunet_chunk_captured_launches_h():
     first = prog(x)
     (graph,) = prog.graphs.values()
     assert graph.launches == {"launches_H": 22}
+    second = prog(x)
+    assert torch.equal(first, want) and torch.equal(second, want)
+
+
+@pytest.mark.parametrize("bhw", [(2, 64, 96), (16, 256, 256)],
+                         ids=["2x64x96", "cell-16x256x256"])
+@pytest.mark.parametrize("shift", [(0, 0), (4, 16)],
+                         ids=["unshifted", "shifted"])
+def test_kernel_g_rect_matches_its_twin(shift, bhw):
+    """Kernel G on DAT's split windows (heads 0-2 in 8 x 32 windows, 3-5
+    in 32 x 8, C 180) in bf16 against its plain twin by the bf16 rule,
+    unshifted and shifted (every window of the last row and column
+    wraps), at a small map and at the DAT cell's chunk, and with scores
+    past 100 (q and k 4x larger); one launch counted each call, also in
+    ``rect_launches``."""
+    from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
+
+    b, h, w = bhw
+    g = torch.Generator(device="cuda").manual_seed(h + shift[0])
+    qkv = torch.randn((b, h, w, 540), generator=g, device="cuda")
+    table = 0.5 * torch.randn((ha.table_rows(ha.RECT, 0), 6), generator=g,
+                              device="cuda")
+    kw = {"num_heads": 6, "window": ha.RECT, "shift": shift, "split": True}
+    for scale in (1.0, 4.0):
+        x = qkv.clone()
+        x[..., :360] *= scale
+        before = (ha.hat_attention.launches, ha.hat_attention.rect_launches)
+        k16 = ha.hat_attention(x.bfloat16(), table, **kw).float()
+        assert (ha.hat_attention.launches,
+                ha.hat_attention.rect_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+        p16 = ha.hat_attention_plain(x.bfloat16(), table, **kw).float()
+        p32 = ha.hat_attention_plain(x, table, **kw)
+        e_k = float((k16 - p32).abs().max())
+        e_p = float((p16 - p32).abs().max())
+        assert e_k <= max(2 * e_p, 0.02), (scale, e_k, e_p)
+        del x, k16, p16, p32
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 256), (3, 37, 29), (1, 8, 8)],
+                         ids=["cell-16x256x256", "3x37x29", "1x8x8"])
+def test_kernel_j_matches_its_twin(shape):
+    """Kernel J (DAT's channel attention, C 180, 6 heads of 30) in bf16
+    against its plain twin by the bf16 rule, at the DAT cell's chunk, at
+    token counts that leave the last slice and apply block partly empty,
+    and at fewer tokens than one; temperatures 1 to 16; the same bytes
+    on a second call (fixed-order sums, no float atomics); one call
+    counted."""
+    from waifu2x_tensorrt_tpu_torch.ops import channel_attention as ca
+
+    b, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(h * w)
+    qkv = torch.randn((b, h, w, 540), generator=g, device="cuda")
+    qkv[..., :360] += 0.5 * torch.randn((b, 1, 1, 360), generator=g,
+                                        device="cuda")  # correlated q, k
+    tau = torch.tensor([1.0, 2.0, 4.0, 8.0, 12.0, 16.0], device="cuda")
+    before = ca.channel_attention.launches
+    k16 = ca.channel_attention(qkv.bfloat16(), tau, num_heads=6)
+    again = ca.channel_attention(qkv.bfloat16(), tau, num_heads=6)
+    assert ca.channel_attention.launches == before + 2
+    assert torch.equal(k16, again)
+    p16 = ca.channel_attention_plain(qkv.bfloat16(), tau, num_heads=6)
+    p32 = ca.channel_attention_plain(qkv, tau, num_heads=6)
+    e_k = float((k16.float() - p32).abs().max())
+    e_p = float((p16.float() - p32).abs().max())
+    assert e_k <= max(2 * e_p, 0.02), (e_k, e_p)
+
+
+def test_kernel_j_refuses_what_it_does_not_take():
+    from waifu2x_tensorrt_tpu_torch.ops import channel_attention as ca
+
+    tau = torch.ones(6, device="cuda")
+    with pytest.raises(TypeError, match="bf16 only"):
+        ca.channel_attention(torch.zeros((1, 8, 8, 540), device="cuda"),
+                             tau, num_heads=6)
+    with pytest.raises(ValueError, match="heads"):
+        ca.channel_attention(torch.zeros((1, 8, 8, 540), device="cuda",
+                                         dtype=torch.bfloat16),
+                             torch.ones(3, device="cuda"), num_heads=3)
+
+
+def test_dat_chunk_captured_is_the_eager_chunk():
+    """A DAT chunk at full width (one group of a spatial and a channel
+    block, bf16, 2 tiles of 64) through its captured program: replays
+    give the bytes of the eager call and record kernel G's launch (1, on
+    split rectangular windows), kernel J's call (1) and kernel I's
+    launches (6: before_RG.1, the 2 LN1, the 2 LN2 and the final norm)."""
+    from waifu2x_tensorrt_tpu_torch.engine import exe_cache
+    from waifu2x_tensorrt_tpu_torch.models import registry
+
+    module, _ = registry.create_model(
+        "dat/photo", 4, -1, dtype=torch.bfloat16, device="cuda",
+        dat_arch={"depths": (2,)})
+    registry.load_into(module, registry.init_params(module, seed=1))
+    exe_cache.configure("models", "cuda:0")
+    prog = exe_cache.cached_program(module, tag="model|dat-test")
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(
+        5)).cuda().bfloat16()
+    with torch.inference_mode():
+        want = module(x)
+    first = prog(x)
+    (graph,) = prog.graphs.values()
+    assert graph.launches == {"launches_G": 1, "rect_G": 1,
+                              "launches_J": 1, "launches_I": 6}
     second = prog(x)
     assert torch.equal(first, want) and torch.equal(second, want)

@@ -22,7 +22,16 @@ digest of the output's bytes:
   its captured chunk programs, bf16 and fp32. fp32 runs with cuDNN's
   deterministic algorithms: the one cuDNN picks by default for UNet1's
   fp32 transposed-conv head sums in an order that changes from call to
-  call, so without them two fp32 runs of one version differ.
+  call, so without them two fp32 runs of one version differ;
+- HAT (where the version has it), bf16: kernel G self (shift 0 and 8)
+  and overlapping on ``chip_smoke._hat_inputs`` at (16, 256, 256, 540),
+  kernel I's three variants (where the version has it: y and n) at
+  ``chip_smoke.NORM_SHAPE``, and hat/photo on ``registry.init_params``
+  (seed 1), two groups of two HABs, called eagerly on a seeded chunk of
+  4 tiles of 64;
+- DAT (where the version has it), bf16: kernel G on the split windows,
+  shift 0 and (4, 16), kernel J, on the same qkv, and dat/photo the same
+  way as HAT (two groups of two blocks).
 
 bf16 (the default) runs the bf16 and integer paths; fp32 the fp32 ones
 (TF32 off). ``--root DIR`` imports ``waifu2x_tensorrt_tpu_torch`` from DIR
@@ -142,7 +151,60 @@ def main() -> int:
             a8, b8, abf, bbf = ip.make_inputs(m, k, n, rng, "cuda")
             for label, a, b in (("bf16", abf, bbf), ("int8", a8, b8)):
                 show(f"F {shape} {label}", mma_probe(ip.stack2(a), b, 5))
+        _hat_and_dat(cs, torch, show)
     return 0
+
+
+def _hat_and_dat(cs, torch, show):
+    from waifu2x_tensorrt_tpu_torch.models import registry
+
+    try:
+        from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
+    except ImportError:  # a version without kernel G
+        return
+    tiles = torch.rand((4, 64, 64, 3), generator=torch.Generator(
+    ).manual_seed(16)).cuda().bfloat16()
+    qkv = None
+    for shift, ov in ((0, 0), (8, 0), (0, 4)):
+        qkv, table = cs._hat_inputs(torch, 16, 256, 256, 180, 6, ov,
+                                    seed=ov + shift)
+        qkv = qkv.bfloat16()
+        show(f"G hat shift {shift} overlap {ov}", ha.hat_attention(
+            qkv, table, num_heads=6, shift=shift, overlap=ov))
+    try:
+        from waifu2x_tensorrt_tpu_torch.ops import hat_norm as hn
+    except ImportError:  # a version without kernel I
+        hn = None
+    for mode, variant in enumerate(cs.NORM_MAPS if hn else ()):
+        x, r, z, s, w, b = cs._add_norm_inputs(torch, cs.NORM_SHAPE,
+                                               variant, seed=18 + mode)
+        y, n = hn.add_norm(x, r, w, b, 1e-5, z=z, s=s)
+        show(f"I {variant} y", y)
+        show(f"I {variant} n", n)
+        del x, r, z, s, w, b, y, n
+    families = [("hat/photo", {"hat_arch": {"depths": (2, 2)}})]
+    if hasattr(ha, "RECT"):
+        from waifu2x_tensorrt_tpu_torch.ops import channel_attention as ca
+
+        g = torch.Generator(device="cuda").manual_seed(21)
+        table = 0.2 * torch.randn((ha.table_rows(ha.RECT, 0), 6),
+                                  generator=g, device="cuda")
+        for shift in ((0, 0), (4, 16)):
+            show(f"G dat shift {shift}", ha.hat_attention(
+                qkv, table, num_heads=6, window=ha.RECT, shift=shift,
+                split=True))
+        show("J", ca.channel_attention(qkv, torch.full(
+            (6,), 8.0, device="cuda"), num_heads=6))
+        families.append(("dat/photo", {"dat_arch": {"depths": (2, 2)}}))
+    del qkv
+    torch.cuda.empty_cache()
+    for family, arch in families:
+        module, _ = registry.create_model(family, 4, -1,
+                                          dtype=torch.bfloat16,
+                                          device="cuda", **arch)
+        registry.load_into(module, registry.init_params(module, seed=1))
+        with torch.inference_mode():
+            show(f"model {family} bf16 (4, 64, 64, 3)", module(tiles))
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Times of kernels A to I through their wrappers on one NVIDIA GPU, by
+"""Times of kernels A to J through their wrappers on one NVIDIA GPU, by
 ``chip_smoke.py``'s method, from this or another version of the package.
 
     python3 tools/kernel_times.py [--root DIR]
@@ -45,7 +45,12 @@ shapes, each beside its bound and its share of it:
   on the hat4x-480p-stream cell's chunk (``chip_smoke.NORM_SHAPE``:
   (16, 256, 256, 180) bf16) in each variant (the norm alone, the add, the
   scaled add), beside its plain twin and ``F.layer_norm`` alone on the
-  same map.
+  same map;
+- G on DAT's split windows (where the version has them: heads 0-2 in 8 x
+  32 windows, 3-5 in 32 x 8, shifted by (4, 16)) and J (DAT's channel
+  attention, where the version has it) in bf16 on the dat4x-480p-stream
+  cell's (16, 256, 256, 540) qkv, 6 heads of 30, each beside its plain
+  twin on the card.
 
 It goes through the wrappers only, so ``--root DIR`` can import
 ``waifu2x_tensorrt_tpu_torch`` from an unpacked other version (``git
@@ -239,7 +244,37 @@ def main() -> int:
              lambda: F.layer_norm(x, (c,), w, b, 1e-5), "F.layer_norm")
         del x, r, z, s, w, b
         torch.cuda.empty_cache()
+    if hasattr(ha, "RECT"):
+        _dat_kernels(cs, torch, ha, show)
     return 0
+
+
+def _dat_kernels(cs, torch, ha, show):
+    """G's row on DAT's split windows, shifted, and J's row."""
+    from waifu2x_tensorrt_tpu_torch.ops import channel_attention as ca
+
+    qkv, _ = cs._hat_inputs(torch, 16, 256, 256, 180, 6, 0, seed=21)
+    q16 = qkv.bfloat16()
+    del qkv
+    g = torch.Generator(device="cuda").manual_seed(21)
+    table = 0.2 * torch.randn((ha.table_rows(ha.RECT, 0), 6), generator=g,
+                              device="cuda")
+    kw = {"num_heads": 6, "window": ha.RECT, "shift": (4, 16),
+          "split": True}
+    pm = cs._median_ms(lambda: ha.hat_attention_plain(q16, table, **kw),
+                       iters=3, warmup=1)
+    show(f"kernel G-rect bf16 8x32 / 32x8 shift (4, 16) (16, 256, 256, "
+         f"540), plain twin {pm:.4f} ms",
+         lambda: ha.hat_attention(q16, table, **kw),
+         cs._hat_work(16, 256, 256, 180, 6, 0))
+    tau = torch.full((6,), 8.0, device="cuda")
+    pm = cs._median_ms(lambda: ca.channel_attention_plain(q16, tau,
+                                                          num_heads=6),
+                       iters=3, warmup=1)
+    tokens = 16 * 256 * 256
+    show(f"kernel J bf16 (16, 256, 256, 540), plain twin {pm:.4f} ms",
+         lambda: ca.channel_attention(q16, tau, num_heads=6),
+         (tokens * 4 * 180 * 2, 2 * 2 * tokens * 180 * 30, 0))
 
 
 def _kernel_g(cs, torch, ha, show):

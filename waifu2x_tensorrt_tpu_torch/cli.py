@@ -2,8 +2,8 @@
 videos and ``build`` of engines, with the reference's flags
 (src/main.cpp:17-154), the port of ``waifu2x_tensorrt_tpu.cli``.
 
-Ported: --model (cunet/art, the swin_unet families, and hat/photo, the
-port's own 4x HAT) --scale --noise
+Ported: --model (cunet/art, the swin_unet families, and hat/photo and
+dat/photo, the port's own 4x HAT and DAT) --scale --noise
 --batchSize --tileSize (64, 128, 256, 400, 640, and 0 for the whole frame
 as one tile) --blend --tta --bucket --precision --device (an index, or
 ``cpu``) --models-dir --allow-random-weights, and ``render -i ... [-o DIR]
@@ -21,8 +21,8 @@ validates them, in its order and with its exit code -1 (model,
 [0, 51], the -o directory), and ``build`` and the render loop give its
 messages and exit codes. ``--dp``, ``--multihost`` and ``--tileSize auto``
 are parsed and rejected with exit code 2 saying "not yet ported", as are
-``--precision tf32`` and ``--graph-exact`` with hat/photo
-(``registry.refused_option``: its kernel G is bf16 only).
+``--precision tf32`` and ``--graph-exact`` with hat/photo and dat/photo
+(``registry.refused_option``: their kernels G and J are bf16 only).
 
 Device frames reach the writers through ``fetch_async``: each output's
 copy into pinned host memory is queued behind its render, and the video

@@ -287,17 +287,17 @@ class Upscaler:
     def _refuse(self, family, scale, noise, config, graph_exact,
                 pack_x=False) -> None:
         """Raise, naming the option, where the family cannot run with it
-        (``registry.refused_option``: hat/photo is bf16 only, from its
-        ``.npz``, with the pixel head)."""
+        (``registry.refused_option``, with the family's reason:
+        hat/photo and dat/photo are bf16 only, from their ``.npz``, with
+        the pixel head)."""
         stem = registry.weights_path(self.models_dir, family, scale, noise)
         onnx = not stem.exists() and stem.with_suffix(".onnx").exists()
         option = registry.refused_option(
             family, fp32=config.precision is Precision.TF32,
             graph_exact=graph_exact, onnx=onnx, pack_x=pack_x)
         if option is not None:
-            raise ValueError(f"{option}: not yet ported for {family} (its "
-                             "attention kernel G is bf16 only and it "
-                             "serves from .npz weights with the pixel head)")
+            raise ValueError(f"{option}: not yet ported for {family} "
+                             f"({registry.refusal_reason(family)})")
 
     def _resolve_model(self, family, scale, noise, config, device,
                        fused_block, graph_exact):
@@ -311,7 +311,7 @@ class Upscaler:
                                        config, device, fused_block,
                                        graph_exact)
         arch = (registry.checkpoint_arch(stem) if stem.exists()
-                and family.startswith(("swin_unet", "hat")) else {})
+                and registry.widths_from_file(family) else {})
         module, spec = registry.create_model(
             family, scale, noise, dtype=config.precision.dtype,
             fused_block=fused_block, device=device, **arch)

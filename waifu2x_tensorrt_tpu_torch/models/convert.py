@@ -43,6 +43,9 @@ __all__ = [
     "cunet_from_onnx",
     "cunet_from_torch",
     "cunet_mapping",
+    "dat_arch_from_flax",
+    "dat_from_torch",
+    "dat_mapping",
     "dense_weight",
     "hat_arch_from_flax",
     "hat_mapping",
@@ -50,6 +53,7 @@ __all__ = [
     "inv_conv_weight",
     "inv_dense_weight",
     "is_cunet_tree",
+    "is_dat_tree",
     "is_hat_tree",
     "params_from_flax",
     "state_from_flax",
@@ -303,7 +307,109 @@ def hat_mapping(depths=(6,) * 6) -> list[tuple[str, str, str]]:
 
 def is_hat_tree(keys) -> bool:
     """True for the flat tree (or its keys) of a HAT model."""
-    return any(k.startswith("layers/") for k in keys)
+    return any(k.startswith("layers/") and "/residual_group/" in k
+               for k in keys)
+
+
+BN_EPS = 1e-5  # DAT's BatchNorm2d eps
+
+
+def dat_mapping(depths=(6,) * 6) -> list[tuple[str, str, str]]:
+    """(torch_path, flax_path, kind) for DAT (``models/dat.py``), whose
+    torch paths are those of DAT's own state dict (zhengchen1999/DAT
+    ``dat_arch.py``): the flat path is the torch path '/'-joined. kind:
+    conv | dense | norm | bn | table; the interaction maps' 1x1 convs are
+    dense, a BatchNorm (``bn``) is held folded (flat ``scale`` and
+    ``bias``, ``dat_from_torch``), a DCTB's ``temperature`` is a table
+    (copied as it is)."""
+    names: list[tuple[str, str]] = [("conv_first", "conv"),
+                                    ("before_RG.1", "norm")]
+    aim = [("attn.qkv", "dense"), ("attn.proj", "dense"),
+           ("attn.dwconv.0", "conv"), ("attn.dwconv.1", "bn"),
+           ("attn.channel_interaction.1", "dense"),
+           ("attn.channel_interaction.2", "bn"),
+           ("attn.channel_interaction.4", "dense"),
+           ("attn.spatial_interaction.0", "dense"),
+           ("attn.spatial_interaction.1", "bn"),
+           ("attn.spatial_interaction.3", "dense")]
+    pos = [("pos_proj", "dense"), ("pos1.0", "norm"), ("pos1.2", "dense"),
+           ("pos2.0", "norm"), ("pos2.2", "dense"), ("pos3.0", "norm"),
+           ("pos3.2", "dense")]
+    ffn = [("norm2", "norm"), ("ffn.fc1", "dense"), ("ffn.sg.norm", "norm"),
+           ("ffn.sg.conv", "conv"), ("ffn.fc2", "dense")]
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            b = f"layers.{i}.blocks.{j}"
+            names += [(f"{b}.norm1", "norm")]
+            names += [(f"{b}.{n}", k) for n, k in aim]
+            if j % 2 == 0:
+                names += [(f"{b}.attn.attns.{a}.pos.{n}", k)
+                          for a in range(2) for n, k in pos]
+            else:
+                names.append((f"{b}.attn.temperature", "table"))
+            names += [(f"{b}.{n}", k) for n, k in ffn]
+        names.append((f"layers.{i}.conv", "conv"))
+    names += [("norm", "norm"), ("conv_after_body", "conv"),
+              ("conv_before_upsample.0", "conv")]
+    names += [("upsample.0", "conv"), ("upsample.2", "conv"),
+              ("conv_last", "conv")]
+    return [(src, src.replace(".", "/"), kind) for src, kind in names]
+
+
+def is_dat_tree(keys) -> bool:
+    """True for the flat tree (or its keys) of a DAT model."""
+    return any(k.startswith("before_RG/") for k in keys)
+
+
+def dat_arch_from_flax(flat: Mapping[str, np.ndarray]) -> dict:
+    """``models.dat.DAT``'s widths of a flat DAT tree: width, heads (twice
+    a branch's position-MLP outputs) and expansion from the first block's
+    arrays, the group depths counted from its keys."""
+    depths: dict[int, int] = {}
+    for key in flat:
+        m = re.match(r"layers/(\d+)/blocks/(\d+)/", key)
+        if m:
+            i, j = int(m.group(1)), int(m.group(2))
+            depths[i] = max(depths.get(i, 0), j + 1)
+    b = "layers/0/blocks/0"
+    c = int(flat["conv_first/kernel"].shape[-1])
+    heads = flat[f"{b}/attn/attns/0/pos/pos3/2/kernel"].shape[-1]
+    return {"embed_dim": c,
+            "depths": tuple(depths[i] for i in sorted(depths)),
+            "num_heads": 2 * int(heads),
+            "expansion": int(flat[f"{b}/ffn/fc1/kernel"].shape[-1]) // c}
+
+
+def dat_from_torch(state_dict: Mapping[str, "object"],
+                   depths=(6,) * 6) -> dict[str, np.ndarray]:
+    """Flat flax dict of a DAT checkpoint's state dict (DAT's own names;
+    buffers such as ``rpe_biases``, ``relative_position_index``,
+    ``attn_mask_*`` and ``num_batches_tracked`` are not read). A
+    BatchNorm is folded into its inference form: ``scale`` = weight /
+    sqrt(running_var + 1e-5), ``bias`` = bias - running_mean scale."""
+    flat: dict[str, np.ndarray] = {}
+    for src, dst, kind in dat_mapping(depths):
+        if kind == "table":
+            flat[dst] = _to_np(state_dict[src]).astype(np.float32)
+            continue
+        w = _to_np(state_dict[f"{src}.weight"]).astype(np.float64)
+        b = _to_np(state_dict[f"{src}.bias"]).astype(np.float64)
+        if kind == "bn":
+            var = _to_np(state_dict[f"{src}.running_var"]).astype(np.float64)
+            mean = _to_np(state_dict[f"{src}.running_mean"]).astype(
+                np.float64)
+            scale = w / np.sqrt(var + BN_EPS)
+            flat[f"{dst}/scale"] = scale.astype(np.float32)
+            flat[f"{dst}/bias"] = (b - mean * scale).astype(np.float32)
+            continue
+        if kind == "conv":
+            flat[f"{dst}/kernel"] = conv_weight(w.astype(np.float32))
+        elif kind == "dense":
+            flat[f"{dst}/kernel"] = dense_weight(w.astype(np.float32))
+        else:  # norm
+            flat[f"{dst}/scale"] = w.astype(np.float32)
+        flat[f"{dst}/bias"] = b.astype(np.float32)
+    return flat
 
 
 def hat_arch_from_flax(flat: Mapping[str, np.ndarray]) -> dict:
@@ -344,7 +450,7 @@ def state_from_flax(flat: Mapping[str, np.ndarray],
             if ".conv.4." in src:  # SE blocks are 1x1 convs upstream
                 w = w[:, :, None, None]
             state[f"{src}.weight"] = np.ascontiguousarray(w)
-        elif kind == "norm":
+        elif kind in ("norm", "bn"):  # a bn is held folded
             state[f"{src}.weight"] = np.asarray(flat[f"{dst}/scale"])
         bias = flat.get(f"{dst}/bias")
         if bias is not None:

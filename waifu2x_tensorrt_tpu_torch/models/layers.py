@@ -1,7 +1,7 @@
 """The models' layer math on NHWC activations, over operands cast once.
 
-Every model of the port (``swin_unet``, ``cunet``, ``hat``) runs its
-layers through these helpers: a conv on a ``channels_last`` NCHW view of
+Every model of the port (``swin_unet``, ``cunet``, ``hat``, ``dat``) runs
+its layers through these helpers: a conv on a ``channels_last`` NCHW view of
 the (B, H, W, C) activation (no copy either way), a linear map, a
 LayerNorm, and the depth-to-space ``pixel_shuffle`` (``ops/kernel_math``,
 which kernel D's twin shares). Parameters stay float32 as loaded; each
@@ -62,14 +62,17 @@ def weights(layer: nn.Module, dtype: torch.dtype):
     return cached(layer, dtype, build)
 
 
-def conv(x, layer: nn.Module, *, bias: bool = True):
-    """NHWC conv, or transposed conv for an ``nn.ConvTranspose2d``; with
-    ``bias=False`` the bias is left to an epilogue (cunet's kernel H)."""
-    w, b = weights(layer, x.dtype)
+def conv(x, layer: nn.Module, *, bias: bool = True, operands=None):
+    """NHWC conv, or transposed conv for an ``nn.ConvTranspose2d``, with
+    the layer's stride, padding and groups; with ``bias=False`` the bias
+    is left to an epilogue (cunet's kernel H); ``operands``: the (weight,
+    bias) in x's dtype to apply in place of the layer's own (DAT's convs
+    with their BatchNorm folded in)."""
+    w, b = operands if operands is not None else weights(layer, x.dtype)
     fn = (F.conv_transpose2d if isinstance(layer, nn.ConvTranspose2d)
           else F.conv2d)
     y = fn(x.permute(0, 3, 1, 2), w, b if bias else None,
-           stride=layer.stride, padding=layer.padding)
+           stride=layer.stride, padding=layer.padding, groups=layer.groups)
     return y.permute(0, 2, 3, 1)
 
 

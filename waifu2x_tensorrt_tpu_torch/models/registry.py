@@ -23,10 +23,16 @@ MODEL_FAMILIES = (
     "swin_unet/photo",
 )
 # families of the port alone (the JAX package has no counterpart), beside
-# the reference's surface above
-PORT_FAMILIES = (
-    "hat/photo",
-)
+# the reference's surface above: each a 4x model without denoising, by
+# its tile divisor (tiles are whole windows: nothing is padded inside)
+# and the reason it refuses what ``refused_option`` names
+_PORT = {
+    "hat/photo": (16, "its attention kernel G is bf16 only and it serves "
+                      "from .npz weights with the pixel head"),
+    "dat/photo": (32, "its attention kernels G and J are bf16 only and it "
+                      "serves from .npz weights with the pixel head"),
+}
+PORT_FAMILIES = tuple(_PORT)
 FAMILIES = MODEL_FAMILIES + PORT_FAMILIES
 
 NOISE_LEVELS = (-1, 0, 1, 2, 3)
@@ -68,8 +74,8 @@ def validate(family: str, scale: int, noise: int) -> None:
         raise ValueError("cunet/art does not support scale factor 4.")
     if noise == -1 and scale == 1:
         raise ValueError("Noise level -1 does not support scale factor 1.")
-    if family == "hat/photo" and (scale, noise) != (4, -1):
-        raise ValueError("hat/photo is a 4x model without denoising: "
+    if family in PORT_FAMILIES and (scale, noise) != (4, -1):
+        raise ValueError(f"{family} is a 4x model without denoising: "
                          "scale 4 and noise -1 only.")
 
 
@@ -77,9 +83,11 @@ def refused_option(family: str, *, fp32: bool = False,
                    graph_exact: bool = False, onnx: bool = False,
                    pack_x: bool = False) -> Optional[str]:
     """The first option the family cannot run with, by its CLI name, or
-    None. hat/photo runs kernel G, which is bf16 only, through its own
-    modules: no ``--precision tf32``, no ``.onnx`` artifact (``build``,
-    ``--graph-exact``) and no packed-x head."""
+    None. The port's own families (hat/photo: kernel G; dat/photo:
+    kernels G and J; all bf16 only) run through their own modules: no
+    ``--precision tf32``, no ``.onnx`` artifact (``build``,
+    ``--graph-exact``) and no packed-x head (``refusal_reason`` says
+    why)."""
     if family not in PORT_FAMILIES:
         return None
     for hit, name in ((fp32, "--precision tf32"),
@@ -91,14 +99,27 @@ def refused_option(family: str, *, fp32: bool = False,
     return None
 
 
+def refusal_reason(family: str) -> str:
+    """Why a family refuses the options ``refused_option`` names."""
+    return _PORT[family][1]
+
+
+def widths_from_file(family: str) -> bool:
+    """Does the family take its widths from its weight file
+    (``checkpoint_arch``)? Every family but cunet, whose widths are
+    fixed."""
+    return family.split("/")[0] != "cunet"
+
+
 def get_spec(family: str, scale: int, noise: int = -1) -> ModelSpec:
     validate(family, scale, noise)
     if family.split("/")[0] == "cunet":
         return ModelSpec(family, scale, noise, offset={1: 28, 2: 36}[scale],
                          tile_divisor=4)
-    if family.split("/")[0] == "hat":
-        # no padding inside: tiles are whole 16 x 16 windows
-        return ModelSpec(family, scale, noise, offset=0, tile_divisor=16)
+    if family in PORT_FAMILIES:
+        # no padding inside: tiles are whole windows
+        return ModelSpec(family, scale, noise, offset=0,
+                         tile_divisor=_PORT[family][0])
     # swin_unet pads internally to /32; any tile size works, offset 0
     return ModelSpec(family, scale, noise, offset=0, tile_divisor=1)
 
@@ -119,13 +140,15 @@ def create_model(family: str, scale: int, noise: int = -1,
                  base_dim: Optional[int] = None,
                  depths: Optional[tuple] = None,
                  device=None, packed_x_head: bool = False,
-                 hat_arch: Optional[dict] = None):
+                 hat_arch: Optional[dict] = None,
+                 dat_arch: Optional[dict] = None):
     """Build the torch module + spec for a (family, scale, noise) choice.
 
     cunet/art gives ``CUNet`` (scale 1) or ``UpCUNet`` (scale 2); the
     swin_unet options below do not apply to it. hat/photo gives ``HAT``
     at its published widths, or those of ``hat_arch`` (``HAT``'s keyword
-    arguments, ``checkpoint_arch``); it has no packed-x head.
+    arguments, ``checkpoint_arch``), dat/photo ``DAT`` at its published
+    widths or those of ``dat_arch``; neither has a packed-x head.
     ``fused_block`` routes every Swin block through kernel B
     (ops/swin_block.py); otherwise the blocks are dense math around
     kernel A (ops/window_attention.py).
@@ -133,15 +156,18 @@ def create_model(family: str, scale: int, noise: int = -1,
     (2, 2, 6, 2, 2)). ``packed_x_head`` (scale > 1 only) gives the
     packed-x head (``packed_x_twin``)."""
     from waifu2x_tensorrt_tpu_torch.models.cunet import CUNet, UpCUNet
+    from waifu2x_tensorrt_tpu_torch.models.dat import DAT
     from waifu2x_tensorrt_tpu_torch.models.hat import HAT
     from waifu2x_tensorrt_tpu_torch.models.swin_unet import SwinUNet
 
     spec = get_spec(family, scale, noise)
-    if spec.arch == "hat":
+    if family in PORT_FAMILIES:
         if packed_x_head:
             raise ValueError(f"{family} has no packed-x head")
-        module = HAT(dtype=dtype or torch.float32, device=device,
-                     **(hat_arch or {})).eval()
+        cls, arch = (HAT, hat_arch) if spec.arch == "hat" else (DAT,
+                                                                 dat_arch)
+        module = cls(dtype=dtype or torch.float32, device=device,
+                     **(arch or {})).eval()
         return module, spec
     if spec.arch == "cunet":
         module = (CUNet if scale == 1 else UpCUNet)(
@@ -174,16 +200,20 @@ def _mapping(module) -> list[tuple[str, str, str]]:
     """The (torch path, flax path, kind) table of the module."""
     from waifu2x_tensorrt_tpu_torch.models.convert import (
         cunet_mapping,
+        dat_mapping,
         hat_mapping,
         swin_mapping,
     )
     from waifu2x_tensorrt_tpu_torch.models.cunet import CUNet
+    from waifu2x_tensorrt_tpu_torch.models.dat import DAT
     from waifu2x_tensorrt_tpu_torch.models.hat import HAT
 
     if isinstance(module, CUNet):
         return cunet_mapping(module.scale)
     if isinstance(module, HAT):
         return hat_mapping(module.depths)
+    if isinstance(module, DAT):
+        return dat_mapping(module.depths)
     return swin_mapping(module.scale, module.depths)
 
 
@@ -203,7 +233,7 @@ def _flax_leaves(module) -> dict[str, tuple]:
             leaves[f"{dst}/kernel"] = (w[2], w[3], w[0], w[1])
         elif kind == "dense":  # torch (O, I[, 1, 1]) -> flax (I, O)
             leaves[f"{dst}/kernel"] = (w[1], w[0])
-        elif kind == "norm":
+        elif kind in ("norm", "bn"):
             leaves[f"{dst}/scale"] = w
         leaves[f"{dst}/bias"] = tuple(state[f"{src}.bias"].shape)
     return leaves
@@ -252,10 +282,13 @@ def checkpoint_arch(path: str | Path) -> dict:
     weight file at ``path``: the depths counted from its block keys, the
     width twice ``patch_conv1``'s output channels (flax kernel (3, 3, 3,
     base_dim / 2)); for a HAT file its ``hat_arch``
-    (``convert.hat_arch_from_flax``). Reads the keys and one array a
+    (``convert.hat_arch_from_flax``), for a DAT file its ``dat_arch``
+    (``convert.dat_arch_from_flax``). Reads the keys and one array a
     size only."""
     from waifu2x_tensorrt_tpu_torch.models.convert import (
+        dat_arch_from_flax,
         hat_arch_from_flax,
+        is_dat_tree,
         is_hat_tree,
         swin_depths_from_flax,
     )
@@ -263,6 +296,8 @@ def checkpoint_arch(path: str | Path) -> dict:
     with np.load(Path(path)) as data:
         if is_hat_tree(data.files):
             return {"hat_arch": hat_arch_from_flax(data)}
+        if is_dat_tree(data.files):
+            return {"dat_arch": dat_arch_from_flax(data)}
         return {"base_dim": 2 * int(data["patch_conv1/kernel"].shape[-1]),
                 "depths": swin_depths_from_flax(dict.fromkeys(data.files))}
 
@@ -292,9 +327,10 @@ def load_into(module, flat: dict[str, np.ndarray]) -> None:
         params_from_flax,
         state_from_flax,
     )
+    from waifu2x_tensorrt_tpu_torch.models.dat import DAT
     from waifu2x_tensorrt_tpu_torch.models.hat import HAT
 
-    if isinstance(module, HAT):
+    if isinstance(module, (HAT, DAT)):
         state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
                  for k, v in state_from_flax(flat, _mapping(module)).items()}
     else:

@@ -7,11 +7,14 @@
 - ``head_pack``        — kernel D: clamp + depth-to-space into packed-x16;
 - ``mma_probe``        — kernel F: the int8/bf16 tensor-core probe;
 - ``hat_attention``    — kernel G: HAT's window attention (self and
-                         overlapping windows) on the qkv activation;
+                         overlapping windows) and DAT's split rectangular
+                         windows on the qkv activation;
 - ``cunet_epilogue``   — kernel H: cunet's conv epilogue (bias, leaky
                          ReLU, cropped skip add, clamp) in one pass;
-- ``hat_norm``         — kernel I: HAT's residual sums and their LayerNorm
-                         in one pass;
+- ``hat_norm``         — kernel I: HAT's and DAT's residual sums and
+                         their LayerNorm in one pass;
+- ``channel_attention``— kernel J: DAT's channel attention on the qkv
+                         activation;
 - ``kernel_math``      — the exact math and mask law they share (torch);
 - ``build``            — nvcc build of ``csrc/`` into one ctypes library.
 
@@ -35,11 +38,14 @@ from waifu2x_tensorrt_tpu_torch.ops.window_attention import (  # noqa: F401
 
 
 def kernels() -> dict:
-    """The kernel wrappers by letter, A-I. Each counts its launches in
+    """The kernel wrappers by letter, A-J. Each counts its launches in
     ``.launches``; a wrapper with ``extra_counters`` ({name: attribute})
     counts some of them once more in each such attribute."""
     # imported here: a name bound in this package would hide the
     # submodule of the same name (``ops.hat_attention``)
+    from waifu2x_tensorrt_tpu_torch.ops.channel_attention import (
+        channel_attention,
+    )
     from waifu2x_tensorrt_tpu_torch.ops.cunet_epilogue import bias_act
     from waifu2x_tensorrt_tpu_torch.ops.finalize_epilogue import (
         finalize_gather,
@@ -55,4 +61,4 @@ def kernels() -> dict:
     return {"A": fused_window_attention_qkv, "B": fused_swin_block,
             "C": finalize_gather, "D": pack_head_x16,
             "E": fused_window_attention, "F": mma_probe, "G": hat_attention,
-            "H": bias_act, "I": add_norm}
+            "H": bias_act, "I": add_norm, "J": channel_attention}

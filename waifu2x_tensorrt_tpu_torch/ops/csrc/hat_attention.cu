@@ -1,11 +1,21 @@
-// Kernel G: HAT's window attention on the (B, H, W, 3C) qkv activation.
+// Kernel G: HAT's and DAT's window attention on the (B, H, W, 3C) qkv
+// activation.
 //
-// Replaces no TPU kernel: the JAX package has no HAT. Added because no
-// kernel of the port computes this attention (kernels A, B and E take
-// 64-token windows at head dim 32). Its plain twin is
+// Replaces no TPU kernel: the JAX package has neither model. Added
+// because no kernel of the port computes this attention (kernels A, B
+// and E take 64-token windows at head dim 32). Its plain twin is
 // ops/hat_attention.py hat_attention_plain.
 //
-// One CTA computes one head of one 16 x 16 query window (256 queries):
+// One CTA computes one head of one 256-query window. HAT's windows are
+// 16 x 16 (hat_attention_kernel); DAT's DSTB splits its heads
+// (hat_attention_rect_kernel): heads [0, nh / 2) attend in 8-row x
+// 32-column windows rolled by (sy, sx) = (4, 16) on shifted blocks, heads
+// [nh / 2, nh) in 32 x 8 windows rolled by (16, 4), each head's bias
+// column indexed (dy + wh - 1)(2 ww - 1) + dx + ww - 1 in its own
+// geometry (945 rows) and Swin's region law applied per axis. Both halves
+// have 256 queries and keys a window, so the core below (the geometry a
+// template parameter: Geo<WW, OV>, Window<WW>) is HAT's self attention
+// with other address and bias steps. HAT's 16 x 16 windows:
 //   self (OV = 0; HAT's HAB): the keys are the window's own 256 tokens of
 //     the map rolled by -shift; masked pairs (Swin's region law of the
 //     roll, windows of the last row / column) get -100 added, as HAT's
@@ -65,8 +75,11 @@
 // bias is one shared-memory load at a compile-time offset from a per-lane
 // base (bias_base, bias_step); only the windows that the roll wraps (the
 // last row and column of a shifted launch) evaluate the region mask.
-// Shared memory: 53 KB (self) and 96 KB (overlapping); 107 / 100
-// registers, 2 CTAs an SM.
+// Shared memory: 53 KB (self and split) and 96 KB (overlapping); 107 /
+// 100 / 117 registers, 2 CTAs an SM. A token's row and column in its
+// window are shifts and masks of its index (the column counts are powers
+// of two): the same math as signed divisions and remainders by WW cost
+// the self kernel 8 registers and 20% of its time.
 #include "attention_tc.cuh"
 
 namespace w2x {
@@ -74,8 +87,8 @@ namespace hat {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int WS = 16;             // query window side
-constexpr int NQ = WS * WS;        // queries a window
+constexpr int WS = 16;             // HAT's (square) query window side
+constexpr int NQ = WS * WS;        // queries a window, of every geometry
 constexpr int HDP = 32;            // head dim as padded in shared memory
 constexpr int ROW_WORDS = HDP / 2; // 32-bit words a shared-memory row
 constexpr int THREADS = 256;
@@ -83,18 +96,28 @@ constexpr int WARPS = THREADS / 32;
 constexpr int KB = 64;             // keys a score block
 constexpr float MASK = -100.f;     // HAT's score between regions
 
-template <int OV>
+// A geometry: query windows of WH x WW tokens (WW columns: 16 for HAT,
+// 32 or 8 for DAT's two branches), self (OV = 0) or overlapping keys.
+template <int WW, int OV>
 struct Geo {
-  static constexpr int WE = WS + 2 * OV;  // key window side
-  static constexpr int NK = WE * WE;      // keys a window
-  static constexpr int TW = WS + WE - 1;  // bias table side
-  static constexpr int NT = TW * TW;      // bias table rows
+  static constexpr int WH = NQ / WW;      // query window rows
+  static constexpr int WE = WS + 2 * OV;  // overlapping key window side
+  static constexpr int NK = OV ? WE * WE : NQ;     // keys a window
+  static constexpr int TW = OV ? WS + WE - 1 : 2 * WW - 1;  // table row
+  static constexpr int NT = OV ? TW * TW : (2 * WH - 1) * TW;  // rows
   static constexpr int NKB = NK / KB;
   // staged table entry = HAT's index + SHIFT (overlapping: all >= 0)
   static constexpr int SHIFT = OV ? (WE - 2) * (TW + 1) : 0;
   static constexpr int SMEM = (NQ + 2 * NK) * HDP * 2 + NT * 4;
   static_assert(NK % KB == 0, "whole key blocks");
+  static_assert(WW == 8 || WW == 16 || WW == 32, "8, 16 or 32 columns");
+  static_assert(OV == 0 || WW == WS, "overlapping windows are square");
 };
+
+// log2 of a window's columns: token i of a window is (i >> LOG, i & (WW -
+// 1)), shifts and masks as in the square kernel's first version.
+template <int WW>
+constexpr int LOG = WW == 8 ? 3 : WW == 16 ? 4 : 5;
 
 // Element offset of 16-byte chunk ch (0..3) of shared-memory row r: the
 // chunks of a row are XOR-swizzled by (r / 2) % 4, so the 8 rows that one
@@ -123,13 +146,15 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Where one window's tokens lie in the activation.
+// Where one WH x WW window's tokens lie in the activation.
+template <int WW>
 struct Window {
-  int b, wy, wx, h, w, shift;
-  // token index (b, y, x) of query i: the rolled map's (16 wy + i / 16,
-  // 16 wx + i % 16), read from (row + shift) mod h, (col + shift) mod w
+  static constexpr int WH = NQ / WW;
+  int b, wy, wx, h, w, sy, sx;
+  // token index (b, y, x) of query i: the rolled map's (WH wy + i / WW,
+  // WW wx + i % WW), read from (row + sy) mod h, (col + sx) mod w
   __device__ __forceinline__ int query_token(int i) const {
-    int y = wy * WS + (i >> 4) + shift, x = wx * WS + (i & 15) + shift;
+    int y = wy * WH + (i >> LOG<WW>) + sy, x = wx * WW + (i & (WW - 1)) + sx;
     if (y >= h) y -= h;
     if (x >= w) x -= w;
     return (b * h + y) * w + x;
@@ -156,54 +181,68 @@ struct Window {
 // table entry bias_base(...) + bias_step(j, e): a per-lane base for the
 // block and a compile-time step, so the gather is one load at an
 // immediate offset.
-//   self: query (qy, qx) = (r0 / 16, g + 8 (e >> 1)), key (4 kb + j / 2,
-//     8 (j & 1) + 2 t + (e & 1)); row (qy - ky + 15) 31 + qx - kx + 15;
+//   self: query (qy, qx) = (r0 / WW, r0 % WW + g + 8 (e >> 1)) for WW
+//     16 or 32 (a 16-row block lies in one window row), (r0 / 8 + (e >>
+//     1), g) for WW 8; key (64 kb + 8 j) / WW, (8 j) % WW + 2 t + (e & 1));
+//     row (qy - ky + WH - 1)(2 WW - 1) + qx - kx + WW - 1 (HAT's 16 x 16:
+//     (qy - ky + 15) 31 + qx - kx + 15);
 //   overlapping: key (8 (kb / 3) + j, 8 (kb % 3) + 2 t + (e & 1)) of the
 //     24 x 24 window; row (ey - qy - 7) 39 + ex - qx - 7 + 880 of the
 //     table as staged: HAT's index, whose negative values count from the
 //     end, shifted by 880 = 22 * 40 so that every one is a plain index.
-template <int OV>
-__device__ __forceinline__ int bias_base(int qy, int g, int t, int kb) {
-  using G = Geo<OV>;
+template <int WW, int OV>
+__device__ __forceinline__ int bias_base(int r0, int g, int t, int kb) {
+  using G = Geo<WW, OV>;
   if constexpr (OV == 0) {
-    return (qy - 4 * kb + WS - 1) * G::TW + g - 2 * t + WS - 1;
+    // r0 is a multiple of 16: at 16 columns qx is 0
+    const int qy = r0 >> (WW >= 16 ? LOG<WW> : 3);
+    const int qx = WW > 16 ? (r0 & (WW - 1)) : 0;
+    return (qy - kb * (KB / WW) + G::WH - 1) * G::TW + qx + g - 2 * t + WW -
+           1;
   } else {
+    const int qy = r0 >> 4;
     return (8 * (kb / 3) - qy + WS - G::WE + 1) * G::TW + 8 * (kb % 3) +
            2 * t - g + WS - G::WE + 1 + G::SHIFT;
   }
 }
 
-template <int OV>
+template <int WW, int OV>
 __device__ __forceinline__ constexpr int bias_step(int j, int e) {
   if constexpr (OV == 0) {
-    return -Geo<OV>::TW * (j >> 1) - 8 * (j & 1) - (e & 1) + 8 * (e >> 1);
+    const int qy = WW == 8 ? (e >> 1) : 0, qx = WW == 8 ? 0 : 8 * (e >> 1);
+    return (qy - 8 * j / WW) * Geo<WW, OV>::TW + qx - 8 * j % WW - (e & 1);
   } else {
-    return Geo<OV>::TW * j + (e & 1) - 8 * (e >> 1);
+    return Geo<WW, OV>::TW * j + (e & 1) - 8 * (e >> 1);
   }
 }
 
 // Scores of this warp's 16 rows (r0..) against key block kb: the bias
 // (MASKED: plus -100 where Swin's region law of the roll parts query and
-// key, in the last row / column of windows, edge = 16 - shift) and then
-// + (q * scale) k^T, in the accumulator layout.
-template <int OV, bool MASKED>
+// key, in the last row / column of windows, edges (WH - sy, WW - sx))
+// and then + (q * scale) k^T, in the accumulator layout.
+template <int WW, int OV, bool MASKED>
 __device__ __forceinline__ void scores(float (&s)[8][4],
                                        const uint32_t (&qa)[2][4],
                                        const bf16* ks, const float* tbl,
-                                       int r0, int kb, int edge, bool bottom,
-                                       bool right) {
+                                       int r0, int kb, int edge_y,
+                                       int edge_x, bool bottom, bool right) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* base = tbl + bias_base<OV>(r0 >> 4, g, t, kb);
+  const float* base = tbl + bias_base<WW, OV>(r0, g, t, kb);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float v = base[bias_step<OV>(j, e)];
+      float v = base[bias_step<WW, OV>(j, e)];
       if constexpr (MASKED) {
-        const int qy = r0 >> 4, qx = g + 8 * (e >> 1);
-        const int ky = 4 * kb + (j >> 1), kx = 8 * (j & 1) + 2 * t + (e & 1);
-        const bool row_cross = (qy >= edge) != (ky >= edge);
-        const bool col_cross = (qx >= edge) != (kx >= edge);
+        // bias_base's and bias_step's coordinates, summed
+        const int qy = (r0 >> (WW >= 16 ? LOG<WW> : 3)) +
+                       (WW == 8 ? (e >> 1) : 0);
+        const int qx = (WW > 16 ? (r0 & (WW - 1)) : 0) +
+                       (WW == 8 ? g : g + 8 * (e >> 1));
+        const int ky = kb * (KB / WW) + 8 * j / WW;
+        const int kx = 8 * j % WW + 2 * t + (e & 1);
+        const bool row_cross = (qy >= edge_y) != (ky >= edge_y);
+        const bool col_cross = (qx >= edge_x) != (kx >= edge_x);
         if ((bottom && row_cross) || (right && col_cross)) v += MASK;
       }
       s[j][e] = v;
@@ -222,14 +261,14 @@ __device__ __forceinline__ void scores(float (&s)[8][4],
 
 // The attention of this warp's row blocks on the staged q, k, v and
 // table: the two passes over the key blocks and the output's stores.
-template <int OV, bool MASKED>
+template <int WW, int OV, bool MASKED>
 __device__ __forceinline__ void attend(const bf16* qs, const bf16* ks,
                                        const bf16* vs, const float* tbl,
                                        bf16* __restrict__ out,
-                                       const Window& wd, int C, int d,
-                                       float scale, int edge, bool bottom,
-                                       bool right) {
-  using G = Geo<OV>;
+                                       const Window<WW>& wd, int C, int d,
+                                       float scale, int edge_y, int edge_x,
+                                       bool bottom, bool right) {
+  using G = Geo<WW, OV>;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int head = blockIdx.x % (C / d);
   for (int rb = threadIdx.x >> 5; rb < NQ / 16; rb += WARPS) {
@@ -250,7 +289,8 @@ __device__ __forceinline__ void attend(const bf16* qs, const bf16* ks,
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     for (int kb = 0; kb < G::NKB; ++kb) {
       float s[8][4];
-      scores<OV, MASKED>(s, qa, ks, tbl, r0, kb, edge, bottom, right);
+      scores<WW, OV, MASKED>(s, qa, ks, tbl, r0, kb, edge_y, edge_x,
+                             bottom, right);
       float bm[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -280,7 +320,8 @@ __device__ __forceinline__ void attend(const bf16* qs, const bf16* ks,
     float acc[4][4] = {};
     for (int kb = 0; kb < G::NKB; ++kb) {
       float s[8][4];
-      scores<OV, MASKED>(s, qa, ks, tbl, r0, kb, edge, bottom, right);
+      scores<WW, OV, MASKED>(s, qa, ks, tbl, r0, kb, edge_y, edge_x,
+                             bottom, right);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -321,35 +362,17 @@ __device__ __forceinline__ void attend(const bf16* qs, const bf16* ks,
   }
 }
 
-template <int OV>
-__global__ void __launch_bounds__(THREADS, 2)
-    hat_attention_kernel(const bf16* __restrict__ qkv,
-                         const float* __restrict__ table,
-                         bf16* __restrict__ out, int h, int w, int C, int nh,
-                         int shift, float scale) {
-  using G = Geo<OV>;
-  extern __shared__ __align__(16) unsigned char smem[];
+// Stage q, k and v of the head (words past d / 2 and keys outside the
+// map zero-filled) and the head's column of the table in shared memory;
+// returns the table.
+template <int WW, int OV>
+__device__ __forceinline__ const float* stage(
+    const bf16* __restrict__ qkv, const float* __restrict__ table,
+    unsigned char* smem, const Window<WW>& wd, int C, int nh, int head) {
+  using G = Geo<WW, OV>;
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + NQ * HDP;
-  bf16* vs = ks + G::NK * HDP;
-  float* tbl = reinterpret_cast<float*>(vs + G::NK * HDP);
-
-  const int d = C / nh;
-  const int head = blockIdx.x % nh;
-  int win = blockIdx.x / nh;
-  const int nwx = w / WS, nwy = h / WS;
-  Window wd;
-  wd.wx = win % nwx;
-  win /= nwx;
-  wd.wy = win % nwy;
-  wd.b = win / nwy;
-  wd.h = h;
-  wd.w = w;
-  wd.shift = shift;
-  const int tid = threadIdx.x;
-
-  // stage q, k, v of the head (words past d / 2 and keys outside the map
-  // zero-filled) and the head's column of the table
+  float* tbl = reinterpret_cast<float*>(qs + (NQ + 2 * G::NK) * HDP);
+  const int d = C / nh, tid = threadIdx.x;
   const int words = d / 2;
   for (int it = tid; it < (NQ + 2 * G::NK) * ROW_WORDS; it += THREADS) {
     const int r = it / ROW_WORDS, word = it % ROW_WORDS;
@@ -358,10 +381,10 @@ __global__ void __launch_bounds__(THREADS, 2)
       tok = wd.query_token(r);
       part = 0;
     } else if (r < NQ + G::NK) {
-      tok = wd.key_token<OV>(r - NQ);
+      tok = wd.template key_token<OV>(r - NQ);
       part = 1;
     } else {
-      tok = wd.key_token<OV>(r - NQ - G::NK);
+      tok = wd.template key_token<OV>(r - NQ - G::NK);
       part = 2;
     }
     const bool valid = tok >= 0 && word < words;
@@ -377,19 +400,76 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   tc::cp_async_wait<0>();
   __syncthreads();
+  return tbl;
+}
 
-  const int edge = WS - shift;
-  const bool bottom = shift && wd.wy == nwy - 1;
-  const bool right = shift && wd.wx == nwx - 1;
+// One CTA: head `head` of window `win` (row-major over the batch's
+// windows) in the WH x WW geometry, rolled by (sy, sx).
+template <int WW, int OV>
+__device__ __forceinline__ void window_head(
+    const bf16* __restrict__ qkv, const float* __restrict__ table,
+    bf16* __restrict__ out, unsigned char* smem, int win, int head, int h,
+    int w, int C, int nh, int sy, int sx, float scale) {
+  using G = Geo<WW, OV>;
+  const int nwx = w / WW, nwy = h / G::WH;
+  Window<WW> wd;
+  wd.wx = win % nwx;
+  win /= nwx;
+  wd.wy = win % nwy;
+  wd.b = win / nwy;
+  wd.h = h;
+  wd.w = w;
+  wd.sy = sy;
+  wd.sx = sx;
+  const float* tbl = stage<WW, OV>(qkv, table, smem, wd, C, nh, head);
+  const bf16* qs = reinterpret_cast<const bf16*>(smem);
+  const bf16* ks = qs + NQ * HDP;
+  const bf16* vs = ks + G::NK * HDP;
+  const int d = C / nh;
+  const int edge_y = G::WH - sy, edge_x = WW - sx;
+  const bool bottom = sy && wd.wy == nwy - 1;
+  const bool right = sx && wd.wx == nwx - 1;
   if constexpr (OV == 0) {
     if (bottom || right) {  // a window that the roll wraps: masked
-      attend<OV, true>(qs, ks, vs, tbl, out, wd, C, d, scale, edge, bottom,
-                       right);
+      attend<WW, OV, true>(qs, ks, vs, tbl, out, wd, C, d, scale, edge_y,
+                           edge_x, bottom, right);
       return;
     }
   }
-  attend<OV, false>(qs, ks, vs, tbl, out, wd, C, d, scale, edge, bottom,
-                    right);
+  attend<WW, OV, false>(qs, ks, vs, tbl, out, wd, C, d, scale, edge_y,
+                        edge_x, bottom, right);
+}
+
+// HAT: 16 x 16 windows, self (OV 0, shift 0 or 8) or overlapping (OV 4).
+template <int OV>
+__global__ void __launch_bounds__(THREADS, 2)
+    hat_attention_kernel(const bf16* __restrict__ qkv,
+                         const float* __restrict__ table,
+                         bf16* __restrict__ out, int h, int w, int C, int nh,
+                         int shift, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  window_head<WS, OV>(qkv, table, out, smem, blockIdx.x / nh,
+                      blockIdx.x % nh, h, w, C, nh, shift, shift, scale);
+}
+
+// DAT's split windows: heads [0, nh / 2) in (NQ / WW0) x WW0 windows
+// rolled by (sy, sx), heads [nh / 2, nh) in the transposed windows rolled
+// by (sx, sy). Both halves have NQ tokens a window, so h w / NQ windows
+// each: the grid is the same (window, head) order as HAT's.
+template <int WW0>
+__global__ void __launch_bounds__(THREADS, 2)
+    hat_attention_rect_kernel(const bf16* __restrict__ qkv,
+                              const float* __restrict__ table,
+                              bf16* __restrict__ out, int h, int w, int C,
+                              int nh, int sy, int sx, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int head = blockIdx.x % nh, win = blockIdx.x / nh;
+  if (head < nh / 2)
+    window_head<WW0, 0>(qkv, table, out, smem, win, head, h, w, C, nh, sy,
+                        sx, scale);
+  else
+    window_head<NQ / WW0, 0>(qkv, table, out, smem, win, head, h, w, C, nh,
+                             sx, sy, scale);
 }
 
 
@@ -402,18 +482,18 @@ constexpr int kMaxDevices = 64;
 // the reason set_smem_limit in swin_block.cu gives (each copy of the
 // library keeps its own flags).
 int set_smem_limit(const void* kernel, int bytes) {
-  static const void* done[kMaxDevices][2] = {};
+  static const void* done[kMaxDevices][3] = {};  // self, overlap, rect
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   const void** mine = dev < kMaxDevices ? done[dev] : nullptr;
-  for (int i = 0; mine && i < 2; ++i)
+  for (int i = 0; mine && i < 3; ++i)
     if (mine[i] == kernel) return 0;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return (int)err;
-  for (int i = 0; mine && i < 2; ++i)
+  for (int i = 0; mine && i < 3; ++i)
     if (!mine[i]) {
       mine[i] = kernel;
       break;
@@ -425,7 +505,7 @@ template <int OV>
 int launch(const void* qkv, const void* table, void* out, int b, int h,
            int w, int C, int nh, int shift, float scale,
            cudaStream_t stream) {
-  using G = Geo<OV>;
+  using G = Geo<WS, OV>;
   const int err = set_smem_limit((const void*)hat_attention_kernel<OV>,
                                  G::SMEM);
   if (err) return err;
@@ -435,6 +515,27 @@ int launch(const void* qkv, const void* table, void* out, int b, int h,
   hat_attention_kernel<OV><<<(unsigned)grid, THREADS, G::SMEM, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(table),
       static_cast<bf16*>(out), h, w, C, nh, shift, scale);
+  return (int)cudaGetLastError();
+}
+
+constexpr int RECT_WW = 32;  // DAT: 8 x 32 windows, then 32 x 8
+constexpr int RECT_SMEM = Geo<RECT_WW, 0>::SMEM;
+static_assert(Geo<NQ / RECT_WW, 0>::SMEM == RECT_SMEM, "one size");
+
+int launch_rect(const void* qkv, const void* table, void* out, int b, int h,
+                int w, int C, int nh, int sy, int sx, float scale,
+                cudaStream_t stream) {
+  const int err = set_smem_limit(
+      (const void*)hat_attention_rect_kernel<RECT_WW>, RECT_SMEM);
+  if (err) return err;
+  const long long grid = (long long)b * (h / RECT_WW) * (w / RECT_WW) *
+                         (RECT_WW * RECT_WW / NQ) * nh;
+  if (grid == 0) return 0;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  hat_attention_rect_kernel<RECT_WW>
+      <<<(unsigned)grid, THREADS, RECT_SMEM, stream>>>(
+          static_cast<const bf16*>(qkv), static_cast<const float*>(table),
+          static_cast<bf16*>(out), h, w, C, nh, sy, sx, scale);
   return (int)cudaGetLastError();
 }
 
@@ -462,6 +563,26 @@ extern "C" int w2x_hat_attention(const void* qkv, const void* table,
   return (int)cudaErrorInvalidValue;
 }
 
+// DAT's split windows: qkv (B, h, w, 3C) bf16, table (945, nh) fp32 (each
+// head's column indexed in its own geometry), out (B, h, w, C) bf16;
+// heads [0, nh / 2) in wh x ww = 8 x 32 windows rolled by (sy, sx), the
+// rest in 32 x 8 windows rolled by (sx, sy); h and w multiples of 32; nh
+// even; head dim even and at most 32; (sy, sx) (0, 0) or (4, 16).
+extern "C" int w2x_hat_attention_rect(const void* qkv, const void* table,
+                                      void* out, int b, int h, int w, int C,
+                                      int nh, int wh, int ww, int sy, int sx,
+                                      float scale, void* stream) {
+  using namespace w2x::hat;
+  if (nh <= 0 || nh % 2 || C % nh || (C / nh) % 2 || C / nh > HDP ||
+      wh != NQ / RECT_WW || ww != RECT_WW || h % RECT_WW || w % RECT_WW ||
+      h <= 0 || w <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (!((sy == 0 && sx == 0) || (sy == wh / 2 && sx == ww / 2)))
+    return (int)cudaErrorInvalidValue;
+  return launch_rect(qkv, table, out, b, h, w, C, nh, sy, sx, scale,
+                     static_cast<cudaStream_t>(stream));
+}
+
 // Registers a thread and resident CTAs an SM of the kernel for overlap
 // 0 or 4 (with its dynamic shared memory).
 extern "C" int w2x_hat_attention_info(int overlap, int* regs,
@@ -469,7 +590,7 @@ extern "C" int w2x_hat_attention_info(int overlap, int* regs,
   using namespace w2x::hat;
   const void* kernel = overlap ? (const void*)hat_attention_kernel<4>
                                : (const void*)hat_attention_kernel<0>;
-  const int smem = overlap ? Geo<4>::SMEM : Geo<0>::SMEM;
+  const int smem = overlap ? Geo<WS, 4>::SMEM : Geo<WS, 0>::SMEM;
   int err = set_smem_limit(kernel, smem);
   if (err) return err;
   cudaFuncAttributes attr;

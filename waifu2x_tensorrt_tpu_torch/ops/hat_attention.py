@@ -1,4 +1,4 @@
-"""Kernel G: HAT's window attention, self and overlapping, on qkv.
+"""Kernel G: HAT's and DAT's window attention on qkv.
 
 ``hat_attention`` is the wrapper of the CUDA kernel
 ``csrc/hat_attention.cu``; ``hat_attention_plain`` is its plain PyTorch
@@ -9,13 +9,19 @@ take 64-token windows at head dim 32).
 Both read q, k and v from the (B, H, W, 3C) output of the qkv GEMM, heads
 interleaved as [q_0..q_{nh-1} | k_0.. | v_0..] along the last axis (HAT's
 ``reshape(b, n, 3, nh, d)``), and return the (B, H, W, C) attention
-output in qkv's dtype, every token where it came from. Two geometries,
-over ``window`` x ``window`` query windows (HAT: 16):
+output in qkv's dtype, every token where it came from. Query windows
+are ``window`` = (wh, ww) (a side: square; HAT 16 x 16), in two
+geometries:
 
-- self (``overlap=0``; HAT's HAB): the keys are the query window's own
-  tokens, after the cyclic roll by -``shift``; the output is rolled back.
-  Scores get Swin's region mask (-100 between regions of the rolled map)
-  when ``shift`` is set, and the relative bias of ``_self_index``;
+- self (``overlap=0``; HAT's HAB, DAT's DSTB): the keys are the query
+  window's own tokens, after the cyclic roll by -``shift`` = (sh, sw);
+  the output is rolled back. Scores get Swin's region mask (-100 between
+  regions of the rolled map) when the shift is set, and the relative
+  bias of ``_self_index``. With ``split`` (DAT's two branches) heads [0,
+  nh/2) read channels [0, C/2) of q, k and v in (wh, ww) windows rolled
+  by (sh, sw), heads [nh/2, nh) the rest in (ww, wh) windows rolled by
+  (sw, sh); each head's column of the table is indexed in its own
+  geometry;
 - overlapping (``overlap=o``; HAT's OCAB, ``o = window * overlap_ratio /
   2``): the keys are the (window + 2o)^2 tokens of the window that shares
   the query window's centre, with k = v = 0 outside the tile (HAT's
@@ -26,8 +32,9 @@ dtype with the scale d^-0.5 itself rounded, fp32 scores and an exact
 max-subtracted fp32 softmax, probabilities rounded to qkv's dtype before
 the fp32-accumulated p v, one final rounding.
 
-``table``: the (nt, nh) fp32 relative-position table, nt = (2 window -
-1)^2 for self and (2 window + 2o - 1)^2 for overlapping attention.
+``table``: the (nt, nh) fp32 relative-position table, nt = (2 wh - 1)
+(2 ww - 1) for self and (2 window + 2o - 1)^2 for overlapping
+attention.
 """
 
 from __future__ import annotations
@@ -41,25 +48,37 @@ import torch.nn.functional as F
 from waifu2x_tensorrt_tpu_torch.ops import build
 from waifu2x_tensorrt_tpu_torch.ops.kernel_math import softmax_lastdim
 
-WINDOW = 16        # the window side kernel G is built for
+WINDOW = 16        # HAT's window side, which kernel G is built for
+RECT = (8, 32)     # DAT's first-half window (rows, columns), the other
+                   # half's transposed
 MAX_HEAD_DIM = 32  # head dims up to 32 are padded to 32 in the kernel
 MASK = -100.0      # Swin's and HAT's score between regions of the roll
 
 
-def table_rows(window: int, overlap: int) -> int:
-    """Rows of the relative-position table of a geometry."""
-    return (2 * window + 2 * overlap - 1) ** 2
+def table_rows(window, overlap: int) -> int:
+    """Rows of the relative-position table of a geometry: ``window`` a
+    side or a (wh, ww) pair."""
+    wh, ww = _pair(window)
+    return (2 * wh + 2 * overlap - 1) * (2 * ww + 2 * overlap - 1)
+
+
+def _pair(v) -> tuple:
+    """An (h, w) pair of a side or shift given as one int or a pair."""
+    return (int(v), int(v)) if isinstance(v, int) else tuple(int(a) for a in v)
 
 
 @functools.lru_cache(maxsize=None)
-def _self_index(ws: int) -> np.ndarray:
-    """(ws^2, ws^2) index of query token i and key token j of one window
-    into the (2 ws - 1)^2 table: Swin's and HAT's ``calculate_rpi_sa``,
-    (dy + ws - 1)(2 ws - 1) + dx + ws - 1 with (dy, dx) = query - key."""
-    y, x = np.divmod(np.arange(ws * ws), ws)
-    dy = y[:, None] - y[None, :] + ws - 1
-    dx = x[:, None] - x[None, :] + ws - 1
-    return (dy * (2 * ws - 1) + dx).astype(np.int64)
+def _self_index(wh: int, ww: int | None = None) -> np.ndarray:
+    """(wh ww, wh ww) index of query token i and key token j of one wh x
+    ww window (ww None: square) into the (2 wh - 1)(2 ww - 1) table:
+    Swin's and HAT's ``calculate_rpi_sa``, DAT's ``relative_position_
+    index``, (dy + wh - 1)(2 ww - 1) + dx + ww - 1 with (dy, dx) = query
+    - key."""
+    ww = wh if ww is None else ww
+    y, x = np.divmod(np.arange(wh * ww), ww)
+    dy = y[:, None] - y[None, :] + wh - 1
+    dx = x[:, None] - x[None, :] + ww - 1
+    return (dy * (2 * ww - 1) + dx).astype(np.int64)
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,42 +99,48 @@ def _overlap_index(ws: int, ov: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _index_tensor(ws: int, ov: int, device: torch.device) -> torch.Tensor:
-    """The geometry's bias index on ``device``, uploaded once."""
-    idx = _overlap_index(ws, ov) if ov else _self_index(ws)
+def _index_tensor(win, ov: int, device: torch.device) -> torch.Tensor:
+    """The geometry's bias index on ``device``, uploaded once; ``win`` a
+    side or a (wh, ww) pair."""
+    win = _pair(win)
+    idx = _overlap_index(win[0], ov) if ov else _self_index(*win)
     return torch.from_numpy(idx).to(device)
 
 
 @functools.lru_cache(maxsize=64)
-def region_mask(h: int, w: int, ws: int, shift: int,
+def region_mask(h: int, w: int, ws, shift,
                 device: torch.device) -> torch.Tensor:
-    """(nW, ws^2, ws^2) fp32 additive mask of the windows of an (h, w) map
-    rolled by -shift: -100 between tokens of different regions (HAT's
-    ``calculate_mask``: slices [0, -ws), [-ws, -shift), [-shift, h) of
-    each axis), else 0. Made once a geometry and device."""
+    """(nW, wh ww, wh ww) fp32 additive mask of the wh x ww windows
+    (``ws`` a side or a (wh, ww) pair) of an (h, w) map rolled by -shift
+    (an int or a (sh, sw) pair): -100 between tokens of different regions
+    (HAT's ``calculate_mask``, DAT's per branch: slices [0, -wh), [-wh,
+    -sh), [-sh, h) of the rows and [0, -ww), [-ww, -sw), [-sw, w) of the
+    columns), else 0. Made once a geometry and device."""
+    (wh, ww), (sh, sw) = _pair(ws), _pair(shift)
     region = np.zeros((h, w), np.int64)
-    cuts = (slice(0, -ws), slice(-ws, -shift), slice(-shift, None))
     n = 0
-    for ys in cuts:
-        for xs in cuts:
+    for ys in (slice(0, -wh), slice(-wh, -sh), slice(-sh, None)):
+        for xs in (slice(0, -ww), slice(-ww, -sw), slice(-sw, None)):
             region[ys, xs] = n
             n += 1
-    r = region.reshape(h // ws, ws, w // ws, ws).transpose(0, 2, 1, 3)
-    r = r.reshape(-1, ws * ws)
+    r = region.reshape(h // wh, wh, w // ww, ww).transpose(0, 2, 1, 3)
+    r = r.reshape(-1, wh * ww)
     mask = np.where(r[:, :, None] != r[:, None, :], MASK, 0.0)
     return torch.from_numpy(mask.astype(np.float32)).to(device)
 
 
-def _windows(x, ws: int):
-    """(B, H, W, C) -> (B, nW, ws^2, C)."""
+def _windows(x, wh: int, ww: int | None = None):
+    """(B, H, W, C) -> (B, nW, wh ww, C) (ww None: square windows)."""
+    ww = wh if ww is None else ww
     b, h, w, c = x.shape
-    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, (h // ws) * (w // ws), ws * ws, c)
+    x = x.reshape(b, h // wh, wh, w // ww, ww, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // wh) * (w // ww), wh * ww, c)
 
 
-def _unwindow(x, h: int, w: int, ws: int):
+def _unwindow(x, h: int, w: int, wh: int, ww: int | None = None):
+    ww = wh if ww is None else ww
     b, c = x.shape[0], x.shape[-1]
-    x = x.reshape(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, h // wh, w // ww, wh, ww, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h, w, c)
 
 
@@ -130,23 +155,42 @@ def _overlap_windows(kv, ws: int, ov: int):
     return p.permute(0, 1, 2, 4, 5, 3).reshape(b, -1, we * we, c)
 
 
-def hat_attention_plain(qkv, table, *, num_heads: int, window: int = WINDOW,
-                        shift: int = 0, overlap: int = 0):
+def hat_attention_plain(qkv, table, *, num_heads: int, window=WINDOW,
+                        shift=0, overlap: int = 0, split: bool = False):
     """Eager PyTorch attention with the kernel's rounding points on any
-    device (the meta device counts its FLOPs at the published head dim)."""
-    _check_geometry(qkv, table, num_heads, window, shift, overlap)
+    device (the meta device counts its FLOPs at the published head dim).
+    ``split``: heads [nh/2, nh), on the second half of the channels of
+    q, k and v, take the transposed window and shift."""
+    _check_geometry(qkv, table, num_heads, window, shift, overlap, split)
+    if not split:
+        return _attend(qkv, table, num_heads, _pair(window), _pair(shift),
+                       overlap)
+    b, h, w, c3 = qkv.shape
+    half, nh = c3 // 6, num_heads // 2
+    parts = qkv.reshape(b, h, w, 3, 2, half)
+    (wh, ww), (sh, sw) = _pair(window), _pair(shift)
+    return torch.cat([
+        _attend(parts[:, :, :, :, g].reshape(b, h, w, 3 * half),
+                table[:, g * nh:(g + 1) * nh], nh, win, sft, 0)
+        for g, (win, sft) in enumerate((((wh, ww), (sh, sw)),
+                                        ((ww, wh), (sw, sh))))], dim=-1)
+
+
+def _attend(qkv, table, nh: int, win: tuple, shift: tuple, overlap: int):
+    """The twin of one geometry: every head in (wh, ww) windows rolled by
+    -(sh, sw)."""
     b, h, w, c3 = qkv.shape
     c = c3 // 3
-    nh, ws = num_heads, window
+    (wh, ww), (sh, sw) = win, shift
     d = c // nh
     dt = qkv.dtype
     scale = torch.tensor(d ** -0.5, dtype=dt)  # a host scalar operand
-    x = torch.roll(qkv, (-shift, -shift), dims=(1, 2)) if shift else qkv
-    qw = _windows(x[..., :c] * scale, ws)
+    x = torch.roll(qkv, (-sh, -sw), dims=(1, 2)) if sh or sw else qkv
+    qw = _windows(x[..., :c] * scale, wh, ww)
     if overlap:
-        kvw = _overlap_windows(x[..., c:], ws, overlap)
+        kvw = _overlap_windows(x[..., c:], wh, overlap)
     else:
-        kvw = _windows(x[..., c:], ws)
+        kvw = _windows(x[..., c:], wh, ww)
 
     def heads(t):  # (B, nW, N, C) -> (B, nW, nh, N, d)
         return t.reshape(*t.shape[:3], nh, d).transpose(2, 3)
@@ -154,31 +198,42 @@ def hat_attention_plain(qkv, table, *, num_heads: int, window: int = WINDOW,
     q = heads(qw).float()
     k = heads(kvw[..., :c]).float()
     v = heads(kvw[..., c:]).float()
-    idx = _index_tensor(ws, overlap, qkv.device)
+    idx = _index_tensor(win, overlap, qkv.device)
     bias = table.float()[idx].permute(2, 0, 1)  # (nh, N, Nk)
     s = q @ k.transpose(-1, -2) + bias
-    if shift:
-        s = s + region_mask(h, w, ws, shift, qkv.device)[None, :, None]
+    if sh or sw:
+        s = s + region_mask(h, w, win, shift, qkv.device)[None, :, None]
     p = softmax_lastdim(s)
     o = (p.to(dt).float() @ v).to(dt)  # (B, nW, nh, N, d)
-    o = _unwindow(o.transpose(2, 3).reshape(b, -1, ws * ws, c), h, w, ws)
-    return torch.roll(o, (shift, shift), dims=(1, 2)) if shift else o
+    o = _unwindow(o.transpose(2, 3).reshape(b, -1, wh * ww, c), h, w, wh,
+                  ww)
+    return torch.roll(o, (sh, sw), dims=(1, 2)) if sh or sw else o
 
 
-def _check_geometry(qkv, table, num_heads, window, shift, overlap):
+def _check_geometry(qkv, table, num_heads, window, shift, overlap,
+                    split=False):
     if qkv.dim() != 4 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv must be (B, H, W, 3C) with C a multiple of "
                          f"{num_heads} heads, got {tuple(qkv.shape)}")
+    (wh, ww), (sh, sw) = _pair(window), _pair(shift)
+    if split and (num_heads % 2 or overlap):
+        raise ValueError(f"split: an even number of heads, got "
+                         f"{num_heads}, on self windows")
     h, w = qkv.shape[1], qkv.shape[2]
-    if h % window or w % window or not h or not w:
+    side = max(wh, ww) if split else None
+    if (h % (side or wh) or w % (side or ww) or not h or not w
+            or min(wh, ww) < 1):
         raise ValueError(f"H and W must be multiples of the window "
-                         f"{window}, got {h}x{w}")
-    if shift not in (0, window // 2) or (shift and overlap):
-        raise ValueError(f"shift {shift}: 0 or {window // 2}, and 0 with "
-                         "overlapping windows")
-    if overlap < 0 or overlap > window // 2:
-        raise ValueError(f"overlap {overlap}: 0 to {window // 2}")
-    want = (table_rows(window, overlap), num_heads)
+                         f"{(wh, ww) if not split else (side, side)}, got "
+                         f"{h}x{w}")
+    if (sh, sw) != (0, 0) and ((sh, sw) != (wh // 2, ww // 2) or overlap):
+        raise ValueError(f"shift {(sh, sw)}: 0 or half the window "
+                         f"{(wh // 2, ww // 2)}, and 0 with overlapping "
+                         "windows")
+    if overlap < 0 or overlap > wh // 2 or (overlap and wh != ww):
+        raise ValueError(f"overlap {overlap}: 0 to {wh // 2}, on square "
+                         "windows")
+    want = (table_rows((wh, ww), overlap), num_heads)
     if tuple(table.shape) != want:
         raise ValueError(f"table must be {want}, got {tuple(table.shape)}")
 
@@ -202,17 +257,22 @@ def occupancy(overlap: int) -> dict:
     return {"registers": regs.value, "ctas_per_sm": ctas.value}
 
 
-def hat_attention(qkv, table, *, num_heads: int, window: int = WINDOW,
-                  shift: int = 0, overlap: int = 0):
-    """HAT's window attention on the (B, H, W, 3C) qkv activation: the CUDA
+def hat_attention(qkv, table, *, num_heads: int, window=WINDOW, shift=0,
+                  overlap: int = 0, split: bool = False):
+    """Window attention on the (B, H, W, 3C) qkv activation: the CUDA
     kernel for CUDA tensors (bf16 only), the plain twin for CPU and meta
-    tensors. Counts kernel launches in ``hat_attention.launches``, those
-    of overlapping windows also in ``hat_attention.overlap_launches``."""
-    _check_geometry(qkv, table, num_heads, window, shift, overlap)
+    tensors. The kernel takes HAT's 16 x 16 windows (self, shift 0 or 8,
+    or overlapping, overlap 4) and DAT's split rectangular windows
+    (``window=RECT``, ``split=True``: heads [0, nh/2) in 8 x 32 windows,
+    the rest in 32 x 8, shift 0 or half the window). Counts kernel
+    launches in ``hat_attention.launches``, those of overlapping windows
+    also in ``.overlap_launches`` and those of rectangular ones in
+    ``.rect_launches``."""
+    _check_geometry(qkv, table, num_heads, window, shift, overlap, split)
     if qkv.device.type in ("cpu", "meta"):
         return hat_attention_plain(qkv, table, num_heads=num_heads,
                                    window=window, shift=shift,
-                                   overlap=overlap)
+                                   overlap=overlap, split=split)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
@@ -222,10 +282,14 @@ def hat_attention(qkv, table, *, num_heads: int, window: int = WINDOW,
     b, h, w, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
-    if window != WINDOW or overlap not in (0, WINDOW // 4):
-        raise ValueError(f"window {window} / overlap {overlap}: the kernel "
-                         f"takes window {WINDOW}, overlap 0 or "
-                         f"{WINDOW // 4}")
+    win, (sh, sw) = _pair(window), _pair(shift)
+    rect = win != (WINDOW, WINDOW)
+    if rect and (win != RECT or not split):
+        raise ValueError(f"window {win}: the kernel takes {WINDOW} x "
+                         f"{WINDOW}, or {RECT} split")
+    if not rect and (split or overlap not in (0, WINDOW // 4)):
+        raise ValueError(f"window {win} / overlap {overlap}: the kernel "
+                         f"takes overlap 0 or {WINDOW // 4}, unsplit")
     if d > MAX_HEAD_DIM or d % 2:
         raise ValueError(f"head dim {d}: the kernel takes even head dims "
                          f"up to {MAX_HEAD_DIM}")
@@ -239,16 +303,26 @@ def hat_attention(qkv, table, *, num_heads: int, window: int = WINDOW,
                          "than 2**31")
     out = torch.empty((b, h, w, c), dtype=qkv.dtype, device=qkv.device)
     lib = build.load_library()
-    code = lib.w2x_hat_attention(
-        qkv.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, w, c,
-        num_heads, shift, overlap, _scale(d), build.stream_handle(qkv.device))
+    stream = build.stream_handle(qkv.device)
+    if rect:
+        code = lib.w2x_hat_attention_rect(
+            qkv.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, w, c,
+            num_heads, win[0], win[1], sh, sw, _scale(d), stream)
+    else:
+        code = lib.w2x_hat_attention(
+            qkv.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, w, c,
+            num_heads, sh, overlap, _scale(d), stream)
     build.check(code, "hat attention kernel")
     hat_attention.launches += 1
     if overlap:
         hat_attention.overlap_launches += 1
+    if rect:
+        hat_attention.rect_launches += 1
     return out
 
 
 hat_attention.launches = 0
 hat_attention.overlap_launches = 0
-hat_attention.extra_counters = {"overlap": "overlap_launches"}
+hat_attention.rect_launches = 0
+hat_attention.extra_counters = {"overlap": "overlap_launches",
+                                "rect": "rect_launches"}

@@ -19,9 +19,11 @@ forward built on it, on the CPU.
 - The wrapper refuses shapes, dtypes and devices that do not fit, and the
   kernel's own limits (bf16, C, contiguity, alignment) are checked.
 - The HAT forward, its residual sums left pending to kernel I, gives the
-  bytes of the forward it replaced (a copy of it below), in fp32 and
-  bf16; a chunk of the published widths runs 86 passes of kernel I (2
-  norms alone, 48 adds, 36 scaled adds), and one group of 2 HABs 8.
+  bytes of the forward it replaced (a copy of it below, carrying the
+  trunk at the same row pitch, its LayerNorms over the real channels),
+  in fp32 and bf16; a chunk of the published widths runs 86 passes of
+  kernel I (2 norms alone, 48 adds, 36 scaled adds), and one group of 2
+  HABs 8.
 """
 
 import json
@@ -41,6 +43,7 @@ from waifu2x_tensorrt_tpu_torch.models.layers import (
     conv,
     layer_norm,
     linear,
+    pitch,
     pixel_shuffle,
 )
 from waifu2x_tensorrt_tpu_torch.ops import hat_norm as hn
@@ -75,10 +78,23 @@ def _operands(norm, dtype):
     return norm.weight.detach().to(dtype), norm.bias.detach().to(dtype)
 
 
-@pytest.mark.parametrize("variant", VARIANTS)
+def _at_pitch(t, p):
+    """(B, H, W, C) t carried at pitch p, NaN in its pad."""
+    if t is None or t.shape[-1] == p:
+        return t
+    return F.pad(t, (0, p - t.shape[-1]), value=float("nan"))
+
+
+@pytest.mark.parametrize("variant, pitch",
+                         [(v, 180) for v in VARIANTS]
+                         + [(v, 192) for v in VARIANTS],
+                         ids=VARIANTS + [f"{v}-pitch-192" for v in VARIANTS])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-def test_twin_is_the_parents_ops(dtype, variant):
+def test_twin_is_the_parents_ops(dtype, variant, pitch):
+    """The parent's ops on C = 180; at pitch 192 (NaN in the inputs' pad,
+    s (B, 192)) the same y and n on the 180 real channels, zeros in the
+    pad: the LayerNorm covers the real channels alone."""
     x, r, z, s, norm = _inputs((2, 6, 5, 180), dtype, variant, seed=1)
     want = x
     if r is not None:
@@ -87,12 +103,18 @@ def test_twin_is_the_parents_ops(dtype, variant):
         want = torch.addcmul(want, z, s[:, None, None, :])
     want_n = layer_norm(want, norm)
     w, b = _operands(norm, dtype)
+    px, pr, pz = (_at_pitch(t, pitch) for t in (x, r, z))
+    ps = None if s is None else F.pad(s, (0, pitch - 180), value=1.0)
     for fn in (hn.add_norm_plain, hn.add_norm):
-        y, n = fn(x, r, w, b, norm.eps, z=z, s=s)
+        y, n = fn(px, pr, w, b, norm.eps, z=pz, s=ps)
         assert y.dtype == n.dtype == dtype
-        assert torch.equal(y, want) and torch.equal(n, want_n)
+        assert y.shape == n.shape == px.shape
+        assert torch.equal(y[..., :180], want)
+        assert torch.equal(n[..., :180], want_n)
+        assert not n[..., 180:].any()
+        assert r is None or not y[..., 180:].any()
     if r is None:
-        assert y is x
+        assert y is px
 
 
 def _bf16(a):
@@ -103,19 +125,21 @@ def _bf16(a):
 
 
 def _kernel_replay(x, r, z, s, w, b, eps):
-    """``csrc/hat_norm.cu``'s mapping in numpy over flat bf16 maps: returns
-    (y, n) as float32 and how often each value was read and written."""
-    bsz, hgt, wid, c = x.shape
-    rows, hw, vecs = bsz * hgt * wid, hgt * wid, c // 4
+    """``csrc/hat_norm.cu``'s mapping in numpy over flat bf16 maps of
+    pitch P (x's channels) holding the C channels of ``w``: returns (y,
+    n) as float32 and how often each value was read and written."""
+    bsz, hgt, wid, pitch = x.shape
+    c = w.shape[0]
+    rows, hw, vecs = bsz * hgt * wid, hgt * wid, pitch // 4
     nv = (vecs + 31) // 32
     flat = {k: None if t is None else t.float().reshape(-1).numpy()
             for k, t in (("x", x), ("r", r), ("z", z))}
     sv = None if s is None else s.float().reshape(-1).numpy()
     wv, bv = w.float().numpy(), b.float().numpy()
-    y = np.full(rows * c, np.nan, np.float32)
-    n = np.full(rows * c, np.nan, np.float32)
-    reads = np.zeros(rows * c, np.int64)
-    writes = np.zeros(rows * c, np.int64)
+    y = np.full(rows * pitch, np.nan, np.float32)
+    n = np.full(rows * pitch, np.nan, np.float32)
+    reads = np.zeros(rows * pitch, np.int64)
+    writes = np.zeros(rows * pitch, np.int64)
     for p in range((rows + 1) // 2):
         row0 = 2 * p
         two = row0 + 1 < rows
@@ -124,22 +148,25 @@ def _kernel_replay(x, r, z, s, w, b, eps):
         for lane in range(32):
             for i in range(nv):
                 k = lane + 32 * i
-                row_of = [int(8 * k + 4 * h >= c) for h in range(2)]
+                row_of = [int(8 * k + 4 * h >= pitch) for h in range(2)]
                 count = (0 if k >= vecs else 2 if two else
                          0 if row_of[0] else 1 if row_of[1] else 2)
                 for h in range(count):  # the kernel's 16- or 8-byte access
                     e = 8 * k + 4 * h
-                    quads.append((row_of[h], e - row_of[h] * c,
+                    quads.append((row_of[h], e - row_of[h] * pitch,
                                   (p * vecs + k) * 8 + 4 * h))
         vals = {}
         for row, ch, at in quads:
             idx = slice(at, at + 4)
             reads[idx] += 1
+            if ch >= c:  # pad: zero, out of the sums
+                vals[(row, ch, at)] = np.zeros(4, np.float32)
+                continue
             v = flat["x"][idx]
             if flat["r"] is not None:
                 v = _bf16(v + flat["r"][idx])
             if flat["z"] is not None:
-                sc = sv[image[row] * c + ch:image[row] * c + ch + 4]
+                sc = sv[image[row] * pitch + ch:image[row] * pitch + ch + 4]
                 v = _bf16(v + flat["z"][idx] * sc)
             vals[(row, ch, at)] = v
         for row in (0, 1):
@@ -147,7 +174,7 @@ def _kernel_replay(x, r, z, s, w, b, eps):
                    if rw == row]
             if not got:
                 continue
-            allv = np.concatenate([v for _, _, v in got])
+            allv = np.concatenate([v for ch, _, v in got if ch < c])
             assert allv.size == c  # the pair covers its rows
             mean = np.float32(allv.sum(dtype=np.float32) / np.float32(c))
             var = np.float32(((allv - mean) ** 2).sum(dtype=np.float32)
@@ -157,32 +184,45 @@ def _kernel_replay(x, r, z, s, w, b, eps):
                 idx = slice(at, at + 4)
                 writes[idx] += 1
                 y[idx] = v
-                n[idx] = _bf16(wv[ch:ch + 4] * (rstd * (v - mean))
-                               + bv[ch:ch + 4])
+                n[idx] = 0.0 if ch >= c else _bf16(
+                    wv[ch:ch + 4] * (rstd * (v - mean)) + bv[ch:ch + 4])
     return y, n, reads, writes
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("shape", [(2, 4, 2, 12), (3, 1, 5, 180),
-                                   (1, 3, 3, 144), (2, 1, 3, 256)],
-                         ids=["c12", "c180-odd-rows", "c144-odd-rows",
-                              "c256-pairs-across-images"])
-def test_kernel_replay_is_the_twin(shape, variant):
+@pytest.mark.parametrize("shape, pitch", [
+    ((2, 4, 2, 12), 12), ((3, 1, 5, 180), 180), ((1, 3, 3, 144), 144),
+    ((2, 1, 3, 256), 256), ((3, 1, 5, 180), 192), ((3, 1, 5, 180), 184),
+    ((2, 4, 2, 12), 16)],
+    ids=["c12", "c180-odd-rows", "c144-odd-rows",
+         "c256-pairs-across-images", "c180-pitch-192-odd-rows",
+         "c180-pitch-184-odd-rows",
+         "c12-pitch-16"])
+def test_kernel_replay_is_the_twin(shape, pitch, variant):
+    """The replay against the twin; at a pitch P > C the inputs' pads hold
+    NaN and s is (B, P): the pad is read and written once, zeros out."""
     x, r, z, s, norm = _inputs(shape, torch.bfloat16, variant, seed=2)
     w, b = _operands(norm, torch.bfloat16)
+    x, r, z = (_at_pitch(t, pitch) for t in (x, r, z))
+    s = None if s is None else F.pad(s, (0, pitch - shape[-1]), value=1.0)
     want_y, want_n = hn.add_norm_plain(x, r, w, b, norm.eps, z=z, s=s)
     y, n, reads, writes = _kernel_replay(x, r, z, s, w, b, norm.eps)
     assert (reads == 1).all() and (writes == 1).all()
-    assert np.array_equal(y, want_y.float().reshape(-1).numpy())
+    c = shape[-1]
+    real = want_y[..., :c].float().reshape(-1).numpy()
+    assert np.array_equal(y.reshape(-1, pitch)[:, :c].reshape(-1), real)
+    assert not y.reshape(-1, pitch)[:, c:].any()
     # within one bf16 ulp, beyond 2^-16 of the terms the last step sums:
     # the order of the fp32 sums differs, which a value that cancels to
     # near 0 shows as many of its own ulps
     want = want_n.float().reshape(-1).numpy()
+    assert not want.reshape(-1, pitch)[:, c:].any()
     ulp = np.spacing(np.abs(want).astype(np.float32)) * 2 ** 16
-    yv = want_y.double().reshape(-1, shape[-1])
+    yv = want_y[..., :c].double().reshape(-1, c)
     d = (yv - yv.mean(-1, keepdim=True)) * torch.rsqrt(
         yv.var(-1, unbiased=False, keepdim=True) + norm.eps)
-    terms = ((w.double() * d).abs() + b.double().abs()).reshape(-1).numpy()
+    terms = F.pad((w.double() * d).abs() + b.double().abs(),
+                  (0, pitch - c)).reshape(-1).numpy()
     assert (np.abs(n - want) <= ulp + 2.0 ** -16 * terms).all()
 
 
@@ -192,14 +232,20 @@ def test_kernel_replay_is_the_twin(shape, variant):
     ({"z": torch.zeros((2, 4, 4, 176), dtype=torch.bfloat16)}, ValueError),
     ({"s": torch.zeros((1, 180), dtype=torch.bfloat16)}, ValueError),
     ({"weight": torch.zeros(176, dtype=torch.bfloat16)}, ValueError),
+    ({"weight": torch.zeros(184, dtype=torch.bfloat16),
+      "bias": torch.zeros(184, dtype=torch.bfloat16)}, ValueError),
     ({"bias": torch.zeros(180)}, TypeError),
     ({"r": torch.zeros((2, 4, 4, 180))}, TypeError),
     ({"s": None}, ValueError),
     ({"r": None}, ValueError),
     ({"z": torch.zeros((2, 4, 4, 180), dtype=torch.bfloat16,
                        device="meta")}, ValueError),
-], ids=["x-3d", "r-shape", "z-shape", "s-batch", "weight-c", "bias-dtype",
-        "r-dtype", "z-without-s", "scaled-without-r", "z-device"])
+    ({"weight": torch.zeros(180, dtype=torch.bfloat16, device="meta")},
+     ValueError),
+], ids=["x-3d", "r-shape", "z-shape", "s-batch", "weight-c",
+        "weight-wider-than-x", "bias-dtype",
+        "r-dtype", "z-without-s", "scaled-without-r", "z-device",
+        "weight-device"])
 def test_wrapper_refuses_what_does_not_fit(change, error):
     kw = {"x": torch.zeros((2, 4, 4, 180), dtype=torch.bfloat16),
           "r": torch.zeros((2, 4, 4, 180), dtype=torch.bfloat16),
@@ -247,44 +293,57 @@ def test_kernel_i_is_counted_under_letter_i():
 
 # models/hat.py's forward before kernel I, kept here as the yardstick:
 # each residual sum a torch add (or addcmul) and each LayerNorm
-# ``layers.layer_norm`` on it
+# ``layers.layer_norm`` on it, the trunk carried at the model's row pitch
+def _ln(x, norm):
+    """``layers.layer_norm`` over the real channels of a trunk map, its
+    pad zero."""
+    c = norm.normalized_shape[0]
+    return F.pad(layer_norm(x[..., :c], norm), (0, x.shape[-1] - c))
+
+
 def _parent_hab(blk, x):
-    n = layer_norm(x, blk.norm1)
+    p, c = x.shape[-1], blk.norm1.normalized_shape[0]
+    n = _ln(x, blk.norm1)
     cab = blk.conv_block.cab
-    z = conv(F.gelu(conv(n, cab[0])), cab[2])
+    z = conv(F.gelu(conv(n, cab[0], pad=(p, 0, 1))), cab[2], pad=(p, 1, 0))
     ca = cab[3].attention
     w = z.mean(dim=(1, 2))
-    w = torch.sigmoid(linear(F.relu(linear(w, ca[1])), ca[3]))
+    w = torch.sigmoid(linear(F.relu(linear(w, ca[1], pad=(p, 0, 1))),
+                             ca[3], pad=(p, 1, 0)))
     a = hat_attention(
-        linear(n, blk.attn.qkv), blk.attn.relative_position_bias_table,
-        num_heads=blk.num_heads, shift=blk.shift)
-    x = torch.addcmul(x + linear(a, blk.attn.proj), z,
+        linear(n, blk.attn.qkv, pad=(p, 3, 1)),
+        blk.attn.relative_position_bias_table, num_heads=blk.num_heads,
+        shift=blk.shift, channels=c)
+    x = torch.addcmul(x + linear(a, blk.attn.proj, pad=(p, 1, 1)), z,
                       (w * hat.CONV_SCALE)[:, None, None, :])
-    return x + blk.mlp(layer_norm(x, blk.norm2))
+    return x + blk.mlp(_ln(x, blk.norm2))
 
 
 def _parent_ocab(blk, x):
+    p, c = x.shape[-1], blk.norm1.normalized_shape[0]
     a = hat_attention(
-        linear(layer_norm(x, blk.norm1), blk.qkv),
+        linear(_ln(x, blk.norm1), blk.qkv, pad=(p, 3, 1)),
         blk.relative_position_bias_table, num_heads=blk.num_heads,
-        overlap=hat.OVERLAP)
-    x = x + linear(a, blk.proj)
-    return x + blk.mlp(layer_norm(x, blk.norm2))
+        overlap=hat.OVERLAP, channels=c)
+    x = x + linear(a, blk.proj, pad=(p, 1, 1))
+    return x + blk.mlp(_ln(x, blk.norm2))
 
 
 def _parent_forward(m, x):
     dt = m.dtype
     x = (x.float() - m.mean).to(dt)
-    f0 = conv(x, m.conv_first)
-    t = layer_norm(f0, m.patch_embed.norm)
+    p = pitch(m.embed_dim, x.device)
+    f0 = conv(x, m.conv_first, pad=(p, 1, 0))
+    t = _ln(f0, m.patch_embed.norm)
     for layer in m.layers:
         u = t
         for blk in layer.residual_group.blocks:
             u = _parent_hab(blk, u)
         u = _parent_ocab(layer.residual_group.overlap_attn, u)
-        t = conv(u, layer.conv) + t
-    f = conv(layer_norm(t, m.norm), m.conv_after_body) + f0
-    u = F.leaky_relu(conv(f, m.conv_before_upsample[0]), 0.01)
+        t = conv(u, layer.conv, pad=(p, 1, 1)) + t
+    f = conv(_ln(t, m.norm), m.conv_after_body, pad=(p, 1, 1)) + f0
+    u = F.leaky_relu(conv(f, m.conv_before_upsample[0], pad=(p, 0, 1)),
+                     0.01)
     for i in range(0, len(m.upsample), 2):
         u = pixel_shuffle(conv(u, m.upsample[i]), 2)
     y = conv(u, m.conv_last)
@@ -294,9 +353,9 @@ def _parent_forward(m, x):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_hat_forward_is_the_parents_forward(dtype):
-    """Two groups (2 HABs, then 1) at embed 60 on the benchmark's seeded
-    weights: the pending sums formed at the next LayerNorm give the bytes
-    of the forward that added them in torch."""
+    """Two groups (2 HABs, then 1) at embed 60 (pitch 64) on the
+    benchmark's seeded weights: the pending sums formed at the next
+    LayerNorm give the bytes of the forward that added them in torch."""
     arch = {"embed_dim": 60, "depths": (2, 1), "num_heads": 2}
     small = dict(CONFIG, embed_dim=60, depths=[2, 1], num_heads=2)
     params = bench_weights.make_params(small, 7, "cpu")

@@ -1257,17 +1257,45 @@ def test_first_call_at_a_new_chunk_shape_is_one_capture():
         profiling.reset()
 
 
+def _at_pitch(t, parts, p):
+    """t's last axis, ``parts`` equal blocks, each carried at pitch p with
+    NaN in its pad (a pad the kernels must neither read into the real
+    channels nor pass on)."""
+    c = t.shape[-1] // parts
+    return torch.nn.functional.pad(t.unflatten(-1, (parts, c)), (0, p - c),
+                                   value=float("nan")).flatten(-2)
+
+
+def _padded_g(ha, qkv16, table, kw, k16):
+    """Kernel G at pitch 192 (HAT's and DAT's trunk) on the same qkv: the
+    pitch-180 output's bytes on the real channels, zeros in the pad, one
+    launch counted in ``padded_launches``."""
+    before = ha.hat_attention.padded_launches
+    wide = ha.hat_attention(_at_pitch(qkv16, 3, 192), table, channels=180,
+                            **kw)
+    assert ha.hat_attention.padded_launches == before + 1
+    assert wide.shape[-1] == 192
+    assert torch.equal(wide[..., :180], k16)
+    assert not wide[..., 180:].any()
+
+
 @pytest.mark.parametrize("bhw", [(3, 48, 80), (2, 128, 96)],
                          ids=["rect-3x48x80", "2x128x96"])
-@pytest.mark.parametrize("shift, overlap", [(0, 0), (8, 0), (0, 4)],
-                         ids=["self", "self-shift-8", "overlapping"])
-def test_kernel_g_matches_its_twin(shift, overlap, bhw):
+@pytest.mark.parametrize("shift, overlap, pitch",
+                         [(0, 0, 180), (8, 0, 180), (0, 4, 180),
+                          (8, 0, 192), (0, 4, 192)],
+                         ids=["self", "self-shift-8", "overlapping",
+                              "self-shift-8-pitch-192",
+                              "overlapping-pitch-192"])
+def test_kernel_g_matches_its_twin(shift, overlap, pitch, bhw):
     """Kernel G (HAT's window attention) in bf16 against its plain twin at
     HAT's width (C 180, 6 heads of 30), shifted windows whose last row
     and column wrap, and overlapping windows zero-padded at every border:
     by the bf16 rule |k16 - p32| <= max(2 |p16 - p32|, 0.02), and with
     scores past 100 (q and k 4x larger) as well; one launch counted each
-    call, overlapping ones also in ``overlap_launches``."""
+    call, overlapping ones also in ``overlap_launches``. At pitch 192
+    (NaN in the pads) the pitch-180 bytes and a zero pad
+    (``_padded_g``)."""
     from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
 
     b, h, w = bhw
@@ -1281,10 +1309,13 @@ def test_kernel_g_matches_its_twin(shift, overlap, bhw):
         x[..., :360] *= scale
         before = (ha.hat_attention.launches,
                   ha.hat_attention.overlap_launches)
-        k16 = ha.hat_attention(x.bfloat16(), table, **kw).float()
+        k16 = ha.hat_attention(x.bfloat16(), table, **kw)
         assert (ha.hat_attention.launches,
                 ha.hat_attention.overlap_launches) == (
             before[0] + 1, before[1] + bool(overlap))
+        if pitch != 180:
+            _padded_g(ha, x.bfloat16(), table, kw, k16)
+        k16 = k16.float()
         p16 = ha.hat_attention_plain(x.bfloat16(), table, **kw).float()
         p32 = ha.hat_attention_plain(x, table, **kw)
         e_k = float((k16 - p32).abs().max())
@@ -1306,7 +1337,8 @@ def test_hat_chunk_captured_is_the_eager_chunk():
     2 tiles of 64) through its captured program: replays give the bytes
     of the eager call and record kernel G's launches (3, 1 of them
     overlapping) and kernel I's (8: patch_embed.norm, 2 LN1 and 2 LN2 of
-    the HABs, OCAB's 2 and the final norm)."""
+    the HABs, OCAB's 2 and the final norm), all on the trunk's pitch of
+    192 (``padded_G``, ``padded_I``)."""
     from waifu2x_tensorrt_tpu_torch.engine import exe_cache
     from waifu2x_tensorrt_tpu_torch.models import registry
 
@@ -1323,7 +1355,8 @@ def test_hat_chunk_captured_is_the_eager_chunk():
     first = prog(x)
     (graph,) = prog.graphs.values()
     assert graph.launches == {"launches_G": 3, "overlap_G": 1,
-                              "launches_I": 8}
+                              "padded_G": 3, "launches_I": 8,
+                              "padded_I": 8}
     second = prog(x)
     assert torch.equal(first, want) and torch.equal(second, want)
 
@@ -1367,28 +1400,42 @@ def _within_one_ulp(got, want, y, weight, bias):
 
 
 @pytest.mark.parametrize("variant", ["norm", "add", "scaled"])
-@pytest.mark.parametrize("shape", [(16, 256, 256, 180), (3, 37, 29, 180),
-                                   (3, 37, 29, 12), (3, 37, 29, 144),
-                                   (2, 5, 7, 256)],
-                         ids=["cell", "odd-rows", "c12", "c144", "c256"])
-def test_kernel_i_matches_its_twin(shape, variant):
+@pytest.mark.parametrize("shape, pitch", [
+    ((16, 256, 256, 180), 180), ((3, 37, 29, 180), 180),
+    ((3, 37, 29, 12), 12), ((3, 37, 29, 144), 144), ((2, 5, 7, 256), 256),
+    ((16, 256, 256, 180), 192), ((3, 37, 29, 180), 192),
+    ((3, 37, 29, 12), 16)],
+    ids=["cell", "odd-rows", "c12", "c144", "c256", "cell-pitch-192",
+         "odd-rows-pitch-192", "c12-pitch-16"])
+def test_kernel_i_matches_its_twin(shape, pitch, variant):
     """Kernel I at the hat4x-480p-stream cell's chunk (16 tiles of 256,
     C 180) and with odd row counts (the last pair of rows one row; pairs
     across two images) at C 180, and at C 12 (one vector a lane), 144
-    (HAT-S's width) and 256 (the widest it takes): y byte-equal to the twin's, n within one bf16 ulp
-    (beyond an fp32-level difference of the terms, ``_within_one_ulp``),
-    one launch counted."""
+    (HAT-S's width) and 256 (the widest it takes): y byte-equal to the
+    twin's, n within one bf16 ulp (beyond an fp32-level difference of the
+    terms, ``_within_one_ulp``), one launch counted. At a pitch P > C
+    (NaN in the inputs' pads, s (B, P)): the same on the real channels,
+    zeros in the pads of y and n, the launch also in
+    ``padded_launches``."""
     from waifu2x_tensorrt_tpu_torch.ops import hat_norm as hn
 
     x, r, z, s, w, b = _add_norm_inputs(shape, variant, seed=shape[-1])
+    c = shape[-1]
+    if pitch != c:
+        x, r, z = (None if t is None else _at_pitch(t, 1, pitch)
+                   for t in (x, r, z))
+        s = None if s is None else _at_pitch(s, 1, pitch).nan_to_num(1.0)
     want_y, want_n = hn.add_norm_plain(x, r, w, b, 1e-5, z=z, s=s)
-    before = hn.add_norm.launches
+    before = (hn.add_norm.launches, hn.add_norm.padded_launches)
     y, n = hn.add_norm(x, r, w, b, 1e-5, z=z, s=s)
     torch.cuda.synchronize()
-    assert hn.add_norm.launches == before + 1
+    assert (hn.add_norm.launches, hn.add_norm.padded_launches) == (
+        before[0] + 1, before[1] + (pitch != c))
     assert (y is x) == (r is None)
-    _bytes_equal(y, want_y)
-    _within_one_ulp(n, want_n, want_y, w, b)
+    _bytes_equal(y[..., :c], want_y[..., :c])
+    _within_one_ulp(n[..., :c], want_n[..., :c], want_y[..., :c], w, b)
+    assert not n[..., c:].any()
+    assert r is None or not y[..., c:].any()
 
 
 def test_kernel_i_refuses_what_it_does_not_take():
@@ -1633,15 +1680,17 @@ def test_cunet_chunk_captured_launches_h():
 
 @pytest.mark.parametrize("bhw", [(2, 64, 96), (16, 256, 256)],
                          ids=["2x64x96", "cell-16x256x256"])
-@pytest.mark.parametrize("shift", [(0, 0), (4, 16)],
-                         ids=["unshifted", "shifted"])
-def test_kernel_g_rect_matches_its_twin(shift, bhw):
+@pytest.mark.parametrize("shift, pitch", [((0, 0), 180), ((4, 16), 180),
+                                          ((4, 16), 192)],
+                         ids=["unshifted", "shifted", "shifted-pitch-192"])
+def test_kernel_g_rect_matches_its_twin(shift, pitch, bhw):
     """Kernel G on DAT's split windows (heads 0-2 in 8 x 32 windows, 3-5
     in 32 x 8, C 180) in bf16 against its plain twin by the bf16 rule,
     unshifted and shifted (every window of the last row and column
     wraps), at a small map and at the DAT cell's chunk, and with scores
     past 100 (q and k 4x larger); one launch counted each call, also in
-    ``rect_launches``."""
+    ``rect_launches``. At pitch 192 (NaN in the pads) the pitch-180
+    bytes and a zero pad (``_padded_g``)."""
     from waifu2x_tensorrt_tpu_torch.ops import hat_attention as ha
 
     b, h, w = bhw
@@ -1654,10 +1703,13 @@ def test_kernel_g_rect_matches_its_twin(shift, bhw):
         x = qkv.clone()
         x[..., :360] *= scale
         before = (ha.hat_attention.launches, ha.hat_attention.rect_launches)
-        k16 = ha.hat_attention(x.bfloat16(), table, **kw).float()
+        k16 = ha.hat_attention(x.bfloat16(), table, **kw)
         assert (ha.hat_attention.launches,
                 ha.hat_attention.rect_launches) == (before[0] + 1,
                                                     before[1] + 1)
+        if pitch != 180:
+            _padded_g(ha, x.bfloat16(), table, kw, k16)
+        k16 = k16.float()
         p16 = ha.hat_attention_plain(x.bfloat16(), table, **kw).float()
         p32 = ha.hat_attention_plain(x, table, **kw)
         e_k = float((k16 - p32).abs().max())
@@ -1667,15 +1719,20 @@ def test_kernel_g_rect_matches_its_twin(shift, bhw):
         torch.cuda.empty_cache()
 
 
-@pytest.mark.parametrize("shape", [(16, 256, 256), (3, 37, 29), (1, 8, 8)],
-                         ids=["cell-16x256x256", "3x37x29", "1x8x8"])
-def test_kernel_j_matches_its_twin(shape):
+@pytest.mark.parametrize("shape, pitch", [
+    ((16, 256, 256), 180), ((3, 37, 29), 180), ((1, 8, 8), 180),
+    ((16, 256, 256), 192), ((3, 37, 29), 192)],
+    ids=["cell-16x256x256", "3x37x29", "1x8x8", "cell-16x256x256-pitch-192",
+         "3x37x29-pitch-192"])
+def test_kernel_j_matches_its_twin(shape, pitch):
     """Kernel J (DAT's channel attention, C 180, 6 heads of 30) in bf16
     against its plain twin by the bf16 rule, at the DAT cell's chunk, at
     token counts that leave the last slice and apply block partly empty,
     and at fewer tokens than one; temperatures 1 to 16; the same bytes
     on a second call (fixed-order sums, no float atomics); one call
-    counted."""
+    counted. At pitch 192 (NaN in the pads) the pitch-180 bytes on the
+    real channels, zeros in the pad, the call also in
+    ``padded_launches``."""
     from waifu2x_tensorrt_tpu_torch.ops import channel_attention as ca
 
     b, h, w = shape
@@ -1689,6 +1746,14 @@ def test_kernel_j_matches_its_twin(shape):
     again = ca.channel_attention(qkv.bfloat16(), tau, num_heads=6)
     assert ca.channel_attention.launches == before + 2
     assert torch.equal(k16, again)
+    if pitch != 180:
+        before = ca.channel_attention.padded_launches
+        wide = ca.channel_attention(_at_pitch(qkv.bfloat16(), 3, pitch),
+                                    tau, num_heads=6, channels=180)
+        assert ca.channel_attention.padded_launches == before + 1
+        assert wide.shape[-1] == pitch
+        assert torch.equal(wide[..., :180], k16)
+        assert not wide[..., 180:].any()
     p16 = ca.channel_attention_plain(qkv.bfloat16(), tau, num_heads=6)
     p32 = ca.channel_attention_plain(qkv, tau, num_heads=6)
     e_k = float((k16.float() - p32).abs().max())
@@ -1714,7 +1779,8 @@ def test_dat_chunk_captured_is_the_eager_chunk():
     block, bf16, 2 tiles of 64) through its captured program: replays
     give the bytes of the eager call and record kernel G's launch (1, on
     split rectangular windows), kernel J's call (1) and kernel I's
-    launches (6: before_RG.1, the 2 LN1, the 2 LN2 and the final norm)."""
+    launches (6: before_RG.1, the 2 LN1, the 2 LN2 and the final norm),
+    all on the trunk's pitch of 192 (``padded_*``)."""
     from waifu2x_tensorrt_tpu_torch.engine import exe_cache
     from waifu2x_tensorrt_tpu_torch.models import registry
 
@@ -1730,7 +1796,8 @@ def test_dat_chunk_captured_is_the_eager_chunk():
         want = module(x)
     first = prog(x)
     (graph,) = prog.graphs.values()
-    assert graph.launches == {"launches_G": 1, "rect_G": 1,
-                              "launches_J": 1, "launches_I": 6}
+    assert graph.launches == {"launches_G": 1, "rect_G": 1, "padded_G": 1,
+                              "launches_J": 1, "padded_J": 1,
+                              "launches_I": 6, "padded_I": 6}
     second = prog(x)
     assert torch.equal(first, want) and torch.equal(second, want)

@@ -175,16 +175,26 @@ def _direct_split(qkv, table, nh, shift, split=(8, 32)):
     return out
 
 
-@pytest.mark.parametrize("shift", [(0, 0), (4, 16)],
-                         ids=["unshifted", "shifted"])
-def test_kernel_g_split_twin_is_the_direct_attention(shift):
+@pytest.mark.parametrize("shift, pitch", [((0, 0), 24), ((4, 16), 24),
+                                          ((4, 16), 32)],
+                         ids=["unshifted", "shifted", "shifted-pitch-32"])
+def test_kernel_g_split_twin_is_the_direct_attention(shift, pitch):
+    """At a pitch of 32 (NaN in q's, k's and v's pads) the pitch-24
+    output on the real channels, zeros in the pad."""
     g = torch.Generator().manual_seed(7 + shift[0])
     qkv = torch.randn((2, 64, 64, 3 * 24), generator=g)
     table = torch.randn((ha.table_rows(ha.RECT, 0), 4), generator=g)
-    got = ha.hat_attention(qkv, table, num_heads=4, window=ha.RECT,
-                           shift=shift, split=True)
+    kw = {"num_heads": 4, "window": ha.RECT, "shift": shift, "split": True}
+    wide = F.pad(qkv.unflatten(-1, (3, 24)), (0, pitch - 24),
+                 value=float("nan")).flatten(-2)
+    got = ha.hat_attention(wide, table, channels=24, **kw)
     want = _direct_split(qkv, table, 4, shift)
-    assert float((got.double() - want).abs().max()) <= 1e-5
+    assert got.shape == (2, 64, 64, pitch)
+    assert float((got[..., :24].double() - want).abs().max()) <= 1e-5
+    assert not got[..., 24:].any()
+    if pitch != 24:
+        assert torch.equal(got[..., :24],
+                           ha.hat_attention_plain(qkv, table, **kw))
 
 
 def test_split_window_index_and_mask_are_dats():
@@ -214,18 +224,28 @@ def test_kernel_g_wrapper_refuses_what_it_does_not_take():
         ha.hat_attention(qkv, torch.zeros((961, 6)), **kw)
 
 
-@pytest.mark.parametrize("tau", [1.0, 8.0])
-def test_kernel_j_twin_is_normalize_and_matmul(tau):
+@pytest.mark.parametrize("tau, pitch", [(1.0, 24), (8.0, 24), (8.0, 32)],
+                         ids=["1.0", "8.0", "8.0-pitch-32"])
+def test_kernel_j_twin_is_normalize_and_matmul(tau, pitch):
+    """At a pitch of 32 (NaN in q's, k's and v's pads) the pitch-24
+    output on the real channels, zeros in the pad."""
     g = torch.Generator().manual_seed(int(tau))
     qkv = torch.randn((2, 32, 64, 3 * 24), generator=g)
     qkv[..., :48] += torch.randn((2, 1, 1, 48), generator=g)
     temp = torch.tensor([tau, 2 * tau, 0.5, 3.0])
-    got = ca.channel_attention(qkv, temp, num_heads=4)
+    wide = F.pad(qkv.unflatten(-1, (3, 24)), (0, pitch - 24),
+                 value=float("nan")).flatten(-2)
+    got = ca.channel_attention(wide, temp, num_heads=4, channels=24)
     x = qkv.double().reshape(2, 32 * 64, 3, 4, 6).permute(2, 0, 3, 4, 1)
     q, k = F.normalize(x[0], dim=-1), F.normalize(x[1], dim=-1)
     a = (q @ k.transpose(-1, -2) * temp.double()[:, None, None]).softmax(-1)
     want = (a @ x[2]).permute(0, 3, 1, 2).reshape(2, 32, 64, 24)
-    assert float((got.double() - want).abs().max()) <= 1e-5
+    assert got.shape == (2, 32, 64, pitch)
+    assert float((got[..., :24].double() - want).abs().max()) <= 1e-5
+    assert not got[..., 24:].any()
+    if pitch != 24:
+        assert torch.equal(got[..., :24], ca.channel_attention_plain(
+            qkv, temp, num_heads=4))
 
 
 def test_kernel_j_twin_rounds_as_the_kernel():

@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from benchmark_torch.lib import weights
 from benchmark_torch.reference import hat as ref
@@ -148,18 +149,29 @@ def _direct(qkv, table, nh, shift, overlap, ws=16):
     return out
 
 
-@pytest.mark.parametrize("shift, overlap", [(0, 0), (8, 0), (0, 4)],
-                         ids=["self", "self-shift-8", "overlapping"])
-def test_kernel_g_twin_is_the_direct_attention(shift, overlap):
+@pytest.mark.parametrize("shift, overlap, pitch",
+                         [(0, 0, 60), (8, 0, 60), (0, 4, 60), (8, 0, 64),
+                          (0, 4, 64)],
+                         ids=["self", "self-shift-8", "overlapping",
+                              "self-shift-8-pitch-64", "overlapping-pitch-64"])
+def test_kernel_g_twin_is_the_direct_attention(shift, overlap, pitch):
+    """At a pitch of 64 (NaN in q's, k's and v's pads) the pitch-60
+    output on the real channels, zeros in the pad."""
     g = torch.Generator().manual_seed(shift + overlap)
     nh, c = 2, 60
     qkv = torch.randn((2, 32, 48, 3 * c), generator=g)
     table = 0.5 * torch.randn((ha.table_rows(16, overlap), nh), generator=g)
-    got = ha.hat_attention(qkv, table, num_heads=nh, shift=shift,
-                           overlap=overlap)
+    kw = {"num_heads": nh, "shift": shift, "overlap": overlap}
+    wide = F.pad(qkv.unflatten(-1, (3, c)), (0, pitch - c),
+                 value=float("nan")).flatten(-2)
+    got = ha.hat_attention(wide, table, channels=c, **kw)
     want = _direct(qkv, table, nh, shift, overlap)
-    assert got.shape == (2, 32, 48, c)
-    assert float((got.double() - want).abs().max()) <= 1e-5
+    assert got.shape == (2, 32, 48, pitch)
+    assert float((got[..., :c].double() - want).abs().max()) <= 1e-5
+    assert not got[..., c:].any()
+    if pitch != c:
+        assert torch.equal(got[..., :c], ha.hat_attention_plain(qkv, table,
+                                                                **kw))
 
 
 def test_kernel_g_twin_rounds_as_the_kernel():

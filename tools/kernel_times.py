@@ -50,7 +50,16 @@ shapes, each beside its bound and its share of it:
   32 windows, 3-5 in 32 x 8, shifted by (4, 16)) and J (DAT's channel
   attention, where the version has it) in bf16 on the dat4x-480p-stream
   cell's (16, 256, 256, 540) qkv, 6 heads of 30, each beside its plain
-  twin on the card.
+  twin on the card;
+- G (self, overlapping, split), I (each variant) and J again with the
+  trunk carried at the row pitch HAT and DAT run (``models/layers.pitch``:
+  192 for C = 180; where the version has it), each against the bound of
+  the same pitch-C work;
+- the trunk's library GEMMs (qkv, proj, fc1, fc2 at a chunk's 1,048,576
+  tokens) and 3x3 convs (C -> C / 3, C / 3 -> C, C -> C on 16 tiles of
+  256) at row pitch C = 180, 184 (C up to a multiple of 8) and 192 (of
+  64), each with the kernels the library picked (``torch.profiler``);
+  torch alone, so the same for every ``--root``.
 
 It goes through the wrappers only, so ``--root DIR`` can import
 ``waifu2x_tensorrt_tpu_torch`` from an unpacked other version (``git
@@ -206,6 +215,7 @@ def main() -> int:
     except ImportError:  # a version without kernel G
         return 0
     _kernel_g(cs, torch, ha, show)
+    _library_rows(cs, torch, F)
     try:
         from waifu2x_tensorrt_tpu_torch.ops import cunet_epilogue as ce
     except ImportError:  # a version without kernel H
@@ -242,6 +252,14 @@ def main() -> int:
              lambda: hn.add_norm(x, r, w, b, 1e-5, **kw),
              (cs._add_norm_work(cs.NORM_SHAPE, variant),),
              lambda: F.layer_norm(x, (c,), w, b, 1e-5), "F.layer_norm")
+        if hasattr(hn.add_norm, "padded_launches"):
+            p = _trunk_pitch()
+            px, pr, pz, ps = (None if t is None else F.pad(t, (0, p - c))
+                              for t in (x, r, z, s))
+            show(f"kernel I bf16 {variant} {cs.NORM_SHAPE} at pitch {p}",
+                 lambda: hn.add_norm(px, pr, w, b, 1e-5, z=pz, s=ps),
+                 (cs._add_norm_work(cs.NORM_SHAPE, variant),))
+            del px, pr, pz, ps
         del x, r, z, s, w, b
         torch.cuda.empty_cache()
     if hasattr(ha, "RECT"):
@@ -267,14 +285,126 @@ def _dat_kernels(cs, torch, ha, show):
          f"540), plain twin {pm:.4f} ms",
          lambda: ha.hat_attention(q16, table, **kw),
          cs._hat_work(16, 256, 256, 180, 6, 0))
+    wide = _at_trunk_pitch(torch, q16) if _takes_pitch(ha) else None
+    if wide is not None:
+        show(f"kernel G-rect bf16 8x32 / 32x8 shift (4, 16) at pitch "
+             f"{wide.shape[-1] // 3}",
+             lambda: ha.hat_attention(wide, table, channels=180, **kw),
+             cs._hat_work(16, 256, 256, 180, 6, 0))
     tau = torch.full((6,), 8.0, device="cuda")
     pm = cs._median_ms(lambda: ca.channel_attention_plain(q16, tau,
                                                           num_heads=6),
                        iters=3, warmup=1)
     tokens = 16 * 256 * 256
+    work = (tokens * 4 * 180 * 2, 2 * 2 * tokens * 180 * 30, 0)
     show(f"kernel J bf16 (16, 256, 256, 540), plain twin {pm:.4f} ms",
-         lambda: ca.channel_attention(q16, tau, num_heads=6),
-         (tokens * 4 * 180 * 2, 2 * 2 * tokens * 180 * 30, 0))
+         lambda: ca.channel_attention(q16, tau, num_heads=6), work)
+    if wide is not None:
+        show(f"kernel J bf16 at pitch {wide.shape[-1] // 3}",
+             lambda: ca.channel_attention(wide, tau, num_heads=6,
+                                          channels=180), work)
+
+
+# HAT's and DAT's trunk width and the token GEMMs of a block, (K, N) at
+# pitch C, on a chunk of the 480p cells (16 tiles of 256 x 256)
+TRUNK = 180
+TOKENS = 16 * 256 * 256
+TRUNK_GEMMS = (("qkv", TRUNK, 3 * TRUNK), ("proj", TRUNK, TRUNK),
+               ("fc1", TRUNK, 2 * TRUNK), ("fc2", 2 * TRUNK, TRUNK))
+# the 3x3 convs on the trunk: (Cin, Cout); 60 is the CAB's inner width
+TRUNK_CONVS = ((TRUNK, TRUNK // 3), (TRUNK // 3, TRUNK), (TRUNK, TRUNK))
+
+
+def _pitch(c: int, multiple: int) -> int:
+    return -(-c // multiple) * multiple
+
+
+def _trunk_pitch() -> int:
+    """The pitch of the package's HAT and DAT trunk at C = 180."""
+    from waifu2x_tensorrt_tpu_torch.models.layers import pitch
+
+    return pitch(TRUNK, "cuda")
+
+
+def _takes_pitch(ha) -> bool:
+    """Does this version's kernel G (and J beside it) take a pitch?"""
+    import inspect
+
+    return "channels" in inspect.signature(ha.hat_attention).parameters
+
+
+def _at_trunk_pitch(torch, qkv):
+    """(..., 3C) qkv carried at the trunk's pitch, zero pads."""
+    p = _trunk_pitch()
+    return torch.nn.functional.pad(qkv.unflatten(-1, (3, TRUNK)),
+                                   (0, p - TRUNK)).flatten(-2)
+
+
+def _device_kernels(torch, fn, top=2):
+    """Names of the ``top`` kernels of ``fn`` by device time, one call
+    under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(),
+                  key=lambda e: -getattr(e, "device_time_total",
+                                         getattr(e, "cuda_time_total", 0)))
+    return [e.key for e in rows[:top]]
+
+
+def _library_rows(cs, torch, F):
+    """The trunk's library GEMMs and 3x3 convs on a chunk of tokens at
+    row pitch C = 180 (``a`` / ``w`` rows of 360 bytes: 8- not 16-byte
+    aligned), against pitch 184 (C up to a multiple of 8) and 192 (of
+    64), a width of 3C as three parts of the pitch, beside the bytes
+    bound of the real (pitch-C) work and the kernels the library
+    picked."""
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    for name, k, n in TRUNK_GEMMS:
+        work = 2 * (TOKENS * (k + n) + k * n)
+        flops = 2 * TOKENS * k * n
+        for mult in (1, 8, 64):
+            kp = k if k == 2 * TRUNK else _pitch(k, mult)
+            np_ = n if n == 2 * TRUNK else (n // TRUNK) * _pitch(TRUNK, mult)
+            a, w, b = rand(TOKENS, kp), rand(np_, kp), rand(np_)
+            ms = cs._median_ms(lambda: F.linear(a, w, b))
+            bms, by = cs._bound(work, flops)
+            names = _device_kernels(torch, lambda: F.linear(a, w, b), 1)
+            print(f"library GEMM {name} ({TOKENS} x {k}) -> {n} at "
+                  f"({TOKENS} x {kp}) -> {np_}: {ms:.4f} ms (bound "
+                  f"{bms:.4f} ms by {by} at pitch C, {100 * bms / ms:.1f}% "
+                  f"of it); {names[0]}", flush=True)
+            del a, w, b
+    for cin, cout in TRUNK_CONVS:
+        work = 2 * (TOKENS * (cin + cout) + 9 * cin * cout)
+        flops = 2 * TOKENS * 9 * cin * cout
+        for mult in (1, 8, 64):
+            ci = cin if cin != TRUNK else _pitch(cin, mult)
+            co = cout if cout != TRUNK else _pitch(cout, mult)
+            x = rand(16, ci, 256, 256).contiguous(
+                memory_format=torch.channels_last)
+            w = rand(co, ci, 3, 3).contiguous(
+                memory_format=torch.channels_last)
+            b = rand(co)
+            ms = cs._median_ms(lambda: F.conv2d(x, w, b, padding=1))
+            bms, by = cs._bound(work, flops)
+            names = _device_kernels(
+                torch, lambda: F.conv2d(x, w, b, padding=1), 3)
+            print(f"library conv3x3 {cin} -> {cout} at {ci} -> {co} "
+                  f"(16, 256, 256): {ms:.4f} ms (bound {bms:.4f} ms by "
+                  f"{by} at pitch C, {100 * bms / ms:.1f}% of it); "
+                  f"{' | '.join(names)}", flush=True)
+            del x, w, b
+    torch.cuda.empty_cache()
 
 
 def _kernel_g(cs, torch, ha, show):
@@ -292,6 +422,12 @@ def _kernel_g(cs, torch, ha, show):
              lambda: ha.hat_attention(q16, table, **kw),
              cs._hat_work(16, 256, 256, 180, 6, ov),
              cs._hat_sdpa(torch, q16, table, 6, shift, ov))
+        if _takes_pitch(ha):
+            wide = _at_trunk_pitch(torch, q16)
+            show(f"kernel G bf16 {name} at pitch {wide.shape[-1] // 3}",
+                 lambda: ha.hat_attention(wide, table, channels=180, **kw),
+                 cs._hat_work(16, 256, 256, 180, 6, ov))
+            del wide
 
 
 if __name__ == "__main__":

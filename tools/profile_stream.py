@@ -23,7 +23,9 @@ random weights, loaded through ``Upscaler``):
   tf32 precision (fp32 compute, TF32 off in cuBLAS and cuDNN, as the CLI
   sets it): kernel B's fp32 kernel, and the graph's fp32 torch ops;
 - ``hat-480p``: hat/photo 4x, tile 256, batch 16, 720 x 480 frames (the
-  hat4x-480p-stream cell's model and frames; kernels G and I).
+  hat4x-480p-stream cell's model and frames; kernels G and I);
+- ``dat-480p``: dat/photo 4x the same way (the dat4x-480p-stream cell's
+  model; kernels G, I and J).
 
 Opens a stream for the cell's frames and runs its warm cycle. It first
 reads the unprofiled streamed rate twice (outputs kept, host clock ending
@@ -40,9 +42,10 @@ submits ``--frames`` seeded frames and flushes under ``torch.profiler``
 - wall ms of the profiled window (host clock, ending in a synchronize),
   device busy ms (union of the intervals of every device event) and the
   device's idle share;
-- device time by group (kernels B, C, G, H and I, roll, TTA flips,
-  copies, convolutions and GEMMs, host-to-device copies, the rest), and
-  the 20 device kernels with the most time;
+- device time by group (kernels B, C, G, H, I and J, roll, TTA flips,
+  copies, convolutions and GEMMs (cuBLAS's Hopper GEMMs are ``nvjet_*``),
+  host-to-device copies, the rest), and the 20 device kernels with the
+  most time;
 - per chunk of the cell's batch: kernel launches (``cudaLaunchKernel``
   calls) and CUDA-graph launches (``cudaGraphLaunch``: a captured chunk
   program's kernels are launched by its replay, not from the host) from
@@ -68,12 +71,13 @@ GROUPS = (  # (label, substrings of the device event name), first match
     ("kernel G hat_attention", ("hat_attention",)),
     ("kernel H bias_act", ("bias_act",)),
     ("kernel I add_norm", ("add_norm",)),
+    ("kernel J channel_attention", ("channel_attention",)),
     ("roll", ("roll_cuda",)),  # not "unrolled_elementwise_kernel"
     ("TTA flips", ("flip",)),
     ("copies (layout, dtype)", ("copy", "Copy")),
     ("host-to-device copies", ("HtoD",)),
     ("convolutions and GEMMs", ("conv", "xmma", "cutlass", "cudnn", "gemm",
-                                "sm90_", "nchw", "nhwc")),
+                                "sm90_", "nchw", "nhwc", "nvjet")),
 )
 
 
@@ -92,6 +96,7 @@ CELLS = {
     "graph-exact-tf32": ("swin_unet/art", 4, 3, 256, 16, False, (720, 1280),
                          "tf32"),
     "hat-480p": ("hat/photo", 4, -1, 256, 16, False, (480, 720), "fp16"),
+    "dat-480p": ("dat/photo", 4, -1, 256, 16, False, (480, 720), "fp16"),
 }
 
 

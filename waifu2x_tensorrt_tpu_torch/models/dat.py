@@ -68,6 +68,18 @@ parameter names are those of DAT's own state dict (``convert.
 dat_mapping``). Layers run through ``models/layers.py``. Kernels G and J
 are bf16 only: in float32 (the CPU tests) the attention is their plain
 twins.
+
+As in ``models/hat.py``, the trunk's C-wide maps (between ``conv_first``
+and ``conv_before_upsample``, each of q, k and v, the conv branch and
+the interaction's inputs) are carried at the row pitch P =
+``layers.pitch(C)`` (192 for the published 180), their pad channels
+zero; operands are padded to P where a layer reads or writes them
+(``pad=(P, out, inp)``), the depthwise conv of the conv branch runs on P
+channels, kernels G, I and J read and write rows of pitch P. The SGFN's
+e C / 2 maps, the interaction maps' C / 8 and C / 16 hidden widths and
+the spatial map keep their widths; the v slice before the depthwise conv
+is still a copy. A forward on the meta device (the FLOP count) runs at P
+= C.
 """
 
 from __future__ import annotations
@@ -81,8 +93,11 @@ from waifu2x_tensorrt_tpu_torch.models.layers import (
     conv,
     layer_norm,
     linear,
+    pitch,
     pixel_shuffle,
     weights,
+    widen,
+    widened,
 )
 from waifu2x_tensorrt_tpu_torch.ops.channel_attention import (
     channel_attention,
@@ -111,7 +126,8 @@ def shifted(i: int, j: int) -> bool:
 
 
 def _add_norm(x, r, norm: nn.LayerNorm):
-    """(x + r, LN(x + r)) by kernel I; r None: (x, LN(x))."""
+    """(x + r, LN(x + r)) by kernel I over the C channels of ``norm``, x
+    of any pitch; r None: (x, LN(x))."""
     w, b = weights(norm, x.dtype)
     return add_norm(x, r, w, b, norm.eps)
 
@@ -126,19 +142,21 @@ class FoldedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
 
-def _folded(owner: nn.Sequential, k: int, dtype: torch.dtype):
+def _folded(owner: nn.Sequential, k: int, dtype: torch.dtype, pad):
     """(weight, bias) in ``dtype`` of ``owner[k]`` (a conv or a linear)
     followed by the FoldedBatchNorm ``owner[k + 1]``, folded once and kept
-    on ``owner``."""
+    on ``owner``; ``pad`` = (p, out, inp) as ``layers.widened``."""
     def build():
         layer, bn = owner[k], owner[k + 1]
         s = bn.weight.reshape(-1, *[1] * (layer.weight.dim() - 1))
-        w = (layer.weight * s).to(dtype)
+        w, b = widened(layer.weight * s, layer.bias * bn.weight + bn.bias,
+                       pad)
+        w = w.to(dtype)
         if w.dim() == 4:
             w = w.contiguous(memory_format=torch.channels_last)
-        return w, (layer.bias * bn.weight + bn.bias).to(dtype)
+        return w, b.to(dtype)
 
-    return cached(owner, dtype, build)
+    return cached(owner, (dtype, *pad), build)
 
 
 def _dwconv(dim: int, device=None) -> nn.Sequential:
@@ -173,22 +191,24 @@ class _AIM(nn.Module):
             dim, device=device)
 
     def conv_branch(self, qkv):
-        """GELU(BN(dwconv3x3(v))) of the unshifted v."""
-        v = qkv[..., 2 * qkv.shape[-1] // 3:]
-        return F.gelu(conv(v, self.dwconv[0],
-                           operands=_folded(self.dwconv, 0, v.dtype)))
+        """GELU(BN(dwconv3x3(v))) of the unshifted v, on its P channels."""
+        p = qkv.shape[-1] // 3
+        v = qkv[..., 2 * p:]
+        return F.gelu(conv(v, self.dwconv[0], operands=_folded(
+            self.dwconv, 0, v.dtype, (p, 1, 0))))
 
     def channel_map(self, z):
-        """(B, C) channel weights (before the sigmoid) of mean_hw(z)."""
-        ci = self.channel_interaction
+        """(B, P) channel weights (before the sigmoid) of mean_hw(z)."""
+        ci, p = self.channel_interaction, z.shape[-1]
         y = z.mean(dim=(1, 2))
-        y = F.gelu(F.linear(y, *_folded(ci, 1, y.dtype)))
-        return linear(y, ci[4])
+        y = F.gelu(F.linear(y, *_folded(ci, 1, y.dtype, (p, 0, 1))))
+        return linear(y, ci[4], pad=(p, 1, 0))
 
     def spatial_map(self, z):
         """(B, H, W, 1) pixel weights (before the sigmoid) of z."""
         si = self.spatial_interaction
-        y = F.gelu(F.linear(z, *_folded(si, 0, z.dtype)))
+        y = F.gelu(F.linear(z, *_folded(si, 0, z.dtype,
+                                        (z.shape[-1], 0, 1))))
         return linear(y, si[3])
 
 
@@ -265,13 +285,15 @@ class SpatialAttention(_AIM):
                                     a[1].pos.table(ww, wh)], dim=1))
 
     def forward(self, n):
-        qkv = linear(n, self.qkv)
+        p = n.shape[-1]
+        qkv = linear(n, self.qkv, pad=(p, 3, 1))
         a = hat_attention(qkv, self.table, num_heads=self.num_heads,
-                          window=SPLIT, shift=self.shift, split=True)
+                          window=SPLIT, shift=self.shift, split=True,
+                          channels=self.qkv.in_features)
         cx = self.conv_branch(qkv)
         cm = torch.sigmoid(self.channel_map(cx))[:, None, None, :]
         y = a * cm + cx * torch.sigmoid(self.spatial_map(a))
-        return linear(y, self.proj)
+        return linear(y, self.proj, pad=(p, 1, 1))
 
 
 class ChannelAttention(_AIM):
@@ -284,13 +306,15 @@ class ChannelAttention(_AIM):
                                                    device=device))
 
     def forward(self, n):
-        qkv = linear(n, self.qkv)
+        p = n.shape[-1]
+        qkv = linear(n, self.qkv, pad=(p, 3, 1))
         a = channel_attention(qkv, self.temperature.reshape(-1),
-                              num_heads=self.num_heads)
+                              num_heads=self.num_heads,
+                              channels=self.qkv.in_features)
         cx = self.conv_branch(qkv)
         cm = torch.sigmoid(self.channel_map(a))[:, None, None, :]
         y = a * torch.sigmoid(self.spatial_map(cx)) + cx * cm
-        return linear(y, self.proj)
+        return linear(y, self.proj, pad=(p, 1, 1))
 
 
 class _SpatialGate(nn.Module):
@@ -311,17 +335,19 @@ class SGFN(nn.Module):
         self.fc2 = nn.Linear(hidden // 2, dim, device=device)
 
     def forward(self, m):
+        p = m.shape[-1]
+
         def halves():
-            w, b = self.fc1.weight, self.fc1.bias
+            w, b = widen(self.fc1.weight, 1, 1, p), self.fc1.bias
             half = w.shape[0] // 2
             return (w[:half].to(m.dtype), b[:half].to(m.dtype),
                     w[half:].to(m.dtype), b[half:].to(m.dtype))
 
-        w1, b1, w2, b2 = cached(self.fc1, m.dtype, halves)
+        w1, b1, w2, b2 = cached(self.fc1, (m.dtype, p), halves)
         h1 = F.gelu(F.linear(m, w1, b1))
         h2 = F.gelu(F.linear(m, w2, b2))
         g = conv(layer_norm(h2, self.sg.norm), self.sg.conv)
-        return linear(h1 * g, self.fc2)
+        return linear(h1 * g, self.fc2, pad=(p, 1, 0))
 
 
 class DATB(nn.Module):
@@ -362,7 +388,7 @@ class ResidualGroup(nn.Module):
         x, t, m = first(x, r)
         for blk in rest:
             _, t, m = blk(t, m)
-        return x, conv(t + m, self.conv)
+        return x, conv(t + m, self.conv, pad=(t.shape[-1], 1, 1))
 
 
 class DAT(nn.Module):
@@ -415,12 +441,15 @@ class DAT(nn.Module):
             raise ValueError(f"tile {h}x{w}: DAT takes multiples of "
                              f"{TILE_DIVISOR}")
         x = (x.float() - self.mean).to(dt)
-        f0 = conv(x, self.conv_first)
+        p = pitch(self.embed_dim, x.device)
+        f0 = conv(x, self.conv_first, pad=(p, 1, 0))
         t, r = _add_norm(f0, None, self.before_RG[1])[1], None
         for layer in self.layers:
             t, r = layer(t, r)
-        f = conv(_add_norm(t, r, self.norm)[1], self.conv_after_body) + f0
-        u = F.leaky_relu(conv(f, self.conv_before_upsample[0]), 0.01)
+        f = conv(_add_norm(t, r, self.norm)[1], self.conv_after_body,
+                 pad=(p, 1, 1)) + f0
+        u = F.leaky_relu(conv(f, self.conv_before_upsample[0],
+                              pad=(p, 0, 1)), 0.01)
         for i in range(0, len(self.upsample), 2):
             u = pixel_shuffle(conv(u, self.upsample[i]), 2)
         y = conv(u, self.conv_last)

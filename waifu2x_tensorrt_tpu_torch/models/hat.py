@@ -51,6 +51,16 @@ Layers run through ``models/layers.py``: GEMM and conv weights, biases
 and LayerNorm parameters in the compute dtype, cast once; the
 relative-position tables stay fp32. Kernel G is bf16 only: in float32
 (the CPU tests) the attention is its plain twin.
+
+The trunk's C-wide maps (every map between ``conv_first`` and
+``conv_before_upsample``, and each of q, k and v) are carried at the row
+pitch P = ``layers.pitch(C)`` (192 for the published 180: 16-byte bf16
+rows in whole 64-value steps, for the library's Hopper GEMMs and convs),
+their pad channels zero: each layer that reads or writes them gets
+operands padded to P (``pad=(P, out, inp)``), kernels G and I read and
+write rows of pitch P and take the C real channels. The CAB's C / 3
+inner map and the MLP's 2C hidden map keep their widths. A forward on
+the meta device (the FLOP count) runs at P = C.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ import torch.nn.functional as F
 from waifu2x_tensorrt_tpu_torch.models.layers import (
     conv,
     linear,
+    pitch,
     pixel_shuffle,
     weights,
 )
@@ -84,8 +95,8 @@ NUM_FEAT = 64
 
 
 def _add_norm(x, r, norm: nn.LayerNorm, **scaled):
-    """(x + r, LN(x + r)) by kernel I, r None: (x, LN(x)); ``scaled``:
-    its z and s."""
+    """(x + r, LN(x + r)) by kernel I over the C channels of ``norm``, x
+    of any pitch, r None: (x, LN(x)); ``scaled``: its z and s."""
     w, b = weights(norm, x.dtype)
     return add_norm(x, r, w, b, norm.eps, **scaled)
 
@@ -97,7 +108,10 @@ class _Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim, device=device)
 
     def forward(self, x):
-        return linear(F.gelu(linear(x, self.fc1)), self.fc2)
+        """On a trunk map x (its pitch x's last axis)."""
+        p = x.shape[-1]
+        return linear(F.gelu(linear(x, self.fc1, pad=(p, 0, 1))), self.fc2,
+                      pad=(p, 1, 0))
 
 
 class _Attention(nn.Module):
@@ -148,18 +162,22 @@ class HAB(nn.Module):
         """The block on x + r; returns x + r, the stream after the
         attention branches and the MLP output, the term still to add."""
         x, n = _add_norm(x, r, self.norm1)
+        p, c = x.shape[-1], self.norm1.normalized_shape[0]
         cab = self.conv_block.cab
-        z = conv(F.gelu(conv(n, cab[0])), cab[2])
+        z = conv(F.gelu(conv(n, cab[0], pad=(p, 0, 1))), cab[2],
+                 pad=(p, 1, 0))
         ca = cab[3].attention
         w = z.mean(dim=(1, 2))
-        w = torch.sigmoid(linear(F.relu(linear(w, ca[1])), ca[3]))
+        w = torch.sigmoid(linear(F.relu(linear(w, ca[1], pad=(p, 0, 1))),
+                                 ca[3], pad=(p, 1, 0)))
         a = hat_attention(
-            linear(n, self.attn.qkv), self.attn.relative_position_bias_table,
-            num_heads=self.num_heads, shift=self.shift)
+            linear(n, self.attn.qkv, pad=(p, 3, 1)),
+            self.attn.relative_position_bias_table,
+            num_heads=self.num_heads, shift=self.shift, channels=c)
         # x + a + CONV_SCALE CA(z) and LN2 in one pass over the map: the
         # scale rides on the per-image channel weights
-        t, n = _add_norm(x, linear(a, self.attn.proj), self.norm2, z=z,
-                         s=w * CONV_SCALE)
+        t, n = _add_norm(x, linear(a, self.attn.proj, pad=(p, 1, 1)),
+                         self.norm2, z=z, s=w * CONV_SCALE)
         return x, t, self.mlp(n)
 
 
@@ -181,10 +199,12 @@ class OCAB(nn.Module):
     def forward(self, x, r):
         """The block on x + r."""
         x, n = _add_norm(x, r, self.norm1)
-        a = hat_attention(linear(n, self.qkv),
+        p = x.shape[-1]
+        a = hat_attention(linear(n, self.qkv, pad=(p, 3, 1)),
                           self.relative_position_bias_table,
-                          num_heads=self.num_heads, overlap=OVERLAP)
-        x, n = _add_norm(x, linear(a, self.proj), self.norm2)
+                          num_heads=self.num_heads, overlap=OVERLAP,
+                          channels=self.norm1.normalized_shape[0])
+        x, n = _add_norm(x, linear(a, self.proj, pad=(p, 1, 1)), self.norm2)
         return x + self.mlp(n)
 
 
@@ -215,7 +235,7 @@ class RHAG(nn.Module):
         for blk in rest:
             _, t, m = blk(t, m)
         t = self.residual_group.overlap_attn(t, m)
-        return x, conv(t, self.conv)
+        return x, conv(t, self.conv, pad=(t.shape[-1], 1, 1))
 
 
 class _PatchEmbed(nn.Module):
@@ -269,12 +289,15 @@ class HAT(nn.Module):
             raise ValueError(f"tile {h}x{w}: HAT takes multiples of the "
                              f"window {WINDOW}")
         x = (x.float() - self.mean).to(dt)
-        f0 = conv(x, self.conv_first)
+        p = pitch(self.embed_dim, x.device)
+        f0 = conv(x, self.conv_first, pad=(p, 1, 0))
         t, r = _add_norm(f0, None, self.patch_embed.norm)[1], None
         for layer in self.layers:
             t, r = layer(t, r)
-        f = conv(_add_norm(t, r, self.norm)[1], self.conv_after_body) + f0
-        u = F.leaky_relu(conv(f, self.conv_before_upsample[0]), 0.01)
+        f = conv(_add_norm(t, r, self.norm)[1], self.conv_after_body,
+                 pad=(p, 1, 1)) + f0
+        u = F.leaky_relu(conv(f, self.conv_before_upsample[0],
+                              pad=(p, 0, 1)), 0.01)
         for i in range(0, len(self.upsample), 2):
             u = pixel_shuffle(conv(u, self.upsample[i]), 2)
         y = conv(u, self.conv_last)

@@ -46,13 +46,13 @@ _SIGNATURES = {
     "w2x_attention_f32_info": [_IP, _IP, _IP],
     "w2x_swin_block_f32_info": [_I, _IP, _IP, _IP],
     "w2x_mma_probe": [_P, _P, _P] + [_I] * 5 + [_P],
-    "w2x_hat_attention": [_P] * 3 + [_I] * 7 + [ctypes.c_float, _P],
-    "w2x_hat_attention_rect": [_P] * 3 + [_I] * 9 + [ctypes.c_float, _P],
+    "w2x_hat_attention": [_P] * 3 + [_I] * 8 + [ctypes.c_float, _P],
+    "w2x_hat_attention_rect": [_P] * 3 + [_I] * 10 + [ctypes.c_float, _P],
     "w2x_hat_attention_info": [_I, _IP, _IP],
-    "w2x_channel_attention": [_P] * 5 + [_I] * 4 + [_P],
+    "w2x_channel_attention": [_P] * 5 + [_I] * 5 + [_P],
     "w2x_channel_attention_scratch": [_I] * 3,
     "w2x_bias_act": [_P] * 3 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
-    "w2x_add_norm": [_P] * 8 + [_I] * 3 + [ctypes.c_float, _P],
+    "w2x_add_norm": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
     "w2x_add_norm_info": [_I, _I, _IP, _IP],
 }
 

@@ -26,34 +26,58 @@ kernel differs only in the order of its fp32 sums.
 
 ``tau``: the (nh,) fp32 temperatures (DAT's ``temperature``, (nh, 1, 1),
 flattened).
+
+``channels``: C, where q, k and v are carried at a pitch P > C (DAT's
+trunk at 16-byte rows, ``models/layers.pitch``): qkv is then (B, H, W,
+3P), each part's C real channels first, and the output (B, H, W, P),
+zeros in its pad [C, P).
 """
 
 from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from waifu2x_tensorrt_tpu_torch.ops import build
-from waifu2x_tensorrt_tpu_torch.ops.kernel_math import softmax_lastdim
+from waifu2x_tensorrt_tpu_torch.ops.kernel_math import (
+    qkv_channels,
+    softmax_lastdim,
+)
 
 MAX_HEADS = 8      # the kernel's heads a CTA (a warp each)
 MAX_HEAD_DIM = 32  # head dims up to 32 are padded to 32 in the kernel
 EPS = 1e-12        # F.normalize's
 
 
-def _check(qkv, tau, num_heads):
-    if qkv.dim() != 4 or qkv.shape[-1] % (3 * num_heads):
+def _check(qkv, tau, num_heads, channels=None) -> int:
+    """Raises unless qkv and tau fit; returns C (the pitch qkv.shape[-1]
+    / 3 where ``channels`` is None)."""
+    p = qkv.shape[-1] // 3 if qkv.dim() == 4 else 0
+    c = p if channels is None else int(channels)
+    if (qkv.dim() != 4 or qkv.shape[-1] % 3 or not 0 < c <= p
+            or c % num_heads):
         raise ValueError(f"qkv must be (B, H, W, 3C) with C a multiple of "
-                         f"{num_heads} heads, got {tuple(qkv.shape)}")
+                         f"{num_heads} heads, or (B, H, W, 3P) with C "
+                         f"(channels {channels}) at most the pitch P, got "
+                         f"{tuple(qkv.shape)}")
     if tuple(tau.shape) != (num_heads,):
         raise ValueError(f"tau must be ({num_heads},), got "
                          f"{tuple(tau.shape)}")
+    return c
 
 
-def channel_attention_plain(qkv, tau, *, num_heads: int):
+def channel_attention_plain(qkv, tau, *, num_heads: int,
+                            channels: int | None = None):
     """Eager PyTorch channel attention with the kernel's rounding points,
     on any device (the meta device counts its FLOPs: the Gram matrix and
-    A v)."""
-    _check(qkv, tau, num_heads)
+    A v). ``channels``: as the module says."""
+    c = _check(qkv, tau, num_heads, channels)
+    p = qkv.shape[-1] // 3
+    if c < p:
+        out = channel_attention_plain(qkv_channels(qkv, c), tau,
+                                      num_heads=num_heads)
+        return F.pad(out, (0, p - c))
     b, h, w, c3 = qkv.shape
     c, nh = c3 // 3, num_heads
     d = c // nh
@@ -71,15 +95,19 @@ def channel_attention_plain(qkv, tau, *, num_heads: int):
     return o.to(dt).permute(0, 2, 1, 3).reshape(b, h, w, c)
 
 
-def channel_attention(qkv, tau, *, num_heads: int):
-    """DAT's channel attention on the (B, H, W, 3C) qkv activation: the
-    CUDA kernel for CUDA tensors (bf16 qkv, fp32 tau; at most
-    ``MAX_HEADS`` heads of an even head dim up to ``MAX_HEAD_DIM``), the
-    plain twin for CPU and meta tensors. Counts calls in
-    ``channel_attention.launches`` (three kernels each)."""
-    _check(qkv, tau, num_heads)
+def channel_attention(qkv, tau, *, num_heads: int,
+                      channels: int | None = None):
+    """DAT's channel attention on the (B, H, W, 3C) qkv activation (3P
+    with ``channels`` C at pitch P): the CUDA kernel for CUDA tensors
+    (bf16 qkv, fp32 tau; at most ``MAX_HEADS`` heads of an even head dim
+    up to ``MAX_HEAD_DIM``, an even pitch), the plain twin for CPU and
+    meta tensors. Counts calls in ``channel_attention.launches`` (three
+    kernels each), those at a pitch P > C also in
+    ``.padded_launches``."""
+    c = _check(qkv, tau, num_heads, channels)
     if qkv.device.type in ("cpu", "meta"):
-        return channel_attention_plain(qkv, tau, num_heads=num_heads)
+        return channel_attention_plain(qkv, tau, num_heads=num_heads,
+                                       channels=channels)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
@@ -87,12 +115,12 @@ def channel_attention(qkv, tau, *, num_heads: int):
     if tau.dtype != torch.float32:
         raise TypeError("tau must be float32")
     b, h, w, c3 = qkv.shape
-    c = c3 // 3
+    p = c3 // 3
     d = c // num_heads
-    if num_heads > MAX_HEADS or d > MAX_HEAD_DIM or d % 2:
-        raise ValueError(f"{num_heads} heads of dim {d}: the kernel takes "
-                         f"up to {MAX_HEADS} heads of an even dim up to "
-                         f"{MAX_HEAD_DIM}")
+    if num_heads > MAX_HEADS or d > MAX_HEAD_DIM or d % 2 or p % 2:
+        raise ValueError(f"{num_heads} heads of dim {d} at pitch {p}: the "
+                         f"kernel takes up to {MAX_HEADS} heads of an even "
+                         f"dim up to {MAX_HEAD_DIM}, an even pitch")
     for name, t in (("qkv", qkv), ("tau", tau)):
         if t.device != qkv.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {qkv.device}")
@@ -109,14 +137,17 @@ def channel_attention(qkv, tau, *, num_heads: int):
                        dtype=torch.float32, device=qkv.device)
     attn = torch.empty((b, num_heads, MAX_HEAD_DIM, MAX_HEAD_DIM),
                        dtype=torch.bfloat16, device=qkv.device)
-    out = torch.empty((b, h, w, c), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((b, h, w, p), dtype=qkv.dtype, device=qkv.device)
     code = lib.w2x_channel_attention(
         qkv.data_ptr(), tau.data_ptr(), part.data_ptr(), attn.data_ptr(),
-        out.data_ptr(), b, h * w, c, num_heads,
+        out.data_ptr(), b, h * w, c, p, num_heads,
         build.stream_handle(qkv.device))
     build.check(code, "channel attention kernel")
     channel_attention.launches += 1
+    channel_attention.padded_launches += p > c
     return out
 
 
 channel_attention.launches = 0
+channel_attention.padded_launches = 0
+channel_attention.extra_counters = {"padded": "padded_launches"}

@@ -9,7 +9,9 @@
 //
 // Per tile b and head h (d = C / nh channels, N = H W tokens), with q, k
 // and v read by address from qkv (token n, part p, channel c of head h:
-// qkv[(b N + n) 3C + p C + h d + c]):
+// qkv[(b N + n) 3P + p P + h d + c], each part's C real channels at a
+// pitch P >= C: DAT's trunk at 16-byte rows, P = 192 for C = 180; the
+// output's rows are of pitch P too, zeros in [C, P)):
 //   G = q^T k (d x d), |q_i|^2 and |k_j|^2 over the N tokens, in fp32;
 //   A = softmax_j(tau_h G_ij / (max(|q_i|, 1e-12) max(|k_j|, 1e-12)));
 //   a[n, h d + i] = sum_j A_ij v[n, h d + j].
@@ -97,14 +99,14 @@ __device__ __forceinline__ float quad_sum(float v) {
 __global__ void __launch_bounds__(32 * MAX_HEADS)
     channel_attention_stats_kernel(const bf16* __restrict__ qkv,
                                    float* __restrict__ part, int n, int C,
-                                   int nh) {
+                                   int P, int nh) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* rows = reinterpret_cast<bf16*>(smem);  // [q|k][head][token] rows
   const int d = C / nh, words = d / 2;
   const int slice = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, head = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r8 = lane & 7;
-  const bf16* tile = qkv + (size_t)b * n * 3 * C;
+  const bf16* tile = qkv + (size_t)b * n * 3 * P;
   const int per_tok = 2 * nh;  // rows a token: q and k of every head
   float acc[2][4][4] = {};
   float sq[2][2] = {}, sk[4] = {};
@@ -116,8 +118,11 @@ __global__ void __launch_bounds__(32 * MAX_HEADS)
       const int word = it % ROW_WORDS, r = it / ROW_WORDS;
       const int ph = r % per_tok, tok = r / per_tok;  // ph = part nh + head
       const bool valid = s0 + tok < end && word < words;
+      // q (part 0) or k (part 1) of head ph % nh, by a select, not a
+      // division by nh in this loop of every staged word
+      const int at = ph < nh ? ph * d : P + (ph - nh) * d;
       const bf16* src =
-          valid ? tile + (size_t)(s0 + tok) * 3 * C + ph * d + 2 * word : qkv;
+          valid ? tile + (size_t)(s0 + tok) * 3 * P + at + 2 * word : qkv;
       cp_async4(rows + swz(ph * STAGE + tok, word >> 2) + 2 * (word & 3), src,
                 valid);
     }
@@ -222,12 +227,13 @@ __global__ void __launch_bounds__(GRAM)
 }
 
 // a = v A^T for APPLY tokens of one tile, every head: v rows and the
-// tile's A staged in shared memory, a warp a 16-token block.
+// tile's A staged in shared memory, a warp a 16-token block; the warp
+// then zeros its tokens' pad channels [C, P).
 __global__ void __launch_bounds__(APPLY_THREADS)
     channel_attention_apply_kernel(const bf16* __restrict__ qkv,
                                    const bf16* __restrict__ attn,
                                    bf16* __restrict__ out, int n, int C,
-                                   int nh) {
+                                   int P, int nh) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* vs = reinterpret_cast<bf16*>(smem);  // [head][token] rows
   bf16* as = vs + nh * APPLY * HD;           // [head][i] rows of A
@@ -235,12 +241,12 @@ __global__ void __launch_bounds__(APPLY_THREADS)
   const int b = blockIdx.y, t0 = blockIdx.x * APPLY;
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* tile = qkv + (size_t)b * n * 3 * C;
+  const bf16* tile = qkv + (size_t)b * n * 3 * P;
   for (int it = tid; it < APPLY * nh * ROW_WORDS; it += APPLY_THREADS) {
     const int word = it % ROW_WORDS, r = it / ROW_WORDS;
     const int head = r % nh, tok = r / nh;
     const bool valid = t0 + tok < n && word < words;
-    const bf16* src = valid ? tile + (size_t)(t0 + tok) * 3 * C + 2 * C +
+    const bf16* src = valid ? tile + (size_t)(t0 + tok) * 3 * P + 2 * P +
                                   head * d + 2 * word
                             : qkv;
     cp_async4(vs + swz(head * APPLY + tok, word >> 2) + 2 * (word & 3), src,
@@ -254,8 +260,8 @@ __global__ void __launch_bounds__(APPLY_THREADS)
   __syncthreads();
   const int r0 = (tid >> 5) * 16;  // this warp's tokens
   const int krow = (lane & 7) + ((lane >> 4) << 3);
-  bf16* ta = out + ((size_t)b * n + t0 + r0 + g) * C;
-  bf16* tb = ta + (size_t)8 * C;
+  bf16* ta = out + ((size_t)b * n + t0 + r0 + g) * P;
+  bf16* tb = ta + (size_t)8 * P;
   const bool ra = t0 + r0 + g < n, rb = t0 + r0 + g + 8 < n;
   for (int head = 0; head < nh; ++head) {
     const bf16* ah = as + head * GRAM;
@@ -292,6 +298,10 @@ __global__ void __launch_bounds__(APPLY_THREADS)
               tc::pack_bf16(acc[nt][2], acc[nt][3]);
       }
     }
+  }
+  for (int col = C + 2 * t; col < P; col += 8) {  // C and P even
+    if (ra) *reinterpret_cast<uint32_t*>(ta + col) = 0u;
+    if (rb) *reinterpret_cast<uint32_t*>(tb + col) = 0u;
   }
 }
 
@@ -340,16 +350,17 @@ extern "C" long long w2x_channel_attention_scratch(int b, int n, int nh) {
   return (long long)b * slices(n) * nh * PART;
 }
 
-// qkv (b, n, 3C) bf16 (n = H W tokens a tile), tau (nh) fp32, part: the
-// scratch floats above, attn (b, nh, 32, 32) bf16 scratch, out (b, n, C)
-// bf16; nh at most 8, head dim C / nh even and at most 32.
+// qkv (b, n, 3P) bf16 (n = H W tokens a tile; C real channels of each
+// part of pitch P, C <= P, P even), tau (nh) fp32, part: the scratch
+// floats above, attn (b, nh, 32, 32) bf16 scratch, out (b, n, P) bf16;
+// nh at most 8, head dim C / nh even and at most 32.
 extern "C" int w2x_channel_attention(const void* qkv, const void* tau,
                                      void* part, void* attn, void* out,
-                                     int b, int n, int C, int nh,
+                                     int b, int n, int C, int P, int nh,
                                      void* stream) {
   using namespace w2x::dat;
   if (nh <= 0 || nh > MAX_HEADS || C % nh || (C / nh) % 2 || C / nh > HD ||
-      n <= 0 || b < 0 || b > 65535)
+      n <= 0 || b < 0 || b > 65535 || P < C || P % 2)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -361,13 +372,14 @@ extern "C" int w2x_channel_attention(const void* qkv, const void* tau,
   if (err) return err;
   const int sl = slices(n);
   channel_attention_stats_kernel<<<dim3(sl, b), 32 * nh, stats_smem(nh), s>>>(
-      static_cast<const bf16*>(qkv), static_cast<float*>(part), n, C, nh);
+      static_cast<const bf16*>(qkv), static_cast<float*>(part), n, C, P,
+      nh);
   channel_attention_softmax_kernel<<<dim3(nh, b), GRAM, 0, s>>>(
       static_cast<const float*>(part), static_cast<const float*>(tau),
       static_cast<bf16*>(attn), sl, nh, C / nh);
   channel_attention_apply_kernel<<<dim3((n + APPLY - 1) / APPLY, b),
                                    APPLY_THREADS, apply_smem(nh), s>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(attn),
-      static_cast<bf16*>(out), n, C, nh);
+      static_cast<bf16*>(out), n, C, P, nh);
   return (int)cudaGetLastError();
 }

@@ -28,10 +28,13 @@
 //     and (oy, ox) the query's place in their windows, negative indices
 //     counting from the end of the 1521-row table (calculate_rpi_oca).
 // q, k and v are read by address from the qkv activation (token t, part
-// p of q / k / v, head h: qkv[t * 3C + p * C + h * d ..], d the head
-// dim), the roll and the window partition in the address, so nothing is
-// copied around the kernel; the output is written to the token each
-// query came from (the roll back and the window merge).
+// p of q / k / v, head h: qkv[t * 3P + p * P + h * d ..], d the head
+// dim, each part C = nh d real channels at a pitch P >= C: HAT's and
+// DAT's trunk at 16-byte rows, P = 192 for C = 180), the roll and the
+// window partition in the address, so nothing is copied around the
+// kernel; the output, of pitch P, is written to the token each query
+// came from (the roll back and the window merge), the last head's CTAs
+// writing zeros to the pad channels [C, P) of their queries' tokens.
 //
 // Rounding points are those of attention_tc.cuh: q * scale rounded to
 // bf16 (the scale d^-0.5 rounded to bf16 by the wrapper), fp32 scores and
@@ -265,9 +268,9 @@ template <int WW, int OV, bool MASKED>
 __device__ __forceinline__ void attend(const bf16* qs, const bf16* ks,
                                        const bf16* vs, const float* tbl,
                                        bf16* __restrict__ out,
-                                       const Window<WW>& wd, int C, int d,
-                                       float scale, int edge_y, int edge_x,
-                                       bool bottom, bool right) {
+                                       const Window<WW>& wd, int C, int P,
+                                       int d, float scale, int edge_y,
+                                       int edge_x, bool bottom, bool right) {
   using G = Geo<WW, OV>;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int head = blockIdx.x % (C / d);
@@ -347,8 +350,9 @@ __device__ __forceinline__ void attend(const bf16* qs, const bf16* ks,
     }
     // the output of rows r0 + g and r0 + g + 8, head dims 8 j + 2 t (+1),
     // to the tokens the queries came from
-    const size_t oa = (size_t)wd.query_token(r0 + g) * C + head * d;
-    const size_t ob = (size_t)wd.query_token(r0 + g + 8) * C + head * d;
+    const size_t ta = (size_t)wd.query_token(r0 + g) * P;
+    const size_t tb = (size_t)wd.query_token(r0 + g + 8) * P;
+    const size_t oa = ta + head * d, ob = tb + head * d;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = 8 * j + 2 * t;
@@ -359,6 +363,11 @@ __device__ __forceinline__ void attend(const bf16* qs, const bf16* ks,
             tc::pack_bf16(acc[j][2], acc[j][3]);
       }
     }
+    if (head == C / d - 1)  // the pad of these tokens' rows (C, P even)
+      for (int col = C + 2 * t; col < P; col += 8) {
+        *reinterpret_cast<uint32_t*>(out + ta + col) = 0u;
+        *reinterpret_cast<uint32_t*>(out + tb + col) = 0u;
+      }
   }
 }
 
@@ -368,7 +377,8 @@ __device__ __forceinline__ void attend(const bf16* qs, const bf16* ks,
 template <int WW, int OV>
 __device__ __forceinline__ const float* stage(
     const bf16* __restrict__ qkv, const float* __restrict__ table,
-    unsigned char* smem, const Window<WW>& wd, int C, int nh, int head) {
+    unsigned char* smem, const Window<WW>& wd, int C, int P, int nh,
+    int head) {
   using G = Geo<WW, OV>;
   bf16* qs = reinterpret_cast<bf16*>(smem);
   float* tbl = reinterpret_cast<float*>(qs + (NQ + 2 * G::NK) * HDP);
@@ -389,7 +399,7 @@ __device__ __forceinline__ const float* stage(
     }
     const bool valid = tok >= 0 && word < words;
     const bf16* src =
-        valid ? qkv + (size_t)tok * 3 * C + part * C + head * d + 2 * word
+        valid ? qkv + (size_t)tok * 3 * P + part * P + head * d + 2 * word
               : qkv;
     cp_async4(qs + swz(r, word >> 2) + 2 * (word & 3), src, valid);
   }
@@ -409,7 +419,7 @@ template <int WW, int OV>
 __device__ __forceinline__ void window_head(
     const bf16* __restrict__ qkv, const float* __restrict__ table,
     bf16* __restrict__ out, unsigned char* smem, int win, int head, int h,
-    int w, int C, int nh, int sy, int sx, float scale) {
+    int w, int C, int P, int nh, int sy, int sx, float scale) {
   using G = Geo<WW, OV>;
   const int nwx = w / WW, nwy = h / G::WH;
   Window<WW> wd;
@@ -421,7 +431,7 @@ __device__ __forceinline__ void window_head(
   wd.w = w;
   wd.sy = sy;
   wd.sx = sx;
-  const float* tbl = stage<WW, OV>(qkv, table, smem, wd, C, nh, head);
+  const float* tbl = stage<WW, OV>(qkv, table, smem, wd, C, P, nh, head);
   const bf16* qs = reinterpret_cast<const bf16*>(smem);
   const bf16* ks = qs + NQ * HDP;
   const bf16* vs = ks + G::NK * HDP;
@@ -431,12 +441,12 @@ __device__ __forceinline__ void window_head(
   const bool right = sx && wd.wx == nwx - 1;
   if constexpr (OV == 0) {
     if (bottom || right) {  // a window that the roll wraps: masked
-      attend<WW, OV, true>(qs, ks, vs, tbl, out, wd, C, d, scale, edge_y,
-                           edge_x, bottom, right);
+      attend<WW, OV, true>(qs, ks, vs, tbl, out, wd, C, P, d, scale,
+                           edge_y, edge_x, bottom, right);
       return;
     }
   }
-  attend<WW, OV, false>(qs, ks, vs, tbl, out, wd, C, d, scale, edge_y,
+  attend<WW, OV, false>(qs, ks, vs, tbl, out, wd, C, P, d, scale, edge_y,
                         edge_x, bottom, right);
 }
 
@@ -445,11 +455,11 @@ template <int OV>
 __global__ void __launch_bounds__(THREADS, 2)
     hat_attention_kernel(const bf16* __restrict__ qkv,
                          const float* __restrict__ table,
-                         bf16* __restrict__ out, int h, int w, int C, int nh,
-                         int shift, float scale) {
+                         bf16* __restrict__ out, int h, int w, int C, int P,
+                         int nh, int shift, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   window_head<WS, OV>(qkv, table, out, smem, blockIdx.x / nh,
-                      blockIdx.x % nh, h, w, C, nh, shift, shift, scale);
+                      blockIdx.x % nh, h, w, C, P, nh, shift, shift, scale);
 }
 
 // DAT's split windows: heads [0, nh / 2) in (NQ / WW0) x WW0 windows
@@ -461,15 +471,15 @@ __global__ void __launch_bounds__(THREADS, 2)
     hat_attention_rect_kernel(const bf16* __restrict__ qkv,
                               const float* __restrict__ table,
                               bf16* __restrict__ out, int h, int w, int C,
-                              int nh, int sy, int sx, float scale) {
+                              int P, int nh, int sy, int sx, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int head = blockIdx.x % nh, win = blockIdx.x / nh;
   if (head < nh / 2)
-    window_head<WW0, 0>(qkv, table, out, smem, win, head, h, w, C, nh, sy,
-                        sx, scale);
+    window_head<WW0, 0>(qkv, table, out, smem, win, head, h, w, C, P, nh,
+                        sy, sx, scale);
   else
-    window_head<NQ / WW0, 0>(qkv, table, out, smem, win, head, h, w, C, nh,
-                             sx, sy, scale);
+    window_head<NQ / WW0, 0>(qkv, table, out, smem, win, head, h, w, C, P,
+                             nh, sx, sy, scale);
 }
 
 
@@ -503,7 +513,7 @@ int set_smem_limit(const void* kernel, int bytes) {
 
 template <int OV>
 int launch(const void* qkv, const void* table, void* out, int b, int h,
-           int w, int C, int nh, int shift, float scale,
+           int w, int C, int P, int nh, int shift, float scale,
            cudaStream_t stream) {
   using G = Geo<WS, OV>;
   const int err = set_smem_limit((const void*)hat_attention_kernel<OV>,
@@ -514,7 +524,7 @@ int launch(const void* qkv, const void* table, void* out, int b, int h,
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   hat_attention_kernel<OV><<<(unsigned)grid, THREADS, G::SMEM, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(table),
-      static_cast<bf16*>(out), h, w, C, nh, shift, scale);
+      static_cast<bf16*>(out), h, w, C, P, nh, shift, scale);
   return (int)cudaGetLastError();
 }
 
@@ -523,7 +533,7 @@ constexpr int RECT_SMEM = Geo<RECT_WW, 0>::SMEM;
 static_assert(Geo<NQ / RECT_WW, 0>::SMEM == RECT_SMEM, "one size");
 
 int launch_rect(const void* qkv, const void* table, void* out, int b, int h,
-                int w, int C, int nh, int sy, int sx, float scale,
+                int w, int C, int P, int nh, int sy, int sx, float scale,
                 cudaStream_t stream) {
   const int err = set_smem_limit(
       (const void*)hat_attention_rect_kernel<RECT_WW>, RECT_SMEM);
@@ -535,7 +545,7 @@ int launch_rect(const void* qkv, const void* table, void* out, int b, int h,
   hat_attention_rect_kernel<RECT_WW>
       <<<(unsigned)grid, THREADS, RECT_SMEM, stream>>>(
           static_cast<const bf16*>(qkv), static_cast<const float*>(table),
-          static_cast<bf16*>(out), h, w, C, nh, sy, sx, scale);
+          static_cast<bf16*>(out), h, w, C, P, nh, sy, sx, scale);
   return (int)cudaGetLastError();
 }
 
@@ -543,43 +553,45 @@ int launch_rect(const void* qkv, const void* table, void* out, int b, int h,
 }  // namespace hat
 }  // namespace w2x
 
-// qkv (B, h, w, 3C) bf16, table (rows, nh) fp32, out (B, h, w, C) bf16;
-// h and w multiples of 16; head dim C / nh even and at most 32; overlap 0
-// (self, shift 0 or 8) or 4 (overlapping, shift 0); scale: the head dim's
+// qkv (B, h, w, 3P) bf16, table (rows, nh) fp32, out (B, h, w, P) bf16;
+// C real channels of each part of pitch P (C <= P, P even); h and w
+// multiples of 16; head dim C / nh even and at most 32; overlap 0 (self,
+// shift 0 or 8) or 4 (overlapping, shift 0); scale: the head dim's
 // d^-0.5 rounded to bf16.
 extern "C" int w2x_hat_attention(const void* qkv, const void* table,
                                  void* out, int b, int h, int w, int C,
-                                 int nh, int shift, int overlap, float scale,
-                                 void* stream) {
+                                 int P, int nh, int shift, int overlap,
+                                 float scale, void* stream) {
   using namespace w2x::hat;
   if (nh <= 0 || C % nh || (C / nh) % 2 || C / nh > HDP || h % WS ||
-      w % WS || h <= 0 || w <= 0)
+      w % WS || h <= 0 || w <= 0 || P < C || P % 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (overlap == 0 && (shift == 0 || shift == WS / 2))
-    return launch<0>(qkv, table, out, b, h, w, C, nh, shift, scale, s);
+    return launch<0>(qkv, table, out, b, h, w, C, P, nh, shift, scale, s);
   if (overlap == 4 && shift == 0)
-    return launch<4>(qkv, table, out, b, h, w, C, nh, shift, scale, s);
+    return launch<4>(qkv, table, out, b, h, w, C, P, nh, shift, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// DAT's split windows: qkv (B, h, w, 3C) bf16, table (945, nh) fp32 (each
-// head's column indexed in its own geometry), out (B, h, w, C) bf16;
-// heads [0, nh / 2) in wh x ww = 8 x 32 windows rolled by (sy, sx), the
-// rest in 32 x 8 windows rolled by (sx, sy); h and w multiples of 32; nh
-// even; head dim even and at most 32; (sy, sx) (0, 0) or (4, 16).
+// DAT's split windows: qkv (B, h, w, 3P) bf16, table (945, nh) fp32
+// (each head's column indexed in its own geometry), out (B, h, w, P)
+// bf16, C real channels a part of pitch P as above; heads [0, nh / 2) in
+// wh x ww = 8 x 32 windows rolled by (sy, sx), the rest in 32 x 8
+// windows rolled by (sx, sy); h and w multiples of 32; nh even; head dim
+// even and at most 32; (sy, sx) (0, 0) or (4, 16).
 extern "C" int w2x_hat_attention_rect(const void* qkv, const void* table,
                                       void* out, int b, int h, int w, int C,
-                                      int nh, int wh, int ww, int sy, int sx,
-                                      float scale, void* stream) {
+                                      int P, int nh, int wh, int ww, int sy,
+                                      int sx, float scale, void* stream) {
   using namespace w2x::hat;
   if (nh <= 0 || nh % 2 || C % nh || (C / nh) % 2 || C / nh > HDP ||
       wh != NQ / RECT_WW || ww != RECT_WW || h % RECT_WW || w % RECT_WW ||
-      h <= 0 || w <= 0)
+      h <= 0 || w <= 0 || P < C || P % 2)
     return (int)cudaErrorInvalidValue;
   if (!((sy == 0 && sx == 0) || (sy == wh / 2 && sx == ww / 2)))
     return (int)cudaErrorInvalidValue;
-  return launch_rect(qkv, table, out, b, h, w, C, nh, sy, sx, scale,
+  return launch_rect(qkv, table, out, b, h, w, C, P, nh, sy, sx, scale,
                      static_cast<cudaStream_t>(stream));
 }
 

@@ -17,15 +17,20 @@
 // biased variance over the row in fp32 (two passes over the registers),
 // rstd = rsqrt(var + eps), gamma and beta bf16, one rounding at the end:
 // torch's bf16 layer_norm up to the order of its fp32 sums.
+// Rows lie at a pitch P >= C (HAT's and DAT's trunk at 16-byte rows: P =
+// 192 for C = 180): channels [C, P) are pad, left out of the sums and
+// written as zeros in y and n, whatever x, r and z hold there (C and P
+// multiples of 4, so each quad below is all real or all pad).
 //
 // What bounds it on the H100: bytes. With U one (16, 256, 256, 180) bf16
 // map (377.5 MB, a chunk of the hat4x-480p-stream cell), a launch moves
 // 2U (norm), 4U (add: x, r, y, n) or 5U (scaled add: and z): 0.225, 0.451
 // and 0.563 ms at 3.35 TB/s.
 // What the design does about it:
-// - one warp takes a pair of rows: 2 C values, 4 C bytes, a multiple of
-//   16 when C is a multiple of 4 (C / 4 vectors of 16 bytes, 45 at
-//   C = 180; a row alone is 360 bytes, only 8-byte aligned). Lane l loads
+// - one warp takes a pair of rows: 2 P values, 4 P bytes, a multiple of
+//   16 when P is a multiple of 4 (P / 4 vectors of 16 bytes, 48 at
+//   P = 192, 45 at an unpadded 180, whose row alone is 360 bytes, only
+//   8-byte aligned). Lane l loads
 //   vectors l, l + 32, ... of the pair, neighbouring lanes on
 //   neighbouring addresses; a vector is two quads of 4 values, each in
 //   one row (a vector may straddle the two rows);
@@ -60,12 +65,13 @@ struct AddNormArgs {
   const bf16* x;      // (rows, C)
   const bf16* r;      // (rows, C), null for kNorm
   const bf16* z;      // (rows, C), kScaledAdd only
-  const bf16* s;      // (rows / hw, C), kScaledAdd only
+  const bf16* s;      // (rows / hw, P), kScaledAdd only
   const bf16* gamma;  // (C,)
   const bf16* beta;   // (C,)
-  bf16* y;            // (rows, C): the sum; null for kNorm
-  bf16* n;            // (rows, C): its LayerNorm
-  int rows, c, hw;    // hw: rows an image (H W)
+  bf16* y;            // (rows, P): the sum; null for kNorm
+  bf16* n;            // (rows, P): its LayerNorm
+  int rows, c, p, hw;  // c real channels of a row of pitch p; hw: rows
+                       // an image (H W)
   float eps;
 };
 
@@ -118,8 +124,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // A lane's fixed place in every pair of rows: for each of its NV vectors
-// and their two quads, the row in the pair (0 / 1), the first channel and
-// gamma and beta there (4 bf16 each, packed).
+// and their two quads, the row in the pair (0 / 1), the first channel
+// (a pad quad's is C or more) and gamma and beta there (4 bf16 each,
+// packed; zero for a pad quad).
 template <int NV>
 struct Lane {
   int row_of[NV][2], ch[NV][2];
@@ -143,7 +150,7 @@ template <int NV, int MODE>
 __device__ __forceinline__ void load_pair(const AddNormArgs& a,
                                           const Lane<NV>& ln, int lane,
                                           int p, Loaded<NV>& in) {
-  const int vecs = a.c / 4;
+  const int vecs = a.p / 4;
   const int row0 = 2 * p;
   const bool two = row0 + 1 < a.rows;
   int image0 = 0, image1 = 0;
@@ -167,9 +174,9 @@ __device__ __forceinline__ void load_pair(const AddNormArgs& a,
       in.z[i] = load(a.z, vi, quads);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        in.s[i][h] = h < quads
+        in.s[i][h] = h < quads  // s is (B, P): a pad quad's is read too
             ? __ldg(reinterpret_cast<const uint2*>(
-                  a.s + (long long)(ln.row_of[i][h] ? image1 : image0) * a.c
+                  a.s + (long long)(ln.row_of[i][h] ? image1 : image0) * a.p
                   + ln.ch[i][h]))
             : make_uint2(0u, 0u);
     }
@@ -180,7 +187,7 @@ template <int NV, int MODE>
 __device__ __forceinline__ void finish_pair(const AddNormArgs& a,
                                             const Lane<NV>& ln, int lane,
                                             int p, const Loaded<NV>& in) {
-  const int vecs = a.c / 4;
+  const int vecs = a.p / 4;
   const float fc = (float)a.c;
   float v[NV][8];
   float sum0 = 0.f, sum1 = 0.f;
@@ -200,8 +207,9 @@ __device__ __forceinline__ void finish_pair(const AddNormArgs& a,
               y, __fmul_rn(elem(in.z[i], 4 * h + j), (j & 1) ? hi(sw)
                                                              : lo(sw))));
         }
-        v[i][4 * h + j] = y;
-        part += y;  // 0 outside the map
+        // a pad quad holds zero, whatever the inputs hold there
+        v[i][4 * h + j] = ln.ch[i][h] < a.c ? y : 0.f;
+        part += v[i][4 * h + j];  // 0 outside the map and in the pad
       }
       if (ln.row_of[i][h])
         sum1 += part;
@@ -214,7 +222,7 @@ __device__ __forceinline__ void finish_pair(const AddNormArgs& a,
   for (int i = 0; i < NV; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      if (h < in.quads[i]) {
+      if (h < in.quads[i] && ln.ch[i][h] < a.c) {
         const float m = ln.row_of[i][h] ? mean1 : mean0;
         float part = 0.f;
 #pragma unroll
@@ -244,28 +252,30 @@ __device__ __forceinline__ void finish_pair(const AddNormArgs& a,
       for (int j = 0; j < 4; ++j) {
         const float gj = (j & 1) ? hi(gw[j >> 1]) : lo(gw[j >> 1]);
         const float bj = (j & 1) ? hi(bw[j >> 1]) : lo(bw[j >> 1]);
-        o[4 * h + j] = fmaf(gj, rs * (v[i][4 * h + j] - m), bj);
+        o[4 * h + j] = ln.ch[i][h] < a.c
+                           ? fmaf(gj, rs * (v[i][4 * h + j] - m), bj)
+                           : 0.f;
       }
     }
     store(a.n, vi, in.quads[i], o);
   }
 }
 
-// NV: 16-byte vectors a lane of a pair of rows (C / 4 <= 32 NV).
+// NV: 16-byte vectors a lane of a pair of rows (P / 4 <= 32 NV).
 template <int NV, int MODE>
 __global__ void __launch_bounds__(kThreads) add_norm_kernel(
     const AddNormArgs a) {
   const int lane = threadIdx.x & 31;
-  const int vecs = a.c / 4;  // 16-byte vectors a pair of rows
+  const int vecs = a.p / 4;  // 16-byte vectors a pair of rows
   Lane<NV> ln;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int e = 8 * (lane + 32 * i) + 4 * h;  // first value in the pair
-      ln.row_of[i][h] = e >= a.c;
-      ln.ch[i][h] = e - ln.row_of[i][h] * a.c;
-      const bool live = lane + 32 * i < vecs;
+      ln.row_of[i][h] = e >= a.p;
+      ln.ch[i][h] = e - ln.row_of[i][h] * a.p;
+      const bool live = lane + 32 * i < vecs && ln.ch[i][h] < a.c;
       const uint2 none = make_uint2(0u, 0u);
       ln.g[i][h] = live ? __ldg(reinterpret_cast<const uint2*>(a.gamma)
                                 + ln.ch[i][h] / 4) : none;
@@ -301,8 +311,8 @@ Kernel pick(int c) {
   return c <= 128 ? add_norm_kernel<1, MODE> : add_norm_kernel<2, MODE>;
 }
 
-// The kernel for C (a multiple of 4 up to 256: HAT's 180, HAT-S's 144)
-// and the mode, or null.
+// The kernel for the pitch P (a multiple of 4 up to 256: HAT's 192,
+// HAT-S's 144) and the mode, or null.
 Kernel kernel_for(int c, int mode) {
   if (c <= 0 || c % 4 || c > 256) return nullptr;
   if (mode == kNorm) return pick<kNorm>(c);
@@ -315,17 +325,19 @@ Kernel kernel_for(int c, int mode) {
 }  // namespace hat
 }  // namespace w2x
 
-// x, r, z, y, n (rows, C) and s (rows / hw, C) bf16, 16-byte aligned;
-// gamma, beta (C,) bf16; C a multiple of 4 up to 256. r null: norm only
-// (y unused); z null: add; both set: scaled add (s set).
+// x, r, z, y, n (rows, P) and s (rows / hw, P) bf16, 16-byte aligned;
+// gamma, beta (C,) bf16; C real channels of each row of pitch P, both
+// multiples of 4, P up to 256. r null: norm only (y unused); z null:
+// add; both set: scaled add (s set).
 extern "C" int w2x_add_norm(const void* x, const void* r, const void* z,
                             const void* s, const void* gamma,
                             const void* beta, void* y, void* n, int rows,
-                            int c, int hw, float eps, void* stream) {
+                            int c, int p, int hw, float eps, void* stream) {
   using namespace w2x::hat;
   const int mode = r == nullptr ? kNorm : z == nullptr ? kAdd : kScaledAdd;
-  const Kernel kernel = kernel_for(c, mode);
-  if (kernel == nullptr || rows < 0 || hw <= 0)
+  const Kernel kernel = kernel_for(p, mode);
+  if (kernel == nullptr || rows < 0 || hw <= 0 || c <= 0 || c % 4 ||
+      c > p)
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -347,14 +359,14 @@ extern "C" int w2x_add_norm(const void* x, const void* r, const void* z,
                       static_cast<const bf16*>(beta),
                       static_cast<bf16*>(y),
                       static_cast<bf16*>(n),
-                      rows, c, hw, eps};
+                      rows, c, p, hw, eps};
   if (grid > 0)
     kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Registers a thread and resident CTAs an SM of the kernel for C and the
-// mode (0 norm, 1 add, 2 scaled add).
+// Registers a thread and resident CTAs an SM of the kernel for the pitch
+// P and the mode (0 norm, 1 add, 2 scaled add).
 extern "C" int w2x_add_norm_info(int c, int mode, int* regs,
                                  int* ctas_per_sm) {
   using namespace w2x::hat;

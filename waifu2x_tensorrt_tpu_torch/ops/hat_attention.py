@@ -35,6 +35,11 @@ the fp32-accumulated p v, one final rounding.
 ``table``: the (nt, nh) fp32 relative-position table, nt = (2 wh - 1)
 (2 ww - 1) for self and (2 window + 2o - 1)^2 for overlapping
 attention.
+
+``channels``: C, where q, k and v are carried at a pitch P > C (HAT's and
+DAT's trunk at 16-byte rows, ``models/layers.pitch``): qkv is then (B, H,
+W, 3P), each part's C real channels first, and the output (B, H, W, P),
+zeros in its pad [C, P).
 """
 
 from __future__ import annotations
@@ -46,7 +51,10 @@ import torch
 import torch.nn.functional as F
 
 from waifu2x_tensorrt_tpu_torch.ops import build
-from waifu2x_tensorrt_tpu_torch.ops.kernel_math import softmax_lastdim
+from waifu2x_tensorrt_tpu_torch.ops.kernel_math import (
+    qkv_channels,
+    softmax_lastdim,
+)
 
 WINDOW = 16        # HAT's window side, which kernel G is built for
 RECT = (8, 32)     # DAT's first-half window (rows, columns), the other
@@ -156,12 +164,21 @@ def _overlap_windows(kv, ws: int, ov: int):
 
 
 def hat_attention_plain(qkv, table, *, num_heads: int, window=WINDOW,
-                        shift=0, overlap: int = 0, split: bool = False):
+                        shift=0, overlap: int = 0, split: bool = False,
+                        channels: int | None = None):
     """Eager PyTorch attention with the kernel's rounding points on any
     device (the meta device counts its FLOPs at the published head dim).
     ``split``: heads [nh/2, nh), on the second half of the channels of
-    q, k and v, take the transposed window and shift."""
-    _check_geometry(qkv, table, num_heads, window, shift, overlap, split)
+    q, k and v, take the transposed window and shift. ``channels``: as
+    the module says."""
+    c = _check_geometry(qkv, table, num_heads, window, shift, overlap,
+                        split, channels)
+    p = qkv.shape[-1] // 3
+    if c < p:
+        out = hat_attention_plain(qkv_channels(qkv, c), table,
+                                  num_heads=num_heads, window=window,
+                                  shift=shift, overlap=overlap, split=split)
+        return F.pad(out, (0, p - c))
     if not split:
         return _attend(qkv, table, num_heads, _pair(window), _pair(shift),
                        overlap)
@@ -211,10 +228,17 @@ def _attend(qkv, table, nh: int, win: tuple, shift: tuple, overlap: int):
 
 
 def _check_geometry(qkv, table, num_heads, window, shift, overlap,
-                    split=False):
-    if qkv.dim() != 4 or qkv.shape[-1] % (3 * num_heads):
+                    split=False, channels=None) -> int:
+    """Raises unless the geometry is one the twin takes; returns C (the
+    pitch qkv.shape[-1] / 3 where ``channels`` is None)."""
+    p = qkv.shape[-1] // 3 if qkv.dim() == 4 else 0
+    c = p if channels is None else int(channels)
+    if (qkv.dim() != 4 or qkv.shape[-1] % 3 or not 0 < c <= p
+            or c % num_heads):
         raise ValueError(f"qkv must be (B, H, W, 3C) with C a multiple of "
-                         f"{num_heads} heads, got {tuple(qkv.shape)}")
+                         f"{num_heads} heads, or (B, H, W, 3P) with C "
+                         f"(channels {channels}) at most the pitch P, got "
+                         f"{tuple(qkv.shape)}")
     (wh, ww), (sh, sw) = _pair(window), _pair(shift)
     if split and (num_heads % 2 or overlap):
         raise ValueError(f"split: an even number of heads, got "
@@ -236,6 +260,7 @@ def _check_geometry(qkv, table, num_heads, window, shift, overlap,
     want = (table_rows((wh, ww), overlap), num_heads)
     if tuple(table.shape) != want:
         raise ValueError(f"table must be {want}, got {tuple(table.shape)}")
+    return c
 
 
 @functools.lru_cache(maxsize=None)
@@ -258,29 +283,34 @@ def occupancy(overlap: int) -> dict:
 
 
 def hat_attention(qkv, table, *, num_heads: int, window=WINDOW, shift=0,
-                  overlap: int = 0, split: bool = False):
-    """Window attention on the (B, H, W, 3C) qkv activation: the CUDA
-    kernel for CUDA tensors (bf16 only), the plain twin for CPU and meta
-    tensors. The kernel takes HAT's 16 x 16 windows (self, shift 0 or 8,
-    or overlapping, overlap 4) and DAT's split rectangular windows
-    (``window=RECT``, ``split=True``: heads [0, nh/2) in 8 x 32 windows,
-    the rest in 32 x 8, shift 0 or half the window). Counts kernel
-    launches in ``hat_attention.launches``, those of overlapping windows
-    also in ``.overlap_launches`` and those of rectangular ones in
-    ``.rect_launches``."""
-    _check_geometry(qkv, table, num_heads, window, shift, overlap, split)
+                  overlap: int = 0, split: bool = False,
+                  channels: int | None = None):
+    """Window attention on the (B, H, W, 3C) qkv activation (3P with
+    ``channels`` C at pitch P): the CUDA kernel for CUDA tensors (bf16
+    only), the plain twin for CPU and meta tensors. The kernel takes
+    HAT's 16 x 16 windows (self, shift 0 or 8, or overlapping, overlap 4)
+    and DAT's split rectangular windows (``window=RECT``, ``split=True``:
+    heads [0, nh/2) in 8 x 32 windows, the rest in 32 x 8, shift 0 or
+    half the window). Counts kernel launches in
+    ``hat_attention.launches``, those of overlapping windows also in
+    ``.overlap_launches``, those of rectangular ones in
+    ``.rect_launches`` and those at a pitch P > C in
+    ``.padded_launches``."""
+    c = _check_geometry(qkv, table, num_heads, window, shift, overlap,
+                        split, channels)
+    p = qkv.shape[-1] // 3
     if qkv.device.type in ("cpu", "meta"):
         return hat_attention_plain(qkv, table, num_heads=num_heads,
                                    window=window, shift=shift,
-                                   overlap=overlap, split=split)
+                                   overlap=overlap, split=split,
+                                   channels=channels)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"qkv is {qkv.dtype}: kernel G is bf16 only")
     if table.dtype != torch.float32:
         raise TypeError("table must be float32")
-    b, h, w, c3 = qkv.shape
-    c = c3 // 3
+    b, h, w = qkv.shape[:3]
     d = c // num_heads
     win, (sh, sw) = _pair(window), _pair(shift)
     rect = win != (WINDOW, WINDOW)
@@ -301,28 +331,33 @@ def hat_attention(qkv, table, *, num_heads: int, window=WINDOW, shift=0,
     if qkv.numel() >= 2 ** 31:
         raise ValueError(f"{qkv.numel()} values: the kernel indexes fewer "
                          "than 2**31")
-    out = torch.empty((b, h, w, c), dtype=qkv.dtype, device=qkv.device)
+    if p % 2:
+        raise ValueError(f"pitch {p}: the kernel takes even pitches")
+    out = torch.empty((b, h, w, p), dtype=qkv.dtype, device=qkv.device)
     lib = build.load_library()
     stream = build.stream_handle(qkv.device)
     if rect:
         code = lib.w2x_hat_attention_rect(
             qkv.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, w, c,
-            num_heads, win[0], win[1], sh, sw, _scale(d), stream)
+            p, num_heads, win[0], win[1], sh, sw, _scale(d), stream)
     else:
         code = lib.w2x_hat_attention(
             qkv.data_ptr(), table.data_ptr(), out.data_ptr(), b, h, w, c,
-            num_heads, sh, overlap, _scale(d), stream)
+            p, num_heads, sh, overlap, _scale(d), stream)
     build.check(code, "hat attention kernel")
     hat_attention.launches += 1
     if overlap:
         hat_attention.overlap_launches += 1
     if rect:
         hat_attention.rect_launches += 1
+    hat_attention.padded_launches += p > c
     return out
 
 
 hat_attention.launches = 0
 hat_attention.overlap_launches = 0
 hat_attention.rect_launches = 0
+hat_attention.padded_launches = 0
 hat_attention.extra_counters = {"overlap": "overlap_launches",
-                                "rect": "rect_launches"}
+                                "rect": "rect_launches",
+                                "padded": "padded_launches"}

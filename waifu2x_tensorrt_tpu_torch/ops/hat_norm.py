@@ -16,6 +16,13 @@ torch op it replaces rounds (``add``, then ``addcmul``'s fp32 product and
 sum), so y is bit-equal to the twin's; LN is computed in fp32 from the
 rounded y, as torch's bf16 ``layer_norm``, and n differs from the twin's
 only by the order of the fp32 sums (within one bf16 ulp).
+
+The maps' rows may be wider than the C channels of ``weight`` and
+``bias``: a row of pitch P > C (HAT's and DAT's trunk at 16-byte rows,
+``models/layers.pitch``) holds C channels and P - C pad channels. The
+sums and the LayerNorm cover the C channels alone; y (where written) and
+n hold zeros in the pad, whatever the inputs' pads hold. ``s`` is then
+(B, P).
 """
 
 from __future__ import annotations
@@ -30,13 +37,17 @@ MAX_C = 256  # the kernel's widest row: 2 vectors of 16 bytes a lane
 
 def _check(x, r, weight, bias, z, s):
     if x.dim() != 4:
-        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
-    b, _, _, c = x.shape
+        raise ValueError(f"x must be (B, H, W, P), got {tuple(x.shape)}")
+    b, _, _, p = x.shape
+    c = weight.shape[0] if weight.dim() == 1 else -1
+    if not 0 < c <= p:
+        raise ValueError(f"weight must be (C,) with C up to x's {p} "
+                         f"channels, got {tuple(weight.shape)}")
     if (z is None) != (s is None):
         raise ValueError("z and s go together")
     if z is not None and r is None:
         raise ValueError("the scaled add needs r")
-    shapes = (("r", r, x.shape), ("z", z, x.shape), ("s", s, (b, c)),
+    shapes = (("r", r, x.shape), ("z", z, x.shape), ("s", s, (b, p)),
               ("weight", weight, (c,)), ("bias", bias, (c,)))
     for name, t, shape in shapes:
         if t is not None and tuple(t.shape) != tuple(shape):
@@ -48,16 +59,17 @@ def _check(x, r, weight, bias, z, s):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def _check_kernel(x, *others):
-    """What the kernel takes beyond ``_check``: bf16, C a multiple of 4 up
-    to ``MAX_C``, contiguous 16-byte aligned tensors, fewer than 2**31
-    values."""
+def _check_kernel(x, *others, c=None):
+    """What the kernel takes beyond ``_check``: bf16, C (None: the pitch)
+    and the pitch P multiples of 4, P up to ``MAX_C``, contiguous 16-byte
+    aligned tensors, fewer than 2**31 values."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x is {x.dtype}: kernel I is bf16 only")
-    c = x.shape[-1]
-    if c % 4 or not 0 < c <= MAX_C:
-        raise ValueError(f"C {c}: kernel I takes multiples of 4 up to "
-                         f"{MAX_C}")
+    p = x.shape[-1]
+    c = p if c is None else c
+    if c % 4 or p % 4 or not 0 < p <= MAX_C:
+        raise ValueError(f"C {c} at pitch {p}: kernel I takes multiples "
+                         f"of 4 up to {MAX_C}")
     for t in (x, *others):
         if t is not None and not t.is_contiguous():
             raise ValueError("kernel I takes contiguous tensors")
@@ -71,31 +83,42 @@ def _check_kernel(x, *others):
 
 def add_norm_plain(x, r, weight, bias, eps, *, z=None, s=None):
     """Plain twin, on any device: the ops of ``models/hat.py`` before
-    kernel I, ``x + r``, ``torch.addcmul`` and ``layers.layer_norm``.
-    Returns (y, n); y is x itself for the norm alone."""
+    kernel I, ``x + r``, ``torch.addcmul`` and ``layers.layer_norm``, on
+    the C channels of ``weight``, the pads of y and n zero. Returns (y,
+    n); y is x itself for the norm alone."""
     _check(x, r, weight, bias, z, s)
+    p, c = x.shape[-1], weight.shape[0]
+    if c < p:
+        y, n = add_norm_plain(
+            x[..., :c], None if r is None else r[..., :c], weight, bias, eps,
+            z=None if z is None else z[..., :c],
+            s=None if s is None else s[:, :c])
+        return (x if r is None else F.pad(y, (0, p - c))), F.pad(n, (0, p - c))
     y = x if r is None else x + r
     if z is not None:
         y = torch.addcmul(y, z, s[:, None, None, :])
-    return y, F.layer_norm(y, (x.shape[-1],), weight, bias, eps)
+    return y, F.layer_norm(y, (c,), weight, bias, eps)
 
 
 def add_norm(x, r, weight, bias, eps, *, z=None, s=None):
-    """Kernel I on the (B, H, W, C) map ``x``: with ``r`` (same shape) the
-    sum y = x + r, with ``z`` (same shape) and ``s`` (B, C) the sum y =
-    x + r + z s[b] rounded as ``torch.addcmul``; n = LayerNorm(y) by
-    ``weight``, ``bias`` (C,) and ``eps``. Returns (y, n), y being x for
-    the norm alone. The CUDA kernel for CUDA tensors (bf16 only,
-    contiguous, 16-byte aligned, C a multiple of 4 up to ``MAX_C``), the
-    plain twin for CPU and meta tensors. Counts kernel launches in
-    ``add_norm.launches``."""
+    """Kernel I on the (B, H, W, P) map ``x``, whose first C channels
+    (those of ``weight``) are real: with ``r`` (same shape) the sum y =
+    x + r, with ``z`` (same shape) and ``s`` (B, P) the sum y = x + r +
+    z s[b] rounded as ``torch.addcmul``; n = LayerNorm(y) over the C
+    channels by ``weight``, ``bias`` (C,) and ``eps``, zeros in the pad of
+    y and n. Returns (y, n), y being x for the norm alone. The CUDA kernel
+    for CUDA tensors (bf16 only, contiguous, 16-byte aligned, C and P
+    multiples of 4, P up to ``MAX_C``), the plain twin for CPU and meta
+    tensors. Counts kernel launches in ``add_norm.launches``, those on
+    rows of pitch P > C also in ``.padded_launches``."""
     _check(x, r, weight, bias, z, s)
     if x.device.type in ("cpu", "meta"):
         return add_norm_plain(x, r, weight, bias, eps, z=z, s=s)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_kernel(x, r, z, s, weight, bias)
-    b, h, w, c = x.shape
+    c = weight.shape[0]
+    _check_kernel(x, r, z, s, weight, bias, c=c)
+    b, h, w, p = x.shape
     n = torch.empty_like(x)
     y = x if r is None else torch.empty_like(x)
     lib = build.load_library()
@@ -104,17 +127,20 @@ def add_norm(x, r, weight, bias, eps, *, z=None, s=None):
         None if z is None else z.data_ptr(),
         None if s is None else s.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), None if r is None else y.data_ptr(), n.data_ptr(),
-        b * h * w, c, h * w, float(eps), build.stream_handle(x.device))
+        b * h * w, c, p, h * w, float(eps), build.stream_handle(x.device))
     build.check(code, "hat add-norm kernel")
     add_norm.launches += 1
+    add_norm.padded_launches += p > c
     return y, n
 
 
 add_norm.launches = 0
+add_norm.padded_launches = 0
+add_norm.extra_counters = {"padded": "padded_launches"}
 
 
 def occupancy(c: int, mode: int) -> dict:
-    """Registers a thread and resident CTAs an SM of the kernel at width
+    """Registers a thread and resident CTAs an SM of the kernel at pitch
     ``c`` for ``mode`` 0 (norm), 1 (add) or 2 (scaled add). Needs the
     card."""
     import ctypes

@@ -13,7 +13,8 @@ every dtype —
   eps 1e-5.
 
 ``pixel_shuffle`` is the depth-to-space of kernel D's plain twin and of
-the models' heads.
+the models' heads; ``qkv_channels`` the real channels of a qkv map carried
+at a row pitch (kernels G's and J's twins).
 
 The shift-mask law (``shift_crossing`` / ``keep_from_flags``) is bit-exact
 with the JAX package's; ``ops/csrc/common.cuh`` holds the same law for the
@@ -100,3 +101,12 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     c = crr // (r * r)
     x = x.reshape(b, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
     return x.reshape(b, h * r, w * r, c)
+
+
+def qkv_channels(qkv: torch.Tensor, c: int) -> torch.Tensor:
+    """The (..., 3C) real channels of a (..., 3P) qkv map whose q, k and
+    v each hold C channels at pitch P: a copy, or qkv itself at P = C."""
+    p = qkv.shape[-1] // 3
+    if c == p:
+        return qkv
+    return qkv.unflatten(-1, (3, p))[..., :c].flatten(-2)

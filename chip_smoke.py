@@ -227,6 +227,22 @@ the port through its library entry points (``Upscaler.load`` / ``render``
      launches_J 18 and launches_I 74, each of them also counted as
      padded (the trunk's pitch), and two outputs against the
      benchmark's plain float32 reference within the cell's limits
+ 20. kernel K (MambaIR's four-direction selective scan) against its plain
+     twin at the mambair4x-480p-stream cell's chunk, u (16, 256, 256, 360)
+     bf16, R 12, N 16 (``_scan_inputs``: delta about 0.001 to 0.1, A
+     from -1 to -16): each direction's fp32 output (the scratch's four
+     planes) within 1e-4 of its largest value at every token (the state
+     carried across every 32-token stage and every row), the gated bf16
+     map LN(y) SiLU(z) within twice the bf16 rounding of the twin's fp32
+     result, the same bytes on a second call; its time beside its bound
+     (the state updates at
+     ``UPDATES_S``) and the twin's one call; then mambair/photo 4x on the
+     benchmark's seeded weights streaming 8 of its 720 x 480 pictures as
+     phase 18 does: every ``w2x.model`` span a graph replay with
+     launches_K 36, launches_I 74 (skip_I 66, padded_I 74), and two
+     outputs against the benchmark's plain float32 reference within the
+     cell's limits; phase 18 also runs kernel I's skip and skip gate
+     (MambaIR's residuals, the per-channel weight k) against the twin
 
 Times are per call: the median over 10 samples, each the CUDA-event time
 of 10 calls in a row divided by 10 (kernel F's probe times its own
@@ -2779,13 +2795,14 @@ def phase_kernel_h(torch, smi, report):
 # the maps each variant reads and writes: x (r, z) read once, the sum y
 # (not for the norm alone) and its norm n written once
 NORM_SHAPE = (16, 256, 256, 180)
-NORM_MAPS = {"norm": 2, "add": 4, "scaled": 5}
+NORM_MAPS = {"norm": 2, "add": 4, "scaled": 5, "skip": 4, "skip_gate": 4}
 
 
 def _add_norm_inputs(torch, shape, variant, seed):
-    """bf16 x, r, z, s, weight and bias of HAT's scale on the card: a
+    """bf16 x, r, z, s, weight, bias and k of HAT's scale on the card: a
     residual stream of std 3, terms of std 1, channel weights in (0,
-    0.01), LN parameters about 1 and 0."""
+    0.01) (MambaIR's gate: in (0, 1)), LN parameters and the skip weight
+    k about 1 and 0 and 1."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*size, std=1.0, mean=0.0):
@@ -2794,21 +2811,24 @@ def _add_norm_inputs(torch, shape, variant, seed):
 
     b, c = shape[0], shape[-1]
     x = randn(*shape, std=3.0)
-    r = randn(*shape) if variant != "norm" else None
-    z = randn(*shape) if variant == "scaled" else None
+    r = randn(*shape) if variant in ("add", "scaled", "skip") else None
+    z = randn(*shape) if variant in ("scaled", "skip_gate") else None
     s = None
-    if variant == "scaled":
-        s = (0.01 * torch.rand((b, c), generator=g, device="cuda")
-             ).bfloat16()
-    return x, r, z, s, randn(c, std=0.1, mean=1.0), randn(c, std=0.1)
+    if z is not None:
+        s = ((0.01 if variant == "scaled" else 1.0)
+             * torch.rand((b, c), generator=g, device="cuda")).bfloat16()
+    k = randn(c, std=0.1, mean=1.0) if variant.startswith("skip") else None
+    return (x, r, z, s, randn(c, std=0.1, mean=1.0), randn(c, std=0.1),
+            k)
 
 
 def _add_norm_work(shape, variant):
     """Bytes of one kernel-I launch: its maps (``NORM_MAPS``), gamma and
-    beta, and the scaled add's (B, C) channel weights, bf16."""
+    beta, the (B, C) channel weights of z and the skip weight k, bf16."""
     b, h, w, c = shape
     return 2 * (b * h * w * c * NORM_MAPS[variant] + 2 * c
-                + (b * c if variant == "scaled" else 0))
+                + (b * c if variant in ("scaled", "skip_gate") else 0)
+                + (c if variant.startswith("skip") else 0))
 
 
 def _bf16_ulps(torch, got, want, y, weight, bias):
@@ -2843,9 +2863,9 @@ def phase_kernel_i(torch, smi, report):
     worst = 0.0
     c = NORM_SHAPE[-1]
     for mode, variant in enumerate(NORM_MAPS):
-        x, r, z, s, w, b = _add_norm_inputs(torch, NORM_SHAPE, variant,
-                                            seed=18 + mode)
-        kw = {"z": z, "s": s}
+        x, r, z, s, w, b, k = _add_norm_inputs(torch, NORM_SHAPE, variant,
+                                               seed=18 + mode)
+        kw = {"z": z, "s": s, "k": k}
         want_y, want_n = hn.add_norm_plain(x, r, w, b, 1e-5, **kw)
         y, n = hn.add_norm(x, r, w, b, 1e-5, **kw)
         same = torch.equal(y.view(torch.int16), want_y.view(torch.int16))
@@ -2876,7 +2896,7 @@ def phase_kernel_i(torch, smi, report):
                           for t in (x, r, z, s))
         del x, r, z, s
         torch.cuda.empty_cache()
-        kw = {"z": zp, "s": sp}
+        kw = {"z": zp, "s": sp, "k": k}
         want_y, want_n = hn.add_norm_plain(xp, rp, w, b, 1e-5, **kw)
         y, n = hn.add_norm(xp, rp, w, b, 1e-5, **kw)
         p = xp.shape[-1]
@@ -2887,7 +2907,7 @@ def phase_kernel_i(torch, smi, report):
         err = float((n[..., :c].float() - want_n[..., :c].float()).abs()
                     .max())
         worst = max(worst, err)
-        zero = not n[..., c:].any() and (rp is None or not y[..., c:].any())
+        zero = not n[..., c:].any() and (y is xp or not y[..., c:].any())
         del y, n, want_y, want_n
         torch.cuda.empty_cache()
         wm = _median_ms(lambda: hn.add_norm(xp, rp, w, b, 1e-5, **kw))
@@ -2914,7 +2934,7 @@ def phase_kernel_i(torch, smi, report):
                     f"{key}ctas_per_sm": occ["ctas_per_sm"]})
         if not key:
             row["bound_by"] = by
-        del xp, rp, zp, sp, w, b
+        del xp, rp, zp, sp, w, b, k
         torch.cuda.empty_cache()
     row["max_abs_err"] = worst
     return _cell_stream(torch, "phase 18", "hat-photo-4x-bf16",
@@ -3162,6 +3182,127 @@ def phase_kernel_j(torch, smi, report):
                         seed=2 ** 31 + 19)
 
 
+SCAN_SHAPE = (16, 256, 256, 360)  # the mambair4x-480p-stream cell's u
+
+
+def _scan_inputs(torch, shape, seed):
+    """bf16 u and x_dbl (4 x (12 + 2 x 16) a token), the fp32 tables of
+    kernel K and SS2D's gate (bf16 z, out_norm's fp32 weight and bias) on
+    the card, at the benchmark's seeded scale: u and x_dbl of std 1 (u
+    shifted by 0.3, as SiLU leaves it), dt weights N(0, 1 / 12), dt bias
+    -4.6 + N(0, 0.5^2) (delta from about 0.001 to 0.1), A from -1 to -16
+    (the published init), D and the LN weight about 1."""
+    from waifu2x_tensorrt_tpu_torch.ops.selective_scan import RANK, STATE
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, w, d = shape
+    e = RANK + 2 * STATE
+
+    def randn(*size):
+        return torch.randn(size, generator=g, device="cuda")
+
+    u = (0.3 + randn(b, h, w, d)).bfloat16()
+    xdbl = randn(b, h, w, 4 * e).bfloat16()
+    dtw = randn(4, d, RANK) / RANK ** 0.5
+    dtb = -4.6 + 0.5 * randn(4, d)
+    a = -torch.arange(1, STATE + 1, device="cuda", dtype=torch.float32
+                      ).expand(4, d, STATE).contiguous()
+    ds = 1.0 + 0.1 * randn(4, d)
+    gate = (randn(b, h, w, d).bfloat16(), 1 + 0.1 * randn(d),
+            0.1 * randn(d), 1e-5)
+    return u, xdbl, dtw, dtb, a, ds, gate
+
+
+def _scan_work(shape):
+    """(bytes, state updates) of one kernel-K call: u and x_dbl read once,
+    y written once, bf16; tokens x 4 x D x 16 updates."""
+    from waifu2x_tensorrt_tpu_torch.ops.selective_scan import RANK, STATE
+
+    b, h, w, d = shape
+    tokens = b * h * w
+    return (2 * tokens * (2 * d + 4 * (RANK + 2 * STATE)),
+            tokens * 4 * d * STATE)
+
+
+UPDATES_S = 132 * 1.98e9 * 32  # benchmark_torch/counts/mambair.UPDATES_S
+
+
+def phase_kernel_k(torch, smi, report):
+    """Phase 20: kernel K against its plain twin at the MambaIR cell's
+    chunk, each direction's fp32 output (the scratch planes) and the
+    summed bf16 map, its times, kernel I's skip modes in MambaIR's
+    stream, and the MambaIR stream's launch counts and outputs against
+    the benchmark's reference."""
+    import gc
+
+    from waifu2x_tensorrt_tpu_torch.ops import selective_scan as ss
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, h, w, d = SCAN_SHAPE
+    ops = _scan_inputs(torch, SCAN_SHAPE, seed=20)
+    t0 = time.perf_counter()
+    y = ss.selective_scan(*ops)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    again = ss.selective_scan(*ops)
+    stable = torch.equal(y.view(torch.int16), again.view(torch.int16))
+    del again
+    planes = ss._partials(y.device, 4 * y.numel())[:4 * y.numel()].view(
+        4, b, h * w, d)
+    t0 = time.perf_counter()
+    ys = ss.scan_directions(*ops[:6])   # (B, 4, L, D)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    order = ss.scan_order(h, w, y.device)
+    worst_dir = 0.0
+    lines = []
+    for k in range(4):
+        want = torch.empty((b, h * w, d), device="cuda")
+        want[:, order[k]] = ys[:, k]
+        err = float((planes[k] - want).abs().max())
+        scale = float(want.abs().max())
+        worst_dir = max(worst_dir, err / scale)
+        lines.append(f"direction {k} max |d| {err:.3e} of max |y| "
+                     f"{scale:.3f}")
+        del want
+    want_y = ss.combine(ys, h, w, torch.float32, ops[6])
+    del ys
+    torch.cuda.empty_cache()
+    e_k = float((y.float() - want_y).abs().max())
+    e_p = float((want_y.bfloat16().float() - want_y).abs().max())
+    del want_y
+    torch.cuda.empty_cache()
+    ok = stable and worst_dir <= 1e-4 and e_k <= 2 * e_p
+    print(f"  phase 20 K {SCAN_SHAPE}: each direction's fp32 output "
+          f"against the twin's ({'; '.join(lines)}; worst {worst_dir:.2e} "
+          f"of its max, limit 1e-4); the gated bf16 map LN(y) SiLU(z) "
+          f"|k - p32| {e_k:.3e} <= 2 x the bf16 rounding of the twin's "
+          f"{e_p:.3e}; the same bytes on a second call: {stable}: "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("phase 20: kernel K disagrees with its twin")
+    km = _median_ms(lambda: ss.selective_scan(*ops))
+    nbytes, upd = _scan_work(SCAN_SHAPE)
+    bms = 1e3 * max(nbytes / 3.35e12, upd / UPDATES_S)
+    by = "updates" if upd / UPDATES_S > nbytes / 3.35e12 else "bytes"
+    print(f"  phase 20 K {SCAN_SHAPE}: {km:.4f} ms (bound {bms:.4f} ms by "
+          f"{by}, {100 * bms / km:.1f}% of it); "
+          f"first call {first_s:.2f} s "
+          f"(the library's load included); plain twin {1e3 * plain_s:.1f} "
+          f"ms (one call, its chunked closed form)", flush=True)
+    report["K"] = {"max_abs_err": e_k, "ms": km, "plain_ms": 1e3 * plain_s,
+                   "bound_ms": bms, "bound_by": by, "library_ms": None,
+                   "direction_rel_err": worst_dir}
+    del ops, y
+    torch.cuda.empty_cache()
+    return _cell_stream(torch, "phase 20", "mambair-photo-4x-bf16",
+                        "mambair4x-480p-stream",
+                        {"launches_K": 36, "launches_I": 74,
+                         "skip_I": 66, "padded_I": 74},
+                        seed=2 ** 31 + 20)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     torch = _require_cuda()
@@ -3232,6 +3373,9 @@ def main() -> int:
     print("phase 19 kernel J (DAT's channel attention), kernel G's split "
           "windows and the DAT stream:", flush=True)
     n19 = phase_kernel_j(torch, smi, report)
+    print("phase 20 kernel K (MambaIR's selective scan) and the MambaIR "
+          "stream:", flush=True)
+    n20 = phase_kernel_k(torch, smi, report)
     # launch counts of the new paths, as extra keys on B's and C's rows
     report["C"].update(
         launches_cunet_t256_still=n11["a"],
@@ -3252,6 +3396,7 @@ def main() -> int:
     report["C"]["launches_fuse_frame_replay"] = n15["C"]
     report["G"]["launches_dat_stream"] = n19["G"]
     report["I"]["launches_dat_stream"] = n19["I"]
+    report["I"]["launches_mambair_stream"] = n20["I"]
 
     src = "waifu2x_tensorrt_tpu_torch/ops/csrc/"
     main_run = ("phase 5: main path, fused_block=True, bf16, tile 256, "
@@ -3272,6 +3417,8 @@ def main() -> int:
     i_run = ("phase 18: hat/photo 4x, bf16, tile 256, batch 16, 8 "
              "streamed 720 x 480 pictures after the warm")
     j_run = ("phase 19: dat/photo 4x, bf16, tile 256, batch 16, 8 "
+             "streamed 720 x 480 pictures after the warm")
+    k_run = ("phase 20: mambair/photo 4x, bf16, tile 256, batch 16, 8 "
              "streamed 720 x 480 pictures after the warm")
     meta = {
         "A": ("window_attention_qkv", src + "window_attention.cu",
@@ -3299,6 +3446,8 @@ def main() -> int:
               "none (the JAX package has no HAT)", n18["I"], i_run),
         "J": ("channel_attention", src + "dat_channel_attention.cu",
               "none (the JAX package has no DAT)", n19["J"], j_run),
+        "K": ("selective_scan", src + "selective_scan.cu",
+              "none (the JAX package has no MambaIR)", n20["K"], k_run),
     }
     kernels = [{"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                 "replaces": meta[k][2], "launches": meta[k][3],
@@ -3311,8 +3460,10 @@ def main() -> int:
                                       "c192_", "gate_", "wrapper_",
                                       "queued_", "launches_", "self_",
                                       "plain_ms_", "registers", "ctas_",
-                                      "norm_", "add_", "rect_"))}}
-               for k in ("A", "B", "C", "D", "E", "F", "G", "H", "I", "J")]
+                                      "norm_", "add_", "rect_", "skip_",
+                                      "direction_"))}}
+               for k in ("A", "B", "C", "D", "E", "F", "G", "H", "I", "J",
+                         "K")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@ forward built on it, on the CPU.
 - The twin is the op sequence ``models/hat.py`` ran before kernel I, bit
   for bit: ``x + r``, ``torch.addcmul`` with the per-image channel
   weights, then ``layers.layer_norm``, in bf16 and fp32, in all three
-  variants (norm alone, add, scaled add); the wrapper takes the twin for
-  CPU tensors.
+  variants (norm alone, add, scaled add); and MambaIR's residuals, ``x *
+  k`` with the per-channel skip weight, then ``+ r`` (skip) or the
+  ``addcmul`` of the CAB's map and gate (skip gate); the wrapper takes
+  the twin for CPU tensors.
 - ``_kernel_replay`` runs the kernel's thread mapping in numpy: a warp a
   pair of rows, lane l on 16-byte vectors l, l + 32, ..., each vector two
   quads of 4 values with the row in the pair, the channel and the image
@@ -52,26 +54,31 @@ from waifu2x_tensorrt_tpu_torch.ops.hat_attention import hat_attention
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = json.loads((ROOT / "benchmark_torch" / "configs"
                      / "hat-photo-4x-bf16.json").read_text())
-VARIANTS = ["norm", "add", "scaled"]
+VARIANTS = ["norm", "add", "scaled", "skip", "skip_gate"]
 
 
 def _inputs(shape, dtype, variant, seed):
-    """x, r, z, s and an ``nn.LayerNorm`` of HAT's scale: a residual
-    stream of std 3, terms of std 1, channel weights in (0, 0.01)."""
+    """x, r, z, s, an ``nn.LayerNorm`` of HAT's scale and k: a residual
+    stream of std 3, terms of std 1, channel weights in (0, 0.01)
+    (MambaIR's gate in (0, 1)), the skip weight k about 1 (skip
+    variants)."""
     g = torch.Generator().manual_seed(seed)
     b, c = shape[0], shape[-1]
     x = (3 * torch.randn(shape, generator=g)).to(dtype)
-    r = z = s = None
-    if variant != "norm":
+    r = z = s = k = None
+    if variant in ("add", "scaled", "skip"):
         r = torch.randn(shape, generator=g).to(dtype)
-    if variant == "scaled":
+    if variant in ("scaled", "skip_gate"):
         z = torch.randn(shape, generator=g).to(dtype)
-        s = (0.01 * torch.rand((b, c), generator=g)).to(dtype)
+        s = ((0.01 if variant == "scaled" else 1.0)
+             * torch.rand((b, c), generator=g)).to(dtype)
+    if variant.startswith("skip"):
+        k = (1 + 0.1 * torch.randn(c, generator=g)).to(dtype)
     norm = nn.LayerNorm(c, eps=1e-5)
     with torch.no_grad():
         norm.weight.copy_(1 + 0.1 * torch.randn(c, generator=g))
         norm.bias.copy_(0.1 * torch.randn(c, generator=g))
-    return x, r, z, s, norm
+    return x, r, z, s, norm, k
 
 
 def _operands(norm, dtype):
@@ -92,13 +99,14 @@ def _at_pitch(t, p):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
 def test_twin_is_the_parents_ops(dtype, variant, pitch):
-    """The parent's ops on C = 180; at pitch 192 (NaN in the inputs' pad,
-    s (B, 192)) the same y and n on the 180 real channels, zeros in the
-    pad: the LayerNorm covers the real channels alone."""
-    x, r, z, s, norm = _inputs((2, 6, 5, 180), dtype, variant, seed=1)
-    want = x
+    """The parent's ops on C = 180 (MambaIR's: x * k first); at pitch 192
+    (NaN in the inputs' pad, s (B, 192)) the same y and n on the 180 real
+    channels, zeros in the pad: the LayerNorm covers the real channels
+    alone."""
+    x, r, z, s, norm, k = _inputs((2, 6, 5, 180), dtype, variant, seed=1)
+    want = x if k is None else x * k
     if r is not None:
-        want = x + r
+        want = want + r
     if z is not None:
         want = torch.addcmul(want, z, s[:, None, None, :])
     want_n = layer_norm(want, norm)
@@ -106,15 +114,14 @@ def test_twin_is_the_parents_ops(dtype, variant, pitch):
     px, pr, pz = (_at_pitch(t, pitch) for t in (x, r, z))
     ps = None if s is None else F.pad(s, (0, pitch - 180), value=1.0)
     for fn in (hn.add_norm_plain, hn.add_norm):
-        y, n = fn(px, pr, w, b, norm.eps, z=pz, s=ps)
+        y, n = fn(px, pr, w, b, norm.eps, z=pz, s=ps, k=k)
         assert y.dtype == n.dtype == dtype
         assert y.shape == n.shape == px.shape
         assert torch.equal(y[..., :180], want)
         assert torch.equal(n[..., :180], want_n)
         assert not n[..., 180:].any()
-        assert r is None or not y[..., 180:].any()
-    if r is None:
-        assert y is px
+        assert y is px or not y[..., 180:].any()
+    assert (y is px) == (variant == "norm")
 
 
 def _bf16(a):
@@ -124,10 +131,11 @@ def _bf16(a):
     ).float().numpy()
 
 
-def _kernel_replay(x, r, z, s, w, b, eps):
+def _kernel_replay(x, r, z, s, w, b, eps, k=None):
     """``csrc/hat_norm.cu``'s mapping in numpy over flat bf16 maps of
-    pitch P (x's channels) holding the C channels of ``w``: returns (y,
-    n) as float32 and how often each value was read and written."""
+    pitch P (x's channels) holding the C channels of ``w`` (and of the
+    skip weight ``k``): returns (y, n) as float32 and how often each value
+    was read and written."""
     bsz, hgt, wid, pitch = x.shape
     c = w.shape[0]
     rows, hw, vecs = bsz * hgt * wid, hgt * wid, pitch // 4
@@ -136,6 +144,7 @@ def _kernel_replay(x, r, z, s, w, b, eps):
             for k, t in (("x", x), ("r", r), ("z", z))}
     sv = None if s is None else s.float().reshape(-1).numpy()
     wv, bv = w.float().numpy(), b.float().numpy()
+    kv = None if k is None else k.float().numpy()
     y = np.full(rows * pitch, np.nan, np.float32)
     n = np.full(rows * pitch, np.nan, np.float32)
     reads = np.zeros(rows * pitch, np.int64)
@@ -163,6 +172,8 @@ def _kernel_replay(x, r, z, s, w, b, eps):
                 vals[(row, ch, at)] = np.zeros(4, np.float32)
                 continue
             v = flat["x"][idx]
+            if kv is not None:
+                v = _bf16(v * kv[ch:ch + 4])
             if flat["r"] is not None:
                 v = _bf16(v + flat["r"][idx])
             if flat["z"] is not None:
@@ -201,12 +212,12 @@ def _kernel_replay(x, r, z, s, w, b, eps):
 def test_kernel_replay_is_the_twin(shape, pitch, variant):
     """The replay against the twin; at a pitch P > C the inputs' pads hold
     NaN and s is (B, P): the pad is read and written once, zeros out."""
-    x, r, z, s, norm = _inputs(shape, torch.bfloat16, variant, seed=2)
+    x, r, z, s, norm, k = _inputs(shape, torch.bfloat16, variant, seed=2)
     w, b = _operands(norm, torch.bfloat16)
     x, r, z = (_at_pitch(t, pitch) for t in (x, r, z))
     s = None if s is None else F.pad(s, (0, pitch - shape[-1]), value=1.0)
-    want_y, want_n = hn.add_norm_plain(x, r, w, b, norm.eps, z=z, s=s)
-    y, n, reads, writes = _kernel_replay(x, r, z, s, w, b, norm.eps)
+    want_y, want_n = hn.add_norm_plain(x, r, w, b, norm.eps, z=z, s=s, k=k)
+    y, n, reads, writes = _kernel_replay(x, r, z, s, w, b, norm.eps, k)
     assert (reads == 1).all() and (writes == 1).all()
     c = shape[-1]
     real = want_y[..., :c].float().reshape(-1).numpy()
@@ -242,10 +253,14 @@ def test_kernel_replay_is_the_twin(shape, pitch, variant):
                        device="meta")}, ValueError),
     ({"weight": torch.zeros(180, dtype=torch.bfloat16, device="meta")},
      ValueError),
+    ({"k": torch.zeros(180, dtype=torch.bfloat16)}, ValueError),
+    ({"k": torch.zeros(176, dtype=torch.bfloat16), "z": None, "s": None},
+     ValueError),
+    ({"k": torch.zeros(180), "z": None, "s": None}, TypeError),
 ], ids=["x-3d", "r-shape", "z-shape", "s-batch", "weight-c",
         "weight-wider-than-x", "bias-dtype",
         "r-dtype", "z-without-s", "scaled-without-r", "z-device",
-        "weight-device"])
+        "weight-device", "skip-with-r-and-z", "k-shape", "k-dtype"])
 def test_wrapper_refuses_what_does_not_fit(change, error):
     kw = {"x": torch.zeros((2, 4, 4, 180), dtype=torch.bfloat16),
           "r": torch.zeros((2, 4, 4, 180), dtype=torch.bfloat16),

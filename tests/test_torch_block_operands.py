@@ -141,6 +141,9 @@ CACHE_MODELS = {
     "dat": (("dat/photo", 4, -1),
             dict(dat_arch={"embed_dim": 96, "depths": (2,),
                            "num_heads": 6}), 32),
+    "mambair": (("mambair/photo", 4, -1),
+                dict(mambair_arch={"embed_dim": 60, "depths": (2,),
+                                   "d_state": 4}), 32),
 }
 
 

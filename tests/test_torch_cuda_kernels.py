@@ -1362,9 +1362,10 @@ def test_hat_chunk_captured_is_the_eager_chunk():
 
 
 def _add_norm_inputs(shape, variant, seed):
-    """bf16 x, r, z, s, weight and bias of HAT's scale on the card: a
+    """bf16 x, r, z, s, weight, bias and k of HAT's scale on the card: a
     residual stream of std 3, terms of std 1, channel weights in (0,
-    0.01), LN parameters about 1 and 0."""
+    0.01) (MambaIR's gate in (0, 1)), LN parameters and the skip weight k
+    about 1 and 0 and 1."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*size, std=1.0, mean=0.0):
@@ -1373,13 +1374,15 @@ def _add_norm_inputs(shape, variant, seed):
 
     b, c = shape[0], shape[-1]
     x = randn(*shape, std=3.0)
-    r = randn(*shape) if variant != "norm" else None
-    z = randn(*shape) if variant == "scaled" else None
+    r = randn(*shape) if variant in ("add", "scaled", "skip") else None
+    z = randn(*shape) if variant in ("scaled", "skip_gate") else None
     s = None
-    if variant == "scaled":
-        s = (0.01 * torch.rand((b, c), generator=g, device="cuda")
-             ).bfloat16()
-    return x, r, z, s, randn(c, std=0.1, mean=1.0), randn(c, std=0.1)
+    if z is not None:
+        s = ((0.01 if variant == "scaled" else 1.0)
+             * torch.rand((b, c), generator=g, device="cuda")).bfloat16()
+    k = randn(c, std=0.1, mean=1.0) if variant.startswith("skip") else None
+    return (x, r, z, s, randn(c, std=0.1, mean=1.0), randn(c, std=0.1),
+            k)
 
 
 def _within_one_ulp(got, want, y, weight, bias):
@@ -1399,7 +1402,8 @@ def _within_one_ulp(got, want, y, weight, bias):
     assert worst <= 1.0, worst
 
 
-@pytest.mark.parametrize("variant", ["norm", "add", "scaled"])
+@pytest.mark.parametrize("variant", ["norm", "add", "scaled", "skip",
+                                     "skip_gate"])
 @pytest.mark.parametrize("shape, pitch", [
     ((16, 256, 256, 180), 180), ((3, 37, 29, 180), 180),
     ((3, 37, 29, 12), 12), ((3, 37, 29, 144), 144), ((2, 5, 7, 256), 256),
@@ -1416,26 +1420,29 @@ def test_kernel_i_matches_its_twin(shape, pitch, variant):
     terms, ``_within_one_ulp``), one launch counted. At a pitch P > C
     (NaN in the inputs' pads, s (B, P)): the same on the real channels,
     zeros in the pads of y and n, the launch also in
-    ``padded_launches``."""
+    ``padded_launches``. MambaIR's skip modes (x times the per-channel
+    weight k, then + r or + z s[b]) also in ``skip_launches``."""
     from waifu2x_tensorrt_tpu_torch.ops import hat_norm as hn
 
-    x, r, z, s, w, b = _add_norm_inputs(shape, variant, seed=shape[-1])
+    x, r, z, s, w, b, k = _add_norm_inputs(shape, variant, seed=shape[-1])
     c = shape[-1]
     if pitch != c:
         x, r, z = (None if t is None else _at_pitch(t, 1, pitch)
                    for t in (x, r, z))
         s = None if s is None else _at_pitch(s, 1, pitch).nan_to_num(1.0)
-    want_y, want_n = hn.add_norm_plain(x, r, w, b, 1e-5, z=z, s=s)
-    before = (hn.add_norm.launches, hn.add_norm.padded_launches)
-    y, n = hn.add_norm(x, r, w, b, 1e-5, z=z, s=s)
+    want_y, want_n = hn.add_norm_plain(x, r, w, b, 1e-5, z=z, s=s, k=k)
+    before = (hn.add_norm.launches, hn.add_norm.padded_launches,
+              hn.add_norm.skip_launches)
+    y, n = hn.add_norm(x, r, w, b, 1e-5, z=z, s=s, k=k)
     torch.cuda.synchronize()
-    assert (hn.add_norm.launches, hn.add_norm.padded_launches) == (
-        before[0] + 1, before[1] + (pitch != c))
-    assert (y is x) == (r is None)
+    assert (hn.add_norm.launches, hn.add_norm.padded_launches,
+            hn.add_norm.skip_launches) == (
+        before[0] + 1, before[1] + (pitch != c), before[2] + (k is not None))
+    assert (y is x) == (variant == "norm")
     _bytes_equal(y[..., :c], want_y[..., :c])
     _within_one_ulp(n[..., :c], want_n[..., :c], want_y[..., :c], w, b)
     assert not n[..., c:].any()
-    assert r is None or not y[..., c:].any()
+    assert y is x or not y[..., c:].any()
 
 
 def test_kernel_i_refuses_what_it_does_not_take():
@@ -1799,5 +1806,114 @@ def test_dat_chunk_captured_is_the_eager_chunk():
     assert graph.launches == {"launches_G": 1, "rect_G": 1, "padded_G": 1,
                               "launches_J": 1, "padded_J": 1,
                               "launches_I": 6, "padded_I": 6}
+    second = prog(x)
+    assert torch.equal(first, want) and torch.equal(second, want)
+
+
+def _scan_inputs(shape, seed):
+    """bf16 u and x_dbl, kernel K's fp32 tables and SS2D's gate (bf16 z,
+    out_norm's fp32 weight and bias) on the card, at the benchmark's
+    seeded scale (``chip_smoke._scan_inputs``): delta from about 0.001 to
+    0.1, A from -1 to -16 (the published init), D about 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, h, w, d = shape
+
+    def randn(*size):
+        return torch.randn(size, generator=g, device="cuda")
+
+    u = (0.3 + randn(b, h, w, d)).bfloat16()
+    xdbl = randn(b, h, w, 4 * 44).bfloat16()
+    a = -torch.arange(1, 17, device="cuda", dtype=torch.float32).expand(
+        4, d, 16).contiguous()
+    gate = (randn(b, h, w, d).bfloat16(), 1 + 0.1 * randn(d),
+            0.1 * randn(d), 1e-5)
+    return (u, xdbl, randn(4, d, 12) / 12 ** 0.5, -4.6 + 0.5 * randn(4, d),
+            a, 1.0 + 0.1 * randn(4, d), gate)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 48, 360), (1, 37, 29, 360),
+                                   (3, 9, 70, 200), (1, 1, 1, 8)],
+                         ids=["2x64x48", "1x37x29", "d200", "one-token"])
+def test_kernel_k_matches_its_twin(shape):
+    """Kernel K (MambaIR's selective scan, R 12, N 16, and SS2D's gate)
+    against its plain twin: each direction's fp32 output (the scratch's
+    four planes, y + D u at every token) within 1e-4 of the largest, over
+    token counts that leave the last 32-token stage partly empty and rows
+    of 29 and 70 (the state carried across stages and rows), D 200 (a
+    last group of 8 channels) and one token; the gated bf16 map LN(y)
+    SiLU(z) within twice the bf16 rounding of the twin's fp32 result;
+    the same bytes on a second call; one call counted."""
+    from waifu2x_tensorrt_tpu_torch.ops import selective_scan as ss
+
+    ops = _scan_inputs(shape, seed=shape[1] * shape[2])
+    b, h, w, d = shape
+    before = ss.selective_scan.launches
+    y = ss.selective_scan(*ops)
+    again = ss.selective_scan(*ops)
+    assert ss.selective_scan.launches == before + 2
+    assert torch.equal(y.view(torch.int16), again.view(torch.int16))
+    planes = ss._partials(y.device, 4 * y.numel())[:4 * y.numel()].view(
+        4, b, h * w, d)
+    ys = ss.scan_directions(*ops[:6])
+    order = ss.scan_order(h, w, y.device)
+    for k in range(4):
+        want = torch.empty((b, h * w, d), device="cuda")
+        want[:, order[k]] = ys[:, k]
+        err = float((planes[k] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (k, err)
+    want_y = ss.combine(ys, h, w, torch.float32, ops[6])
+    e_k = float((y.float() - want_y).abs().max())
+    e_p = float((want_y.bfloat16().float() - want_y).abs().max())
+    assert e_k <= 2 * e_p, (e_k, e_p)
+
+
+def test_kernel_k_refuses_what_it_does_not_take():
+    from waifu2x_tensorrt_tpu_torch.ops import selective_scan as ss
+
+    u, xdbl, dtw, dtb, a, ds, (z, gw, gb, eps) = _scan_inputs((1, 4, 4, 16),
+                                                             seed=1)
+    gate = (z, gw, gb, eps)
+    with pytest.raises(TypeError, match="bf16 only"):
+        ss.selective_scan(u.float(), xdbl.float(), dtw, dtb, a, ds,
+                          (z.float(), gw, gb, eps))
+    with pytest.raises(ValueError, match="R 12"):
+        ss.selective_scan(u, xdbl[..., :4 * 40], dtw[..., :8], dtb, a, ds,
+                          gate)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ss.selective_scan(u[..., :12].contiguous(), xdbl, dtw[:, :12],
+                          dtb[:, :12], a[:, :12], ds[:, :12],
+                          (z[..., :12].contiguous(), gw[:12], gb[:12], eps))
+    with pytest.raises(TypeError, match="float32"):
+        ss.selective_scan(u, xdbl, dtw.bfloat16(), dtb, a, ds, gate)
+    with pytest.raises(ValueError, match="aligned"):
+        ss.selective_scan(u[:, :, 1:3], xdbl[:, :, 1:3], dtw, dtb, a, ds,
+                          (z[:, :, 1:3], gw, gb, eps))
+
+
+def test_mambair_chunk_captured_is_the_eager_chunk():
+    """A MambaIR chunk at full width (one group of two VSSBlocks, bf16, 2
+    tiles of 64) through its captured program: replays give the bytes of
+    the eager call and record kernel K's calls (2) and kernel I's
+    launches (6: patch_embed.norm and the first ln_1 alone, the two
+    ln_2 in the skip mode, the second ln_1 in the skip gate, the final
+    norm's add), all on the trunk's pitch of 192 (``padded_I``), 3 of
+    them skips (``skip_I``)."""
+    from waifu2x_tensorrt_tpu_torch.engine import exe_cache
+    from waifu2x_tensorrt_tpu_torch.models import registry
+
+    module, _ = registry.create_model(
+        "mambair/photo", 4, -1, dtype=torch.bfloat16, device="cuda",
+        mambair_arch={"depths": (2,)})
+    registry.load_into(module, registry.init_params(module, seed=1))
+    exe_cache.configure("models", "cuda:0")
+    prog = exe_cache.cached_program(module, tag="model|mambair-test")
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(
+        5)).cuda().bfloat16()
+    with torch.inference_mode():
+        want = module(x)
+    first = prog(x)
+    (graph,) = prog.graphs.values()
+    assert graph.launches == {"launches_K": 2, "launches_I": 6,
+                              "padded_I": 6, "skip_I": 3}
     second = prog(x)
     assert torch.equal(first, want) and torch.equal(second, want)

@@ -347,7 +347,8 @@ def test_registry_takes_dat_photo_at_4x_without_noise():
     assert registry.MODEL_FAMILIES == ("cunet/art", "swin_unet/art",
                                        "swin_unet/art_scan",
                                        "swin_unet/photo")
-    assert registry.PORT_FAMILIES == ("hat/photo", "dat/photo")
+    assert registry.PORT_FAMILIES == ("hat/photo", "dat/photo",
+                                      "mambair/photo")
     spec = registry.get_spec("dat/photo", 4, -1)
     assert (spec.arch, spec.offset, spec.tile_divisor) == ("dat", 0, 32)
     for scale, noise in ((2, -1), (4, 0), (1, 3), (4, 3)):

@@ -141,8 +141,9 @@ def test_graph_launch_record_counts_direct_b(monkeypatch):
     assert set(before) == {"launches_A", "launches_B", "launches_C",
                            "launches_D", "launches_E", "launches_F",
                            "launches_G", "launches_H", "launches_I",
-                           "launches_J", "direct_B", "overlap_G", "rect_G",
-                           "padded_G", "padded_I", "padded_J"}
+                           "launches_J", "launches_K", "direct_B",
+                           "overlap_G", "rect_G", "padded_G", "padded_I",
+                           "padded_J", "skip_I"}
     # a flagship chunk's capture: 10 launches of B, all on activations,
     # and one of C
     fused_swin_block.launches += 10

@@ -8,8 +8,8 @@ program store runs it) makes no ``aten._to_copy``, ``aten.clone`` or
 ``aten.to`` or ``aten.contiguous`` that copies (the mode sees those
 before they become the first two in inference mode), while the first
 forward makes some (so the mode sees them). For swin_unet (fused and
-unfused blocks), cunet 1x and 2x, HAT and DAT at the CPU tests' small
-widths, in fp32 and bf16.
+unfused blocks), cunet 1x and 2x, HAT, DAT and MambaIR at the CPU tests'
+small widths, in fp32 and bf16.
 """
 
 import pytest
@@ -21,6 +21,7 @@ from waifu2x_tensorrt_tpu_torch.models import registry
 SWIN = dict(base_dim=32, depths=(2, 2, 2, 2, 2))
 HAT = dict(hat_arch={"embed_dim": 60, "depths": (2,), "num_heads": 2})
 DAT = dict(dat_arch={"embed_dim": 96, "depths": (2,), "num_heads": 6})
+MAMBAIR = dict(mambair_arch={"embed_dim": 60, "depths": (2,), "d_state": 4})
 # name: ((family, scale, noise), create_model options, tile)
 MODELS = {
     "swin_unet": (("swin_unet/art", 2, 1), SWIN, 32),
@@ -30,6 +31,7 @@ MODELS = {
     "cunet-2x": (("cunet/art", 2, 1), {}, 48),
     "hat": (("hat/photo", 4, -1), HAT, 32),
     "dat": (("dat/photo", 4, -1), DAT, 32),
+    "mambair": (("mambair/photo", 4, -1), MAMBAIR, 16),
 }
 
 aten = torch.ops.aten

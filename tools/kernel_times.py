@@ -1,4 +1,4 @@
-"""Times of kernels A to J through their wrappers on one NVIDIA GPU, by
+"""Times of kernels A to K through their wrappers on one NVIDIA GPU, by
 ``chip_smoke.py``'s method, from this or another version of the package.
 
     python3 tools/kernel_times.py [--root DIR]
@@ -44,8 +44,9 @@ shapes, each beside its bound and its share of it:
 - I (HAT's residual sums and their LayerNorm, where the version has it)
   on the hat4x-480p-stream cell's chunk (``chip_smoke.NORM_SHAPE``:
   (16, 256, 256, 180) bf16) in each variant (the norm alone, the add, the
-  scaled add), beside its plain twin and ``F.layer_norm`` alone on the
-  same map;
+  scaled add, and MambaIR's skip and skip gate where the version has
+  them), beside its plain twin and ``F.layer_norm`` alone on the same
+  map;
 - G on DAT's split windows (where the version has them: heads 0-2 in 8 x
   32 windows, 3-5 in 32 x 8, shifted by (4, 16)) and J (DAT's channel
   attention, where the version has it) in bf16 on the dat4x-480p-stream
@@ -55,6 +56,10 @@ shapes, each beside its bound and its share of it:
   trunk carried at the row pitch HAT and DAT run (``models/layers.pitch``:
   192 for C = 180; where the version has it), each against the bound of
   the same pitch-C work;
+- K (MambaIR's four-direction selective scan, where the version has it)
+  on the mambair4x-480p-stream cell's chunk (``chip_smoke.SCAN_SHAPE``:
+  u (16, 256, 256, 360), R 12, N 16) beside its bound (its state updates
+  at ``chip_smoke.UPDATES_S``, or its bytes);
 - the trunk's library GEMMs (qkv, proj, fc1, fc2 at a chunk's 1,048,576
   tokens) and 3x3 convs (C -> C / 3, C / 3 -> C, C -> C on 16 tiles of
   256) at row pitch C = 180, 184 (C up to a multiple of 8) and 192 (of
@@ -240,11 +245,16 @@ def main() -> int:
         from waifu2x_tensorrt_tpu_torch.ops import hat_norm as hn
     except ImportError:  # a version without kernel I
         return 0
+    import inspect
+
     c = cs.NORM_SHAPE[-1]
+    skips = "k" in inspect.signature(hn.add_norm).parameters
     for mode, variant in enumerate(cs.NORM_MAPS):
-        x, r, z, s, w, b = cs._add_norm_inputs(torch, cs.NORM_SHAPE,
-                                               variant, seed=18 + mode)
-        kw = {"z": z, "s": s}
+        if variant.startswith("skip") and not skips:
+            continue  # a version without MambaIR's skip modes
+        x, r, z, s, w, b, k = cs._add_norm_inputs(torch, cs.NORM_SHAPE,
+                                                  variant, seed=18 + mode)
+        kw = {"z": z, "s": s, **({"k": k} if k is not None else {})}
         pm = cs._median_ms(lambda: hn.add_norm_plain(x, r, w, b, 1e-5,
                                                      **kw))
         show(f"kernel I bf16 {variant} {cs.NORM_SHAPE}, plain twin "
@@ -256,14 +266,26 @@ def main() -> int:
             p = _trunk_pitch()
             px, pr, pz, ps = (None if t is None else F.pad(t, (0, p - c))
                               for t in (x, r, z, s))
+            kw.update(z=pz, s=ps)
             show(f"kernel I bf16 {variant} {cs.NORM_SHAPE} at pitch {p}",
-                 lambda: hn.add_norm(px, pr, w, b, 1e-5, z=pz, s=ps),
+                 lambda: hn.add_norm(px, pr, w, b, 1e-5, **kw),
                  (cs._add_norm_work(cs.NORM_SHAPE, variant),))
             del px, pr, pz, ps
-        del x, r, z, s, w, b
+        del x, r, z, s, w, b, k, kw
         torch.cuda.empty_cache()
     if hasattr(ha, "RECT"):
         _dat_kernels(cs, torch, ha, show)
+    try:
+        from waifu2x_tensorrt_tpu_torch.ops import selective_scan as ss
+    except ImportError:  # a version without kernel K
+        return 0
+    ops = cs._scan_inputs(torch, cs.SCAN_SHAPE, seed=20)
+    ms = cs._median_ms(lambda: ss.selective_scan(*ops))
+    nbytes, updates = cs._scan_work(cs.SCAN_SHAPE)
+    bms = 1e3 * max(nbytes / 3.35e12, updates / cs.UPDATES_S)
+    print(f"kernel K bf16 u {cs.SCAN_SHAPE}: {ms:.4f} ms (bound {bms:.4f} "
+          f"ms by updates, {100 * bms / ms:.1f}% of it; its bytes alone "
+          f"{1e3 * nbytes / 3.35e12:.4f} ms)", flush=True)
     return 0
 
 

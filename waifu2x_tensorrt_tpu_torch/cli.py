@@ -2,15 +2,16 @@
 videos and ``build`` of engines, with the reference's flags
 (src/main.cpp:17-154), the port of ``waifu2x_tensorrt_tpu.cli``.
 
-Ported: --model (cunet/art, the swin_unet families, and hat/photo and
-dat/photo, the port's own 4x HAT and DAT) --scale --noise
---batchSize --tileSize (64, 128, 256, 400, 640, and 0 for the whole frame
-as one tile) --blend --tta --bucket --precision --device (an index, or
-``cpu``) --models-dir --allow-random-weights, and ``render -i ... [-o DIR]
-[--recursive] [--nosuffix] [--codec] [--pix_fmt] [--crf] [--alpha auto]
-[--segment-frames N] [--resume] [--continue-on-error] [--metrics-json
-PATH] [--profile DIR]`` of image and video files, ``build`` (an engine
-sidecar for the --batchSize x --tileSize profile; exit -1 with "Engine
+Ported: --model (cunet/art, the swin_unet families, and hat/photo,
+dat/photo and mambair/photo, the port's own 4x HAT, DAT and MambaIR)
+--scale --noise --batchSize --tileSize (64, 128, 256, 400, 640, and 0
+for the whole frame as one tile) --blend --tta --bucket --precision
+--device (an index, or ``cpu``) --models-dir --allow-random-weights, and
+``render -i ... [-o DIR] [--recursive] [--nosuffix] [--codec] [--pix_fmt]
+[--crf] [--alpha auto] [--segment-frames N] [--resume]
+[--continue-on-error] [--metrics-json PATH] [--profile DIR]`` of image
+and video files, ``build`` (an engine sidecar for the --batchSize x
+--tileSize profile; exit -1 with "Engine
 build failed: ..."), and ``--graph-exact`` (a bare ``.onnx`` under
 ``models/<family>/`` serves through its own parsed graph instead of the
 verified conversion). ``--precision tf32`` is full fp32, as in the JAX
@@ -21,8 +22,9 @@ validates them, in its order and with its exit code -1 (model,
 [0, 51], the -o directory), and ``build`` and the render loop give its
 messages and exit codes. ``--dp``, ``--multihost`` and ``--tileSize auto``
 are parsed and rejected with exit code 2 saying "not yet ported", as are
-``--precision tf32`` and ``--graph-exact`` with hat/photo and dat/photo
-(``registry.refused_option``: their kernels G and J are bf16 only).
+``--precision tf32`` and ``--graph-exact`` with hat/photo, dat/photo and
+mambair/photo (``registry.refused_option``: their kernels G, J and K are
+bf16 only).
 
 Device frames reach the writers through ``fetch_async``: each output's
 copy into pinned host memory is queued behind its render, and the video

@@ -288,8 +288,8 @@ class Upscaler:
                 pack_x=False) -> None:
         """Raise, naming the option, where the family cannot run with it
         (``registry.refused_option``, with the family's reason:
-        hat/photo and dat/photo are bf16 only, from their ``.npz``, with
-        the pixel head)."""
+        hat/photo, dat/photo and mambair/photo are bf16 only, from their
+        ``.npz``, with the pixel head)."""
         stem = registry.weights_path(self.models_dir, family, scale, noise)
         onnx = not stem.exists() and stem.with_suffix(".onnx").exists()
         option = registry.refused_option(

@@ -1,6 +1,6 @@
-"""The waifu2x ``swin_unet`` and ``cunet`` families, HAT (``hat``) and DAT
-(``dat``) as torch modules, their registry and the flax-to-torch weight
-bridge."""
+"""The waifu2x ``swin_unet`` and ``cunet`` families, HAT (``hat``), DAT
+(``dat``) and MambaIR (``mambair``) as torch modules, their registry and
+the flax-to-torch weight bridge."""
 
 from waifu2x_tensorrt_tpu_torch.models.registry import (  # noqa: F401
     MODEL_FAMILIES,

@@ -55,6 +55,10 @@ __all__ = [
     "is_cunet_tree",
     "is_dat_tree",
     "is_hat_tree",
+    "is_mambair_tree",
+    "mambair_arch_from_flax",
+    "mambair_from_torch",
+    "mambair_mapping",
     "params_from_flax",
     "state_from_flax",
     "swin_depths_from_flax",
@@ -307,8 +311,107 @@ def hat_mapping(depths=(6,) * 6) -> list[tuple[str, str, str]]:
 
 def is_hat_tree(keys) -> bool:
     """True for the flat tree (or its keys) of a HAT model."""
-    return any(k.startswith("layers/") and "/residual_group/" in k
-               for k in keys)
+    return not is_mambair_tree(keys) and any(
+        k.startswith("layers/") and "/residual_group/" in k for k in keys)
+
+
+def mambair_mapping(depths=(6,) * 6) -> list[tuple[str, str, str]]:
+    """(torch_path, flax_path, kind) for MambaIR (``models/mambair.py``),
+    whose torch paths are those of MambaIR's own state dict
+    (csguoh/MambaIR ``mambair_arch.py``). kind: conv | dense | norm |
+    table | stack. The flat path is the torch path '/'-joined, except for
+    the parameters that are no layer's weight and bias (their torch path is
+    the parameter's): ``A_logs`` and ``dt_projs_bias`` are tables at
+    ``.../A_logs/value`` and ``.../dt_projs_bias/value``, ``Ds``,
+    ``skip_scale`` and ``skip_scale2`` tables at ``.../<name>/scale``, and
+    the stacked per-direction projections ``x_proj_weight`` (4, R + 2N,
+    D) and ``dt_projs_weight`` (4, D, R) are ``stack`` entries, one dense
+    kernel a direction at ``.../x_proj/<k>/kernel`` (D, R + 2N) and
+    ``.../dt_projs/<k>/kernel`` (R, D). ``in_proj`` and ``out_proj`` have
+    no bias; the CAB's pooled-gate 1x1 convs are dense."""
+    names: list[tuple[str, str, str]] = [
+        ("conv_first", "conv_first", "conv"),
+        ("patch_embed.norm", "patch_embed/norm", "norm")]
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            b = f"layers.{i}.residual_group.blocks.{j}"
+            a = f"{b}.self_attention"
+            fa = a.replace(".", "/")
+            names += [(f"{b}.ln_1", "", "norm"),
+                      (f"{a}.in_proj", "", "dense"),
+                      (f"{a}.conv2d", "", "conv"),
+                      (f"{a}.x_proj_weight", f"{fa}/x_proj", "stack"),
+                      (f"{a}.dt_projs_weight", f"{fa}/dt_projs", "stack"),
+                      (f"{a}.dt_projs_bias", f"{fa}/dt_projs_bias/value",
+                       "table"),
+                      (f"{a}.A_logs", f"{fa}/A_logs/value", "table"),
+                      (f"{a}.Ds", f"{fa}/Ds/scale", "table"),
+                      (f"{a}.out_norm", "", "norm"),
+                      (f"{a}.out_proj", "", "dense"),
+                      (f"{b}.skip_scale", f"{b}/skip_scale/scale"
+                       .replace(".", "/"), "table"),
+                      (f"{b}.conv_blk.cab.0", "", "conv"),
+                      (f"{b}.conv_blk.cab.2", "", "conv"),
+                      (f"{b}.conv_blk.cab.3.attention.1", "", "dense"),
+                      (f"{b}.conv_blk.cab.3.attention.3", "", "dense"),
+                      (f"{b}.ln_2", "", "norm"),
+                      (f"{b}.skip_scale2", f"{b}/skip_scale2/scale"
+                       .replace(".", "/"), "table")]
+        names.append((f"layers.{i}.conv", "", "conv"))
+    names += [("norm", "", "norm"), ("conv_after_body", "", "conv"),
+              ("conv_before_upsample.0", "", "conv"),
+              ("upsample.0", "", "conv"), ("upsample.2", "", "conv"),
+              ("conv_last", "", "conv")]
+    return [(src, dst or src.replace(".", "/"), kind)
+            for src, dst, kind in names]
+
+
+def is_mambair_tree(keys) -> bool:
+    """True for the flat tree (or its keys) of a MambaIR model."""
+    return any("/self_attention/" in k for k in keys)
+
+
+def mambair_arch_from_flax(flat: Mapping[str, np.ndarray]) -> dict:
+    """``models.mambair.MambaIR``'s widths of a flat MambaIR tree: width,
+    state size and expansion from the first block's arrays, the group
+    depths counted from its keys."""
+    depths: dict[int, int] = {}
+    for key in flat:
+        m = re.match(r"layers/(\d+)/residual_group/blocks/(\d+)/", key)
+        if m:
+            i, j = int(m.group(1)), int(m.group(2))
+            depths[i] = max(depths.get(i, 0), j + 1)
+    a = "layers/0/residual_group/blocks/0/self_attention"
+    c = int(flat["conv_first/kernel"].shape[-1])
+    return {"embed_dim": c,
+            "depths": tuple(depths[i] for i in sorted(depths)),
+            "d_state": int(flat[f"{a}/A_logs/value"].shape[-1]),
+            "expand": int(flat[f"{a}/in_proj/kernel"].shape[-1]) // (2 * c)}
+
+
+def mambair_from_torch(state_dict: Mapping[str, "object"],
+                       depths=(6,) * 6) -> dict[str, np.ndarray]:
+    """Flat flax dict of a MambaIR checkpoint's state dict (MambaIR's own
+    names; the CAB's 1x1 convs (O, I, 1, 1) or dense (O, I))."""
+    flat: dict[str, np.ndarray] = {}
+    for src, dst, kind in mambair_mapping(depths):
+        if kind == "table":
+            flat[dst] = _to_np(state_dict[src]).astype(np.float32)
+            continue
+        if kind == "stack":
+            for k, w in enumerate(_to_np(state_dict[src])):
+                flat[f"{dst}/{k}/kernel"] = dense_weight(
+                    w.astype(np.float32))
+            continue
+        w = _to_np(state_dict[f"{src}.weight"]).astype(np.float32)
+        if kind == "norm":
+            flat[f"{dst}/scale"] = w
+        else:
+            flat[f"{dst}/kernel"] = _KIND_TRANSFORM[kind](w)
+        if f"{src}.bias" in state_dict:
+            flat[f"{dst}/bias"] = _to_np(
+                state_dict[f"{src}.bias"]).astype(np.float32)
+    return flat
 
 
 BN_EPS = 1e-5  # DAT's BatchNorm2d eps
@@ -439,6 +542,12 @@ def state_from_flax(flat: Mapping[str, np.ndarray],
     for src, dst, kind in mapping:
         if kind == "table":
             state[src] = np.asarray(flat[dst])
+            continue
+        if kind == "stack":  # one dense kernel a slice of the stack
+            state[src] = np.stack([
+                inv_dense_weight(flat[f"{dst}/{k}/kernel"])
+                for k in range(sum(key.startswith(f"{dst}/")
+                                   for key in flat))])
             continue
         if kind == "conv":
             state[f"{src}.weight"] = inv_conv_weight(flat[f"{dst}/kernel"])

@@ -135,6 +135,8 @@ class _ChannelAttention(nn.Module):
 
 
 class _CAB(nn.Module):
+    """The channel attention block (HAT's, and MambaIR's ``conv_blk``)."""
+
     def __init__(self, dim: int, device=None):
         super().__init__()
         self.cab = nn.Sequential(
@@ -142,6 +144,19 @@ class _CAB(nn.Module):
             nn.GELU(),
             nn.Conv2d(dim // COMPRESS, dim, 3, padding=1, device=device),
             _ChannelAttention(dim, device=device))
+
+    def gate(self, n):
+        """(z, w) of the block on the trunk map n: its output is z w[b],
+        z = conv3x3(GELU(conv3x3(n))) at n's pitch and w the (B, pitch)
+        sigmoid gate of mean_hw(z)."""
+        p, cab = n.shape[-1], self.cab
+        z = conv(F.gelu(conv(n, cab[0], pad=(p, 0, 1))), cab[2],
+                 pad=(p, 1, 0))
+        ca = cab[3].attention
+        w = z.mean(dim=(1, 2))
+        return z, torch.sigmoid(linear(F.relu(linear(w, ca[1],
+                                                     pad=(p, 0, 1))),
+                                       ca[3], pad=(p, 1, 0)))
 
 
 class HAB(nn.Module):
@@ -163,13 +178,7 @@ class HAB(nn.Module):
         attention branches and the MLP output, the term still to add."""
         x, n = _add_norm(x, r, self.norm1)
         p, c = x.shape[-1], self.norm1.normalized_shape[0]
-        cab = self.conv_block.cab
-        z = conv(F.gelu(conv(n, cab[0], pad=(p, 0, 1))), cab[2],
-                 pad=(p, 1, 0))
-        ca = cab[3].attention
-        w = z.mean(dim=(1, 2))
-        w = torch.sigmoid(linear(F.relu(linear(w, ca[1], pad=(p, 0, 1))),
-                                 ca[3], pad=(p, 1, 0)))
+        z, w = self.conv_block.gate(n)
         a = hat_attention(
             linear(n, self.attn.qkv, pad=(p, 3, 1)),
             self.attn.relative_position_bias_table,

@@ -1,12 +1,13 @@
 """The models' layer math on NHWC activations, over operands cast once.
 
-Every model of the port (``swin_unet``, ``cunet``, ``hat``, ``dat``) runs
-its layers through these helpers: a conv on a ``channels_last`` NCHW view of
-the (B, H, W, C) activation (no copy either way), a linear map, a
-LayerNorm, and the depth-to-space ``pixel_shuffle`` (``ops/kernel_math``,
-which kernel D's twin shares). Parameters stay float32 as loaded; each
-helper reads its layer's weight and bias in the activation's dtype (a
-conv weight channels_last) through ``weights``.
+Every model of the port (``swin_unet``, ``cunet``, ``hat``, ``dat``,
+``mambair``) runs its layers through these helpers: a conv on a
+``channels_last`` NCHW view of the (B, H, W, C) activation (no copy
+either way), a linear map, a LayerNorm, and the depth-to-space
+``pixel_shuffle`` (``ops/kernel_math``, which kernel D's twin shares).
+Parameters stay float32 as loaded; each helper reads its layer's weight
+and bias in the activation's dtype (a conv weight channels_last) through
+``weights``.
 
 ``cached`` is the one operand cache: a value built for a dtype is kept in
 the module's private ``_operands`` (``engine.exe_cache.module_tag``
@@ -19,11 +20,11 @@ eager, builds all it reads, so a CUDA graph captured after it replays no
 cast or re-lay of a parameter; a shallow copy of a model
 (``SwinUNet.packed_x_twin``) holds the same layers and their operands.
 
-HAT and DAT carry their ``embed_dim``-wide trunk maps at a row pitch
-(``pitch``), so that a bf16 row is whole 16-byte vectors and cuBLAS and
-cuDNN take their Hopper kernels (at C = 180, rows of 360 bytes kept
-cuBLAS on Ampere's ``align2`` GEMMs and made cuDNN copy every input to
-padded channels). The pad channels are zero.
+HAT, DAT and MambaIR carry their ``embed_dim``-wide trunk maps at a row
+pitch (``pitch``), so that a bf16 row is whole 16-byte vectors and
+cuBLAS and cuDNN take their Hopper kernels (at C = 180, rows of 360
+bytes kept cuBLAS on Ampere's ``align2`` GEMMs and made cuDNN copy every
+input to padded channels). The pad channels are zero.
 Such a model asks for it per call (``pad``): each of a layer's parts
 that reads or writes a trunk map gets its weight and bias zero-padded to
 the pitch (``widen``), built once per dtype as every operand; zeros in,
@@ -94,10 +95,12 @@ def widened(w: torch.Tensor, b: torch.Tensor, pad):
     """A layer's weight and bias for ``pad`` = (p, out, inp), the layer
     writing ``out`` and reading ``inp`` parts of trunk maps carried at
     pitch p: each such part of the weight's rows and the bias (out) and of
-    its columns (inp) zero-padded to p. A depthwise conv takes (p, 1, 0)."""
+    its columns (inp) zero-padded to p. A depthwise conv takes (p, 1, 0).
+    A layer without a bias has ``b`` None."""
     p, out, inp = pad
     if out:
-        w, b = widen(w, 0, out, p), widen(b, 0, out, p)
+        w = widen(w, 0, out, p)
+        b = None if b is None else widen(b, 0, out, p)
     if inp:
         w = widen(w, 1, inp, p)
     return w, b
@@ -105,7 +108,8 @@ def widened(w: torch.Tensor, b: torch.Tensor, pad):
 
 def weights(layer: nn.Module, dtype: torch.dtype, pad=None):
     """``layer``'s (weight, bias) in ``dtype``, a conv weight
-    channels_last; ``pad``: as ``widened``."""
+    channels_last, the bias None for a layer without one; ``pad``: as
+    ``widened``."""
     def build():
         w, b = layer.weight, layer.bias
         if pad is not None:
@@ -113,7 +117,7 @@ def weights(layer: nn.Module, dtype: torch.dtype, pad=None):
         w = w.to(dtype)
         if w.dim() == 4:
             w = w.contiguous(memory_format=torch.channels_last)
-        return w, b.to(dtype)
+        return w, None if b is None else b.to(dtype)
 
     return cached(layer, dtype if pad is None else (dtype, *pad), build)
 

@@ -31,6 +31,8 @@ _PORT = {
                       "from .npz weights with the pixel head"),
     "dat/photo": (32, "its attention kernels G and J are bf16 only and it "
                       "serves from .npz weights with the pixel head"),
+    "mambair/photo": (1, "its selective-scan kernel K is bf16 only and it "
+                         "serves from .npz weights with the pixel head"),
 }
 PORT_FAMILIES = tuple(_PORT)
 FAMILIES = MODEL_FAMILIES + PORT_FAMILIES
@@ -84,10 +86,10 @@ def refused_option(family: str, *, fp32: bool = False,
                    pack_x: bool = False) -> Optional[str]:
     """The first option the family cannot run with, by its CLI name, or
     None. The port's own families (hat/photo: kernel G; dat/photo:
-    kernels G and J; all bf16 only) run through their own modules: no
-    ``--precision tf32``, no ``.onnx`` artifact (``build``,
-    ``--graph-exact``) and no packed-x head (``refusal_reason`` says
-    why)."""
+    kernels G and J; mambair/photo: kernel K; all bf16 only) run through
+    their own modules: no ``--precision tf32``, no ``.onnx`` artifact
+    (``build``, ``--graph-exact``) and no packed-x head
+    (``refusal_reason`` says why)."""
     if family not in PORT_FAMILIES:
         return None
     for hit, name in ((fp32, "--precision tf32"),
@@ -141,14 +143,17 @@ def create_model(family: str, scale: int, noise: int = -1,
                  depths: Optional[tuple] = None,
                  device=None, packed_x_head: bool = False,
                  hat_arch: Optional[dict] = None,
-                 dat_arch: Optional[dict] = None):
+                 dat_arch: Optional[dict] = None,
+                 mambair_arch: Optional[dict] = None):
     """Build the torch module + spec for a (family, scale, noise) choice.
 
     cunet/art gives ``CUNet`` (scale 1) or ``UpCUNet`` (scale 2); the
     swin_unet options below do not apply to it. hat/photo gives ``HAT``
     at its published widths, or those of ``hat_arch`` (``HAT``'s keyword
     arguments, ``checkpoint_arch``), dat/photo ``DAT`` at its published
-    widths or those of ``dat_arch``; neither has a packed-x head.
+    widths or those of ``dat_arch``, mambair/photo ``MambaIR`` at its
+    published widths or those of ``mambair_arch``; none has a packed-x
+    head.
     ``fused_block`` routes every Swin block through kernel B
     (ops/swin_block.py); otherwise the blocks are dense math around
     kernel A (ops/window_attention.py).
@@ -158,14 +163,15 @@ def create_model(family: str, scale: int, noise: int = -1,
     from waifu2x_tensorrt_tpu_torch.models.cunet import CUNet, UpCUNet
     from waifu2x_tensorrt_tpu_torch.models.dat import DAT
     from waifu2x_tensorrt_tpu_torch.models.hat import HAT
+    from waifu2x_tensorrt_tpu_torch.models.mambair import MambaIR
     from waifu2x_tensorrt_tpu_torch.models.swin_unet import SwinUNet
 
     spec = get_spec(family, scale, noise)
     if family in PORT_FAMILIES:
         if packed_x_head:
             raise ValueError(f"{family} has no packed-x head")
-        cls, arch = (HAT, hat_arch) if spec.arch == "hat" else (DAT,
-                                                                 dat_arch)
+        cls, arch = {"hat": (HAT, hat_arch), "dat": (DAT, dat_arch),
+                     "mambair": (MambaIR, mambair_arch)}[spec.arch]
         module = cls(dtype=dtype or torch.float32, device=device,
                      **(arch or {})).eval()
         return module, spec
@@ -202,11 +208,13 @@ def _mapping(module) -> list[tuple[str, str, str]]:
         cunet_mapping,
         dat_mapping,
         hat_mapping,
+        mambair_mapping,
         swin_mapping,
     )
     from waifu2x_tensorrt_tpu_torch.models.cunet import CUNet
     from waifu2x_tensorrt_tpu_torch.models.dat import DAT
     from waifu2x_tensorrt_tpu_torch.models.hat import HAT
+    from waifu2x_tensorrt_tpu_torch.models.mambair import MambaIR
 
     if isinstance(module, CUNet):
         return cunet_mapping(module.scale)
@@ -214,6 +222,8 @@ def _mapping(module) -> list[tuple[str, str, str]]:
         return hat_mapping(module.depths)
     if isinstance(module, DAT):
         return dat_mapping(module.depths)
+    if isinstance(module, MambaIR):
+        return mambair_mapping(module.depths)
     return swin_mapping(module.scale, module.depths)
 
 
@@ -226,6 +236,10 @@ def _flax_leaves(module) -> dict[str, tuple]:
         if kind == "table":
             leaves[dst] = tuple(state[src].shape)
             continue
+        if kind == "stack":  # (slices, O, I) -> a (I, O) kernel a slice
+            n, o, i = state[src].shape
+            leaves.update({f"{dst}/{k}/kernel": (i, o) for k in range(n)})
+            continue
         w = tuple(state[f"{src}.weight"].shape)
         if kind == "conv":  # torch (O, I, kH, kW) -> flax (kH, kW, I, O)
             leaves[f"{dst}/kernel"] = (w[2], w[3], w[1], w[0])
@@ -235,7 +249,8 @@ def _flax_leaves(module) -> dict[str, tuple]:
             leaves[f"{dst}/kernel"] = (w[1], w[0])
         elif kind in ("norm", "bn"):
             leaves[f"{dst}/scale"] = w
-        leaves[f"{dst}/bias"] = tuple(state[f"{src}.bias"].shape)
+        if f"{src}.bias" in state:
+            leaves[f"{dst}/bias"] = tuple(state[f"{src}.bias"].shape)
     return leaves
 
 
@@ -283,17 +298,22 @@ def checkpoint_arch(path: str | Path) -> dict:
     width twice ``patch_conv1``'s output channels (flax kernel (3, 3, 3,
     base_dim / 2)); for a HAT file its ``hat_arch``
     (``convert.hat_arch_from_flax``), for a DAT file its ``dat_arch``
-    (``convert.dat_arch_from_flax``). Reads the keys and one array a
-    size only."""
+    (``convert.dat_arch_from_flax``), for a MambaIR file its
+    ``mambair_arch`` (``convert.mambair_arch_from_flax``). Reads the keys
+    and one array a size only."""
     from waifu2x_tensorrt_tpu_torch.models.convert import (
         dat_arch_from_flax,
         hat_arch_from_flax,
         is_dat_tree,
         is_hat_tree,
+        is_mambair_tree,
+        mambair_arch_from_flax,
         swin_depths_from_flax,
     )
 
     with np.load(Path(path)) as data:
+        if is_mambair_tree(data.files):
+            return {"mambair_arch": mambair_arch_from_flax(data)}
         if is_hat_tree(data.files):
             return {"hat_arch": hat_arch_from_flax(data)}
         if is_dat_tree(data.files):
@@ -329,8 +349,9 @@ def load_into(module, flat: dict[str, np.ndarray]) -> None:
     )
     from waifu2x_tensorrt_tpu_torch.models.dat import DAT
     from waifu2x_tensorrt_tpu_torch.models.hat import HAT
+    from waifu2x_tensorrt_tpu_torch.models.mambair import MambaIR
 
-    if isinstance(module, (HAT, DAT)):
+    if isinstance(module, (HAT, DAT, MambaIR)):
         state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
                  for k, v in state_from_flax(flat, _mapping(module)).items()}
     else:

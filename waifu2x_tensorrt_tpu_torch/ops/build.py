@@ -52,8 +52,9 @@ _SIGNATURES = {
     "w2x_channel_attention": [_P] * 5 + [_I] * 5 + [_P],
     "w2x_channel_attention_scratch": [_I] * 3,
     "w2x_bias_act": [_P] * 3 + [_I] * 5 + [ctypes.c_float] + [_I] * 3 + [_P],
-    "w2x_add_norm": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
+    "w2x_add_norm": [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P],
     "w2x_add_norm_info": [_I, _I, _IP, _IP],
+    "w2x_selective_scan": [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P],
 }
 
 # entry points that return other than a CUDA error code

@@ -1,4 +1,5 @@
-// Kernel I: HAT's residual sums and their LayerNorm in one pass.
+// Kernel I: HAT's, DAT's and MambaIR's residual sums and their LayerNorm
+// in one pass.
 //
 // Replaces no TPU kernel: the JAX package has no HAT. In models/hat.py
 // every LayerNorm reads a residual sum that a torch add (or addcmul) wrote
@@ -11,9 +12,13 @@
 //   norm:        n = LN(x)
 //   add:         y = bf16(x + r),                   n = LN(y)
 //   scaled add:  t = bf16(x + r), y = bf16(t + z s[b]), n = LN(y)
+//   skip:        t = bf16(x k), y = bf16(t + r),       n = LN(y)
+//   skip gate:   t = bf16(x k), y = bf16(t + z s[b]),  n = LN(y)
 // with s[b] the row's image's (C,) channel weights (HAB's channel
-// attention times its conv scale; torch.addcmul's fp32 product and sum,
-// one rounding). LN(y) = (y - mean) rstd gamma + beta, mean and the
+// attention times its conv scale, or MambaIR's CAB gate; torch.addcmul's
+// fp32 product and sum, one rounding) and k the (C,) per-channel skip
+// scale of MambaIR's residuals (x * skip_scale, one rounding, as torch's
+// bf16 multiply). LN(y) = (y - mean) rstd gamma + beta, mean and the
 // biased variance over the row in fp32 (two passes over the registers),
 // rstd = rsqrt(var + eps), gamma and beta bf16, one rounding at the end:
 // torch's bf16 layer_norm up to the order of its fp32 sums.
@@ -59,13 +64,27 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-enum Mode { kNorm = 0, kAdd = 1, kScaledAdd = 2 };
+enum Mode {
+  kNorm = 0, kAdd = 1, kScaledAdd = 2, kSkip = 3, kSkipGate = 4
+};
+
+// which inputs a mode reads beside x
+__host__ __device__ constexpr bool reads_r(int m) {
+  return m == kAdd || m == kScaledAdd || m == kSkip;
+}
+__host__ __device__ constexpr bool reads_z(int m) {
+  return m == kScaledAdd || m == kSkipGate;
+}
+__host__ __device__ constexpr bool reads_k(int m) {
+  return m == kSkip || m == kSkipGate;
+}
 
 struct AddNormArgs {
   const bf16* x;      // (rows, C)
-  const bf16* r;      // (rows, C), null for kNorm
-  const bf16* z;      // (rows, C), kScaledAdd only
-  const bf16* s;      // (rows / hw, P), kScaledAdd only
+  const bf16* r;      // (rows, C), kAdd, kScaledAdd and kSkip
+  const bf16* z;      // (rows, C), kScaledAdd and kSkipGate
+  const bf16* s;      // (rows / hw, P), with z
+  const bf16* k;      // (C,), kSkip and kSkipGate
   const bf16* gamma;  // (C,)
   const bf16* beta;   // (C,)
   bf16* y;            // (rows, P): the sum; null for kNorm
@@ -126,11 +145,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 // A lane's fixed place in every pair of rows: for each of its NV vectors
 // and their two quads, the row in the pair (0 / 1), the first channel
 // (a pad quad's is C or more) and gamma and beta there (4 bf16 each,
-// packed; zero for a pad quad).
+// packed; zero for a pad quad), and k there in the skip modes.
 template <int NV>
 struct Lane {
   int row_of[NV][2], ch[NV][2];
-  uint2 g[NV][2], b[NV][2];
+  uint2 g[NV][2], b[NV][2], k[NV][2];
 };
 
 // One pair's loads: the lane's vectors of x (r, z), s for each quad, and
@@ -154,7 +173,7 @@ __device__ __forceinline__ void load_pair(const AddNormArgs& a,
   const int row0 = 2 * p;
   const bool two = row0 + 1 < a.rows;
   int image0 = 0, image1 = 0;
-  if constexpr (MODE == kScaledAdd) {
+  if constexpr (reads_z(MODE)) {
     image0 = row0 / a.hw;
     image1 = two ? (row0 + 1) / a.hw : image0;
   }
@@ -169,8 +188,8 @@ __device__ __forceinline__ void load_pair(const AddNormArgs& a,
     in.quads[i] = quads;
     const long long vi = (long long)p * vecs + k;
     in.x[i] = load(a.x, vi, quads);
-    if constexpr (MODE != kNorm) in.r[i] = load(a.r, vi, quads);
-    if constexpr (MODE == kScaledAdd) {
+    if constexpr (reads_r(MODE)) in.r[i] = load(a.r, vi, quads);
+    if constexpr (reads_z(MODE)) {
       in.z[i] = load(a.z, vi, quads);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
@@ -199,9 +218,13 @@ __device__ __forceinline__ void finish_pair(const AddNormArgs& a,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float y = elem(in.x[i], 4 * h + j);
-        if constexpr (MODE != kNorm)
+        if constexpr (reads_k(MODE)) {
+          const unsigned kw = j < 2 ? ln.k[i][h].x : ln.k[i][h].y;
+          y = round_to<bf16>(__fmul_rn(y, (j & 1) ? hi(kw) : lo(kw)));
+        }
+        if constexpr (reads_r(MODE))
           y = round_to<bf16>(__fadd_rn(y, elem(in.r[i], 4 * h + j)));
-        if constexpr (MODE == kScaledAdd) {
+        if constexpr (reads_z(MODE)) {
           const unsigned sw = j < 2 ? in.s[i][h].x : in.s[i][h].y;
           y = round_to<bf16>(__fadd_rn(
               y, __fmul_rn(elem(in.z[i], 4 * h + j), (j & 1) ? hi(sw)
@@ -281,6 +304,9 @@ __global__ void __launch_bounds__(kThreads) add_norm_kernel(
                                 + ln.ch[i][h] / 4) : none;
       ln.b[i][h] = live ? __ldg(reinterpret_cast<const uint2*>(a.beta)
                                 + ln.ch[i][h] / 4) : none;
+      if constexpr (reads_k(MODE))
+        ln.k[i][h] = live ? __ldg(reinterpret_cast<const uint2*>(a.k)
+                                  + ln.ch[i][h] / 4) : none;
     }
   }
   // pairs a warp has in flight: the norm alone reads one map, so it
@@ -318,6 +344,8 @@ Kernel kernel_for(int c, int mode) {
   if (mode == kNorm) return pick<kNorm>(c);
   if (mode == kAdd) return pick<kAdd>(c);
   if (mode == kScaledAdd) return pick<kScaledAdd>(c);
+  if (mode == kSkip) return pick<kSkip>(c);
+  if (mode == kSkipGate) return pick<kSkipGate>(c);
   return nullptr;
 }
 
@@ -326,15 +354,20 @@ Kernel kernel_for(int c, int mode) {
 }  // namespace w2x
 
 // x, r, z, y, n (rows, P) and s (rows / hw, P) bf16, 16-byte aligned;
-// gamma, beta (C,) bf16; C real channels of each row of pitch P, both
-// multiples of 4, P up to 256. r null: norm only (y unused); z null:
-// add; both set: scaled add (s set).
+// gamma, beta and k (C,) bf16; C real channels of each row of pitch P,
+// both multiples of 4, P up to 256. k null: r null is the norm only (y
+// unused), z null the add, both set the scaled add (s set). k set: r set
+// and z null is the skip, r null and z set the skip gate.
 extern "C" int w2x_add_norm(const void* x, const void* r, const void* z,
-                            const void* s, const void* gamma,
-                            const void* beta, void* y, void* n, int rows,
-                            int c, int p, int hw, float eps, void* stream) {
+                            const void* s, const void* k,
+                            const void* gamma, const void* beta, void* y,
+                            void* n, int rows, int c, int p, int hw,
+                            float eps, void* stream) {
   using namespace w2x::hat;
-  const int mode = r == nullptr ? kNorm : z == nullptr ? kAdd : kScaledAdd;
+  const int mode = k != nullptr
+      ? (r != nullptr && z == nullptr ? kSkip
+         : r == nullptr && z != nullptr ? kSkipGate : -1)
+      : r == nullptr ? kNorm : z == nullptr ? kAdd : kScaledAdd;
   const Kernel kernel = kernel_for(p, mode);
   if (kernel == nullptr || rows < 0 || hw <= 0 || c <= 0 || c % 4 ||
       c > p)
@@ -355,6 +388,7 @@ extern "C" int w2x_add_norm(const void* x, const void* r, const void* z,
                       static_cast<const bf16*>(r),
                       static_cast<const bf16*>(z),
                       static_cast<const bf16*>(s),
+                      static_cast<const bf16*>(k),
                       static_cast<const bf16*>(gamma),
                       static_cast<const bf16*>(beta),
                       static_cast<bf16*>(y),
@@ -366,7 +400,7 @@ extern "C" int w2x_add_norm(const void* x, const void* r, const void* z,
 }
 
 // Registers a thread and resident CTAs an SM of the kernel for the pitch
-// P and the mode (0 norm, 1 add, 2 scaled add).
+// P and the mode (0 norm, 1 add, 2 scaled add, 3 skip, 4 skip gate).
 extern "C" int w2x_add_norm_info(int c, int mode, int* regs,
                                  int* ctas_per_sm) {
   using namespace w2x::hat;
